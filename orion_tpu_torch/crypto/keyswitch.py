@@ -1,0 +1,270 @@
+"""Hybrid key-switching, basis conversion and rescale on int64 tensors.
+
+Counterpart of `orion_tpu/crypto/keyswitch.py`.  The algorithms are the
+standard RNS-CKKS set (full-RNS HPS fast basis conversion with a float32
+correction term, hybrid gadget decomposition, ModDown by the special
+primes).
+
+Dispatch: `ring_ntt` / `ring_intt`, `ks_decompose`, `ks_finish` and
+`keyswitch` launch the hand-written CUDA kernels (`kernels/`) when given
+CUDA tensors, at every level, and run the plain PyTorch versions on CPU
+tensors.  `ks_finish_raw` and the elementwise glue of the fused epilogues
+(`mod_drop_rescale`, `rescale_poly`) are plain torch ops on either device,
+as orion_tpu computes them in jnp outside Pallas.
+
+Float32 v-correction: the HPS correction term only needs to be within +-1
+of round(sum z_m / q_m); an off-by-one adds a multiple of the digit
+modulus, which ModDown's division by P absorbs.  Both packages compute it
+in the same float32 order, so their ciphertexts agree bit for bit.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..kernels.keyswitch import (fbc, ks_decompose, ks_finish, ks_inner,
+                                 mod_down)
+from ..kernels.ntt import ntt_fwd, ntt_inv
+from .context import CKKSContext, DigitTables, LevelKSTables
+from .modops import sub_mod
+
+__all__ = ["DevDigit", "RingRows", "DevLevel", "dev_level", "ring_ntt",
+           "ring_intt", "fbc", "ks_decompose", "ks_finish", "keyswitch",
+           "ks_finish_raw", "mod_down", "mod_drop_rescale", "rescale_poly"]
+
+
+@dataclass
+class DevDigit:
+    src_lo: int                   # first source limb index (within Q rows)
+    src_hi: int
+    qhat_inv: torch.Tensor        # (alpha, 1)
+    qhat_inv_shoup: torch.Tensor
+    conv: torch.Tensor            # (alpha, n_t, 1)
+    conv_shoup: torch.Tensor
+    d_mod_t: torch.Tensor         # (n_t, 1)
+    d_mod_t_shoup: torch.Tensor
+    src_q_f32: torch.Tensor       # (alpha, 1) float32
+    src_p: torch.Tensor           # (alpha, 1)
+
+
+@dataclass
+class RingRows:
+    """NTT tables of a list of prime rows (all contiguous, on the device).
+
+    The kernels read the merged-psi twiddles with their Shoup companions;
+    the plain versions read the four-step tables `t4`."""
+    p: torch.Tensor               # (L,)
+    tw: torch.Tensor              # (L, N)
+    tw_shoup: torch.Tensor
+    itw: torch.Tensor
+    itw_shoup: torch.Tensor
+    ninv: torch.Tensor            # (L,)
+    ninv_shoup: torch.Tensor
+    t4: dict
+
+    @classmethod
+    def from_ctx(cls, ctx: CKKSContext, rows) -> "RingRows":
+        d = ctx.dev
+        idx = torch.as_tensor(list(rows), dtype=torch.long,
+                              device=ctx.device)
+        return cls(d["p"][idx], d["tw"][idx], d["tw_shoup"][idx],
+                   d["itw"][idx], d["itw_shoup"][idx], d["ninv"][idx],
+                   d["ninv_shoup"][idx],
+                   {k[3:]: d[k][idx] for k in ctx.t4_keys})
+
+    def rows(self, lo: int, hi: int) -> "RingRows":
+        return RingRows(self.p[lo:hi], self.tw[lo:hi], self.tw_shoup[lo:hi],
+                        self.itw[lo:hi], self.itw_shoup[lo:hi],
+                        self.ninv[lo:hi], self.ninv_shoup[lo:hi],
+                        {k: v[lo:hi] for k, v in self.t4.items()})
+
+
+@dataclass
+class DevLevel:
+    """All device tables needed to run ops at one ciphertext level."""
+    level: int
+    q: RingRows                   # Q rows 0..level
+    t: RingRows                   # extended rows: Q rows + specials
+    s: RingRows                   # special rows
+    q_pinv: torch.Tensor          # Montgomery constants of the Q rows
+    q_rmod: torch.Tensor
+    q_rshoup: torch.Tensor
+    t_pinv: torch.Tensor          # ... and of the extended rows (lean keys)
+    t_rmod: torch.Tensor
+    t_rshoup: torch.Tensor
+    digits: list[DevDigit]
+    moddown: DevDigit
+    pinv_mod_q: torch.Tensor      # (l+1, 1)
+    pinv_mod_q_shoup: torch.Tensor
+    qlast_mod_t: torch.Tensor     # (l, 1)
+    qlast_inv: torch.Tensor
+    qlast_inv_shoup: torch.Tensor
+    qlast_half: int               # (q_l + 1) // 2
+    ksk_rows: tuple               # global prime rows used by this level
+    ksk_rows_idx: torch.Tensor    # the same, as an index tensor
+    ring_n: int
+    # fused ModDown+rescale (divide by P*q_l in one basis conversion);
+    # None at level 0
+    dropdown: DevDigit | None = None
+    dqinv: torch.Tensor | None = None
+    dqinv_shoup: torch.Tensor | None = None
+    p_mod_q: torch.Tensor | None = None
+    p_mod_q_shoup: torch.Tensor | None = None
+    # tables the kernels build from the above, cached per level
+    kernel_tables: dict = field(default_factory=dict)
+
+    def kernel_row_map(self, trimmed: bool) -> torch.Tensor:
+        """Key row of each extended row: itself for a trimmed key, the
+        global prime row for a full-chain key."""
+        key = "rows_trimmed" if trimmed else "rows_full"
+        if key not in self.kernel_tables:
+            self.kernel_tables[key] = (
+                torch.arange(len(self.ksk_rows), device=self.ksk_rows_idx.device)
+                if trimmed else self.ksk_rows_idx.clone())
+        return self.kernel_tables[key]
+
+
+def _col(ctx: CKKSContext, x) -> torch.Tensor:
+    return ctx.to_device(np.asarray(x)[:, None])
+
+
+def _dev_digit(dt: DigitTables, ctx: CKKSContext) -> DevDigit:
+    src_p = np.array([ctx.primes[i] for i in dt.src_idx], np.int64)
+    in_q = dt.src_idx[0] < ctx.n_q
+    return DevDigit(
+        src_lo=dt.src_idx[0] if in_q else 0,
+        src_hi=(dt.src_idx[-1] + 1) if in_q else 0,
+        qhat_inv=_col(ctx, dt.qhat_inv),
+        qhat_inv_shoup=_col(ctx, dt.qhat_inv_shoup),
+        conv=ctx.to_device(dt.conv[:, :, None]),
+        conv_shoup=ctx.to_device(dt.conv_shoup[:, :, None]),
+        d_mod_t=_col(ctx, dt.d_mod_t),
+        d_mod_t_shoup=_col(ctx, dt.d_mod_t_shoup),
+        src_q_f32=torch.as_tensor(dt.src_q[:, None], device=ctx.device),
+        src_p=_col(ctx, src_p),
+    )
+
+
+def dev_level(ctx: CKKSContext, level: int) -> DevLevel:
+    """The level's device tables, built once per context and level."""
+    cache = ctx.__dict__.setdefault("_dev_levels", {})
+    if level not in cache:
+        cache[level] = _build_dev_level(ctx, level)
+    return cache[level]
+
+
+def _build_dev_level(ctx: CKKSContext, level: int) -> DevLevel:
+    d = ctx.dev
+    lt: LevelKSTables = ctx.ks_tables[level]
+    nq_rows = list(range(level + 1))
+    sp_rows = list(range(ctx.n_q, ctx.n_all))
+    t_rows = nq_rows + sp_rows
+    t_idx = torch.as_tensor(t_rows, dtype=torch.long, device=ctx.device)
+    q_idx = t_idx[: level + 1]
+
+    out = DevLevel(
+        level=level,
+        q=RingRows.from_ctx(ctx, nq_rows),
+        t=RingRows.from_ctx(ctx, t_rows),
+        s=RingRows.from_ctx(ctx, sp_rows),
+        q_pinv=d["pinv"][q_idx], q_rmod=d["r_mod"][q_idx],
+        q_rshoup=d["r_shoup"][q_idx],
+        t_pinv=d["pinv"][t_idx], t_rmod=d["r_mod"][t_idx],
+        t_rshoup=d["r_shoup"][t_idx],
+        digits=[_dev_digit(dt, ctx) for dt in lt.digits],
+        moddown=_dev_digit(lt.moddown, ctx),
+        pinv_mod_q=_col(ctx, lt.pinv_mod_q),
+        pinv_mod_q_shoup=_col(ctx, lt.pinv_mod_q_shoup),
+        qlast_mod_t=_col(ctx, lt.qlast_mod_t),
+        qlast_inv=_col(ctx, lt.qlast_inv),
+        qlast_inv_shoup=_col(ctx, lt.qlast_inv_shoup),
+        qlast_half=(ctx.primes[level] + 1) // 2,
+        ksk_rows=tuple(t_rows),
+        ksk_rows_idx=t_idx,
+        ring_n=ctx.n,
+    )
+    if lt.dropdown is not None:
+        out.dropdown = _dev_digit(lt.dropdown, ctx)
+        out.dqinv = _col(ctx, lt.dqinv_mod_q)
+        out.dqinv_shoup = _col(ctx, lt.dqinv_mod_q_shoup)
+        out.p_mod_q = _col(ctx, lt.p_mod_q)
+        out.p_mod_q_shoup = _col(ctx, lt.p_mod_q_shoup)
+        # divisor rows of the fused drop: [specials..., q_l]
+        out.kernel_tables["drop_rows"] = RingRows.from_ctx(
+            ctx, sp_rows + [level])
+    return out
+
+
+# ------------------------------------------------------------------ #
+#  Transform seam                                                    #
+# ------------------------------------------------------------------ #
+
+def ring_ntt(a, rr: RingRows):
+    """Forward NTT of (..., L, N) over the rows of `rr`: the `ntt_fwd`
+    kernel on a CUDA tensor, the four-step torch transform on the CPU."""
+    return ntt_fwd(a.contiguous(), rr)
+
+
+def ring_intt(a, rr: RingRows):
+    """Inverse NTT (see ring_ntt): the `ntt_inv` kernel or `intt4`."""
+    return ntt_inv(a.contiguous(), rr)
+
+
+# ------------------------------------------------------------------ #
+#  Key switching                                                     #
+# ------------------------------------------------------------------ #
+
+def keyswitch(c_ntt, dl: DevLevel, ksk_data, ksk_shoup):
+    """Switch poly c (level+1, N, NTT domain) with a hybrid KSK: the
+    ks_decompose and ks_finish kernels back to back on a CUDA tensor."""
+    return ks_finish(ks_decompose(c_ntt, dl), dl, ksk_data, ksk_shoup)
+
+
+def ks_finish_raw(ext, dl: DevLevel, ksk_data, ksk_shoup=None,
+                  trimmed=False):
+    """Inner product WITHOUT ModDown: (2, n_t, N) extended-basis acc
+    (plain torch ops on either device)."""
+    return ks_inner(ext, dl, ksk_data, ksk_shoup, trimmed)
+
+
+def mod_drop_rescale(acc, dl: DevLevel):
+    """Divide (..., n_t, N) NTT acc by P*q_l in ONE basis conversion.
+
+    Returns (..., level, N): the fused ModDown+rescale epilogue.  One
+    iNTT over the (n_sp+1) divisor rows + one FBC + one NTT over the
+    (level) surviving rows replaces ModDown's full round trip followed by
+    rescale's second one.
+    """
+    if acc.dim() > 2:
+        # fbc contracts over a leading source-limb axis and so does not
+        # broadcast over batch dims: unroll the (small) leading axis
+        return torch.stack([mod_drop_rescale(acc[i], dl)
+                            for i in range(acc.shape[0])])
+    lvl = dl.level
+    div = torch.cat([acc[lvl + 1:], acc[lvl:lvl + 1]])  # [specials..., q_l]
+    z = ring_intt(div, dl.kernel_tables["drop_rows"])
+    qp = dl.q.p[:lvl, None]
+    lift = fbc(z, dl.dropdown, qp)
+    lift_ntt = ring_ntt(lift, dl.q.rows(0, lvl))
+    diff = sub_mod(acc[:lvl], lift_ntt, qp)
+    return diff * dl.dqinv % qp
+
+
+def rescale_poly(c, dl: DevLevel):
+    """Drop the last limb of c (..., level+1, N, NTT) with centered rounding.
+
+    Returns (..., level, N).  Caller adjusts level/scale metadata.
+    """
+    lvl = dl.level
+    qp = dl.q.p[:lvl, None]
+    last = ring_intt(c[..., lvl:lvl + 1, :], dl.q.rows(lvl, lvl + 1))[..., 0, :]
+    # centered lift of `last` into each remaining modulus
+    red = last[..., None, :] % qp
+    v = (last >= dl.qlast_half)[..., None, :]
+    y = sub_mod(red, torch.where(v, dl.qlast_mod_t, 0), qp)
+    y_ntt = ring_ntt(y, dl.q.rows(0, lvl))
+    diff = sub_mod(c[..., :lvl, :], y_ntt, qp)
+    return diff * dl.qlast_inv % qp

@@ -1,0 +1,346 @@
+"""BSGS linear transforms with hoisted rotations and deferred ModDown.
+
+Counterpart of `orion_tpu/crypto/lintrans_scan.py`.  orion_tpu writes the
+rotation loops as `lax.scan` so its XLA programs stay small; the port runs
+eagerly, so each scan is a Python loop over the same per-step inputs, in
+the same order.
+
+Structure per transform (diag idx = g*n1 + b):
+  1. baby steps : rot_b(ct) for every needed b, sharing ONE decomposition
+                  of the ciphertext (hoisting) across rotations;
+  2. diagonals  : acc[g] += pt_d * rot[b_pos(d)]      (elementwise)
+  3. giant steps: out += rot_{g*n1}(acc[g])           (key-switch each)
+
+Rotation keys for a set of amounts are stacked once, pre-permuted by the
+inverse automorphism and trimmed to the level (KeyPack), cached per unique
+(amounts, level).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from . import placement
+from .ciphertext import Ciphertext
+from .keyswitch import (dev_level, ks_decompose, ks_finish, ks_finish_raw,
+                        mod_drop_rescale)
+from .lintrans import choose_n1
+from .modops import add_mod
+from .ops import Evaluator
+
+# diagonals multiplied per batched product in the diagonal step: bounds
+# the (chunk, 2, L, N) temporary while keeping the loop short
+_DIAG_CHUNK = 32
+
+
+@dataclass
+class KeyPack:
+    """Stacked galois keys + NTT-domain permutations for rotation amounts.
+
+    Keys are stored PRE-PERMUTED by the inverse automorphism, so a rotation
+    becomes: inner-product the (hoisted, unpermuted) decomposition with the
+    pre-permuted key, ModDown, then apply ONE permutation to the result:
+    rot_b(ct) = tau_b(c0 + MD(sum_j D_j tau_b^-1(k_j))).
+    """
+    amounts: tuple
+    perms: torch.Tensor            # (n, N) long: forward permutation tau_b
+    ksk: torch.Tensor              # (n, dnum, 2, rows, N), tau_b^-1-applied
+    ksk_shoup: torch.Tensor
+    level: int | None = None       # if set, ksk is trimmed to this level
+    cache_key: tuple = None
+
+
+def build_key_pack(ev: Evaluator, amounts, level: int | None = None) -> KeyPack:
+    """Stack keys for the given rotation amounts (cached on the evaluator).
+
+    With `level` given, keys are TRIMMED to that level's digit count and
+    prime rows: (dnum_l, 2, level+1+n_sp, N) instead of the full chain.
+    Keys keep their Shoup companions: the port runs no bootstrapped chain
+    yet, where orion_tpu drops them (lean keys).
+    """
+    amounts = tuple(sorted(set(int(a) % ev.ctx.slots for a in amounts)
+                           - {0}))
+    key = (amounts, level)
+    if key in ev._key_packs:
+        return ev._key_packs[key]
+    ctx = ev.ctx
+    dev = ctx.device
+    if level is not None:
+        dl = dev_level(ctx, level)
+        dnum_l = len(dl.digits)
+        rows = dl.ksk_rows_idx
+    perms, ks, kss = [], [], []
+    for a in amounts:
+        k = ctx.galois_element(a)
+        gk = ev.keys.galois_key(k)
+        perms.append(np.asarray(ctx.automorphism_perm(k), np.int64))
+        inv_perm = torch.as_tensor(
+            ctx.automorphism_perm(pow(k, -1, ctx.gal_mod)),
+            dtype=torch.long, device=dev)
+        kd, ksd = gk.data, gk.shoup
+        if level is not None:
+            kd = kd[:dnum_l][:, :, rows]
+            ksd = ksd[:dnum_l][:, :, rows]
+        ks.append(kd[..., inv_perm])
+        kss.append(ksd[..., inv_perm])
+    pack = KeyPack(
+        amounts=amounts,
+        perms=placement.buffer(np.stack(perms), dev),
+        ksk=torch.stack(ks),
+        ksk_shoup=torch.stack(kss),
+        level=level,
+        cache_key=key,
+    )
+    ev._key_packs[key] = pack
+    return pack
+
+
+def rotate_scan(ev: Evaluator, ct: Ciphertext, pack: KeyPack):
+    """All rotations of ct for the pack's amounts, sharing one hoisted
+    decomposition.  Returns (n_amounts, 2, L, N) in pack.amounts order."""
+    if pack.level is not None and pack.level != ct.level:
+        raise ValueError(
+            f"KeyPack trimmed to level {pack.level} used at level {ct.level}")
+    if not pack.amounts:
+        return ct.data.new_zeros((0,) + tuple(ct.data.shape))
+    dl = dev_level(ev.ctx, ct.level)
+    qp = dl.q.p[:, None]
+    ext = ks_decompose(ct.data[1], dl)  # shared across all rotations
+    trimmed = pack.level is not None
+    rots = []
+    for slot in range(len(pack.amounts)):
+        ks = ks_finish(ext, dl, pack.ksk[slot], pack.ksk_shoup[slot],
+                       trimmed=trimmed)
+        t0 = add_mod(ct.data[0], ks[0], qp)
+        rots.append(torch.stack([t0, ks[1]])[..., pack.perms[slot]])
+    return torch.stack(rots)
+
+
+@dataclass
+class ScanTransform:
+    """One compiled (slots x slots) block."""
+    level: int
+    n1: int
+    pt_scale: float
+    pts: torch.Tensor        # (n_d, L+1, N), pre-rotated by -g*n1
+    b_pos: torch.Tensor      # (n_d,) long: index into the baby-rot stack
+    g_pos: torch.Tensor      # (n_d,) long: index into the giant accumulator
+    babies_full: tuple       # distinct baby values in b_pos order (may incl 0)
+    babies: tuple            # baby rotation amounts needed (excluding 0)
+    giants: tuple            # giant rotation amounts per accumulator row
+    n_giants: int
+
+
+def compile_transform_scan(encoder, diagonals, level, slots,
+                           bsgs_ratio=2.0, pt_scale=None) -> ScanTransform:
+    """Encode the diagonals (pre-rotated for BSGS) at scale q_level, or at
+    `pt_scale` when given."""
+    ctx = encoder.ctx
+    ql = float(pt_scale) if pt_scale is not None else float(
+        ctx.q_primes[level])
+    n1 = choose_n1(len(diagonals), slots, bsgs_ratio)
+
+    entries = []
+    for idx, vec in diagonals.items():
+        g, b = divmod(int(idx) % slots, n1)
+        v = np.asarray(vec)
+        dtype = np.complex128 if np.iscomplexobj(v) else np.float64
+        v = v.astype(dtype)
+        if v.shape[0] != slots:
+            pad = np.zeros(slots, dtype=dtype)
+            pad[: v.shape[0]] = v
+            v = pad
+        entries.append((g, b, np.roll(v, g * n1)))
+
+    giants = sorted({g for g, _, _ in entries})
+    babies = sorted({b for _, b, _ in entries})
+    g_index = {g: i for i, g in enumerate(giants)}
+    b_index = {b: i for i, b in enumerate(babies)}
+
+    vecs = np.stack([v for _, _, v in entries])
+    # the plain product needs no Shoup companions (orion_tpu stores them)
+    data, _ = encoder.encode_batch(vecs, level=level, scale=ql)
+    dev = ctx.device
+    return ScanTransform(
+        level=level, n1=n1, pt_scale=ql,
+        pts=placement.buffer(data, dev),
+        b_pos=placement.buffer([b_index[b] for _, b, _ in entries], dev),
+        g_pos=placement.buffer([g_index[g] for g, _, _ in entries], dev),
+        babies_full=tuple(babies),
+        babies=tuple(b for b in babies if b != 0),
+        giants=tuple(g * n1 for g in giants),
+        n_giants=len(giants),
+    )
+
+
+def _check_level(tr: ScanTransform, ct: Ciphertext):
+    if ct.level > tr.level:
+        raise ValueError(
+            f"transform compiled at level {tr.level} fed a level-{ct.level} "
+            f"ciphertext; align with mod_drop first")
+
+
+def _diagonal_step(tr: ScanTransform, ct: Ciphertext, rots_cache: dict, qp):
+    """acc[g] = sum over the diagonals d of giant g of pt_d * rot_{b(d)}.
+
+    Residues are < 2^31, so up to _DIAG_CHUNK products add in int64
+    before one reduction; the modular sum equals orion_tpu's sequential
+    add_mod chain bit for bit."""
+    nl = ct.level + 1
+    rot_stack = torch.stack([rots_cache[b] for b in tr.babies_full])
+    acc = ct.data.new_zeros((tr.n_giants, 2, nl, ct.data.shape[-1]))
+    for lo in range(0, tr.pts.shape[0], _DIAG_CHUNK):
+        hi = lo + _DIAG_CHUNK
+        prod = rot_stack[tr.b_pos[lo:hi]] * tr.pts[lo:hi, None, :nl] % qp
+        acc.index_add_(0, tr.g_pos[lo:hi], prod)
+        acc %= qp
+    return acc
+
+
+def _giant_pack(ev: Evaluator, tr: ScanTransform, level: int):
+    """(pack, [(accumulator row, pack slot)]) for the nonzero giants."""
+    nonzero = [(i, a) for i, a in enumerate(tr.giants) if a != 0]
+    if not nonzero:
+        return None, []
+    pack = build_key_pack(ev, [a for _, a in nonzero], level=level)
+    slot = {a: s for s, a in enumerate(pack.amounts)}
+    return pack, [(i, slot[a]) for i, a in nonzero]
+
+
+def eval_transform_scan(ev: Evaluator, tr: ScanTransform, ct: Ciphertext,
+                        rots_cache: dict) -> Ciphertext:
+    """Evaluate one block given a shared baby-rotation cache for this ct.
+
+    rots_cache maps baby amount -> (2, L, N); amount 0 is the ct.
+    Returns the UN-rescaled accumulated ciphertext at scale Delta*q_level.
+    """
+    _check_level(tr, ct)
+    dl = dev_level(ev.ctx, ct.level)
+    qp = dl.q.p[:, None]
+    acc = _diagonal_step(tr, ct, rots_cache, qp)
+
+    out = acc[0] if tr.giants and tr.giants[0] == 0 else None
+    pack, steps = _giant_pack(ev, tr, ct.level)
+    for i, slot in steps:
+        ks = ks_finish(ks_decompose(acc[i, 1], dl), dl, pack.ksk[slot],
+                       pack.ksk_shoup[slot], trimmed=pack.level is not None)
+        t0 = add_mod(acc[i, 0], ks[0], qp)
+        rot = torch.stack([t0, ks[1]])[..., pack.perms[slot]]
+        out = rot if out is None else add_mod(out, rot, qp)
+    if out is None:
+        raise ValueError("empty transform")
+    return Ciphertext(out, ct.level, ct.scale * tr.pt_scale)
+
+
+def baby_rotation_cache(ev: Evaluator, ct: Ciphertext, amounts) -> dict:
+    """rot_b(ct) for all amounts (shared across blocks in a row/column)."""
+    amounts = sorted(set(int(a) for a in amounts))
+    cache = {0: ct.data}
+    todo = [a for a in amounts if a != 0]
+    if todo:
+        pack = build_key_pack(ev, todo, level=ct.level)
+        rots = rotate_scan(ev, ct, pack)
+        for slot, a in enumerate(pack.amounts):
+            cache[a] = rots[slot]
+    return cache
+
+
+def eval_transform_scan_ext(ev: Evaluator, tr: ScanTransform,
+                            ct: Ciphertext, rots_cache: dict):
+    """eval_transform_scan with DEFERRED ModDown: returns the extended-basis
+    accumulator (2, n_t, N) in NTT domain, Q-basis contributions folded in
+    as P*x.  The caller sums accumulators across column blocks and divides
+    ONCE by P*q_l (mod_drop_rescale) per output row.
+    """
+    _check_level(tr, ct)
+    dl = dev_level(ev.ctx, ct.level)
+    qp = dl.q.p[:, None]
+    tp = dl.t.p[:, None]
+    nl = ct.level + 1
+    n_t = dl.t.p.shape[0]
+    acc = _diagonal_step(tr, ct, rots_cache, qp)
+
+    def fold_q(x_q):
+        """Q-basis (2, nl, N) value -> extended accumulator as P*x (special
+        rows of P*x vanish: P = 0 mod each special prime)."""
+        px = x_q * dl.p_mod_q % qp
+        return torch.cat([px, px.new_zeros((2, n_t - nl, px.shape[-1]))],
+                         dim=1)
+
+    out = fold_q(acc[0]) if tr.giants and tr.giants[0] == 0 else None
+    pack, steps = _giant_pack(ev, tr, ct.level)
+    for i, slot in steps:
+        raw = ks_finish_raw(ks_decompose(acc[i, 1], dl), dl, pack.ksk[slot],
+                            pack.ksk_shoup[slot],
+                            trimmed=pack.level is not None)
+        pc0 = acc[i, 0] * dl.p_mod_q % qp
+        r0 = torch.cat([add_mod(raw[0, :nl], pc0, qp), raw[0, nl:]])
+        rot = torch.stack([r0, raw[1]])[..., pack.perms[slot]]
+        out = rot if out is None else add_mod(out, rot, tp)
+    if out is None:
+        raise ValueError("empty transform")
+    return out
+
+
+def eval_transform_blocked_scan(ev: Evaluator, grid: dict,
+                                cts: list[Ciphertext],
+                                num_rows: int) -> list[Ciphertext]:
+    """Blocked transform: accumulate column blocks, ONE rescale per output
+    row (lt_evaluator semantics)."""
+    num_cols = len(cts)
+    # align inputs to the compiled transform level (a ciphertext may
+    # arrive above the solver-assigned layer level; the drop is free)
+    col_level = {}
+    for (i, j), tr in grid.items():
+        col_level[j] = min(col_level.get(j, tr.level), tr.level)
+    cts = [ev.mod_drop(c, col_level[j]) if c.level > col_level.get(j, c.level)
+           else c for j, c in enumerate(cts)]
+    babies_per_col = {j: set() for j in range(num_cols)}
+    for (i, j), tr in grid.items():
+        babies_per_col[j] |= set(tr.babies) | {0}
+    rot_caches = {
+        j: baby_rotation_cache(ev, cts[j], babies_per_col[j])
+        for j in range(num_cols)
+    }
+
+    levels = {c.level for c in cts}
+    if len(levels) == 1:
+        lvl = cts[0].level
+        dl = dev_level(ev.ctx, lvl)
+        if dl.dropdown is not None:
+            # deferred path: per (row, col) the giants accumulate in the
+            # extended basis; column blocks sum there too; ONE fused
+            # ModDown+rescale per output row.  The plaintext scale is
+            # taken from the first grid cell, as orion_tpu does.
+            tp = dl.t.p[:, None]
+            pt_scale = next(iter(grid.values())).pt_scale
+            outs = []
+            for i in range(num_rows):
+                acc = None
+                for j in range(num_cols):
+                    tr = grid.get((i, j))
+                    if tr is None:
+                        continue
+                    part = eval_transform_scan_ext(ev, tr, cts[j],
+                                                   rot_caches[j])
+                    acc = part if acc is None else add_mod(acc, part, tp)
+                data = mod_drop_rescale(acc, dl)
+                outs.append(Ciphertext(
+                    data, lvl - 1,
+                    cts[0].scale * pt_scale / ev.ctx.q_primes[lvl]))
+            return outs
+
+    outs = []
+    for i in range(num_rows):
+        acc = None
+        for j in range(num_cols):
+            tr = grid.get((i, j))
+            if tr is None:
+                continue
+            part = eval_transform_scan(ev, tr, cts[j], rot_caches[j])
+            acc = part if acc is None else ev.add(acc, part)
+        outs.append(ev.rescale(acc))
+    return outs

@@ -1,0 +1,147 @@
+"""Backend service layer: encoder, encryptor and LT evaluator.
+
+Counterpart of `orion_tpu/runtime/services.py` for this slice (the poly
+evaluator and the bootstrapper arrive with their slices).  These wrap the
+crypto layer with multi-ciphertext semantics and compile-time key
+management.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+from ..crypto import lintrans_scan, placement
+from ..crypto.ciphertext import Ciphertext, Plaintext
+from .tensors import CipherTensor, PlainTensor
+
+
+class EncoderService:
+    """Splits arbitrary-length vectors into ceil(numel/slots) plaintexts."""
+
+    def __init__(self, scheme):
+        self.scheme = scheme
+        self.enc = scheme.enc  # crypto Encoder
+
+    def encode(self, values, level=None, scale=None,
+               on_shape=None) -> PlainTensor:
+        ctx = self.scheme.ctx
+        if hasattr(values, "detach"):
+            values = values.detach().cpu().numpy()
+        values = np.asarray(values, dtype=np.float64)
+        shape = values.shape
+        flat = values.reshape(-1)
+        slots = ctx.slots
+        num_pt = max(1, math.ceil(flat.size / slots))
+        padded = np.zeros(num_pt * slots)
+        padded[: flat.size] = flat
+        if level is None:
+            level = self.scheme.input_level_default
+        pts = []
+        for i in range(num_pt):
+            chunk = padded[i * slots:(i + 1) * slots]
+            data, s = self.enc.encode(chunk, level=level, scale=scale)
+            pts.append(Plaintext(placement.buffer(data, ctx.device), None,
+                                 level, s))
+        return PlainTensor(self.scheme, pts, shape, on_shape or shape)
+
+    def decode(self, ptensor: PlainTensor) -> np.ndarray:
+        vals = []
+        for pt in ptensor.plaintexts:
+            raw = pt.data.cpu().numpy()
+            vals.append(self.enc.decode(raw, pt.scale))
+        flat = np.concatenate(vals)
+        numel = int(np.prod(ptensor.on_shape))
+        return flat[:numel].reshape(ptensor.on_shape)
+
+    def get_moduli_chain(self):
+        return self.scheme.ctx.moduli_chain()
+
+
+class EncryptorService:
+    """Per-plaintext encrypt/decrypt loops (host crypto, device tensors)."""
+
+    def __init__(self, scheme):
+        self.scheme = scheme
+
+    def encrypt(self, ptensor: PlainTensor) -> CipherTensor:
+        keys = self.scheme.keys
+        dev = self.scheme.ctx.device
+        cts = []
+        for pt in ptensor.plaintexts:
+            ct = keys.encrypt_rns(pt.data.cpu().numpy())
+            cts.append(Ciphertext(placement.buffer(ct, dev), pt.level,
+                                  pt.scale))
+        return CipherTensor(self.scheme, cts, ptensor.shape,
+                            ptensor.on_shape)
+
+    def decrypt(self, ctensor: CipherTensor) -> PlainTensor:
+        keys = self.scheme.keys
+        dev = self.scheme.ctx.device
+        pts = []
+        for ct in ctensor.cts:
+            raw = keys.decrypt_rns(ct.data.cpu().numpy())
+            pts.append(Plaintext(placement.buffer(raw, dev), None,
+                                 ct.level, ct.scale))
+        return PlainTensor(self.scheme, pts, ctensor.shape,
+                           ctensor.on_shape)
+
+
+class LTEvaluatorService:
+    """Compile + evaluate blocked BSGS transforms; generates the
+    consolidated rotation-key set at compile time."""
+
+    def __init__(self, scheme):
+        self.scheme = scheme
+        self.generated_rotations: set[int] = set()
+
+    def generate_transforms(self, layer):
+        ctx = self.scheme.ctx
+        level = layer.level
+        compiled = {}
+        rotations = set()
+        for (row, col), diags in layer.diagonals.items():
+            tr = lintrans_scan.compile_transform_scan(
+                self.scheme.enc, diags, level, ctx.slots, layer.bsgs_ratio)
+            compiled[(row, col)] = tr
+            rotations |= set(tr.babies) | set(a for a in tr.giants if a)
+        # hybrid output rotations
+        for i in range(1, layer.output_rotations + 1):
+            rotations.add(ctx.slots // (2 ** i))
+        self.generate_rotation_keys(rotations)
+        layer.compiled = compiled
+        self._prewarm_key_packs(compiled)
+        return compiled
+
+    def _prewarm_key_packs(self, compiled):
+        """Build the level-trimmed KeyPacks evaluation will request, at
+        compile time, so evaluation never regenerates keys."""
+        ev = self.scheme.evaluator
+        cols = {}
+        for (i, j), tr in compiled.items():
+            cols.setdefault(j, set()).update(set(tr.babies) | {0})
+            giants = [a for a in tr.giants if a != 0]
+            if giants:
+                lintrans_scan.build_key_pack(ev, giants, level=tr.level)
+        for j, babies in cols.items():
+            todo = [a for a in sorted(babies) if a != 0]
+            if todo:
+                level = next(tr.level for (i, jj), tr in compiled.items()
+                             if jj == j)
+                lintrans_scan.build_key_pack(ev, todo, level=level)
+
+    def generate_rotation_keys(self, rotations):
+        # sorted: the generation order fixes every later RNG draw
+        new = set(rotations) - self.generated_rotations
+        for r in sorted(new):
+            self.scheme.keys.rotation_key(r)
+        self.generated_rotations |= new
+
+    def evaluate_transforms(self, layer, in_ctensor: CipherTensor):
+        ev = self.scheme.evaluator
+        rows = max(r for (r, c) in layer.compiled) + 1
+        outs = lintrans_scan.eval_transform_blocked_scan(
+            ev, layer.compiled, in_ctensor.cts, rows)
+        return CipherTensor(self.scheme, outs, layer.output_shape,
+                            layer.fhe_output_shape)
