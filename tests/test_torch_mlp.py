@@ -7,7 +7,8 @@ statistics are drawn from a numpy seed onto the orion_tpu net and carried
 across with `load_jax_params`.  Both packages run init_scheme -> fit ->
 compile -> encrypt -> he forward -> decrypt; orion_tpu's forward runs one
 jitted program per module (`runtime/jit.enable_module_jit`), as its model
-tests run it, and the port runs its plain path on device="cpu".
+tests run it, compiled ahead in a thread pool (`aot_precompile_forward`),
+and the port runs its plain path on device="cpu".
 
 Checks: cleartext outputs within 1e-5 (float32 matmuls sum in another
 order), output ciphertexts equal bit for bit (so decrypted outputs agree
@@ -25,7 +26,7 @@ import orion_tpu as jorion
 import orion_tpu.nn as jon
 import orion_tpu_torch as torion
 import orion_tpu_torch.nn as ton
-from orion_tpu.runtime.jit import enable_module_jit
+from orion_tpu.runtime.jit import aot_precompile_forward, enable_module_jit
 from orion_tpu_torch.kernels import launch_counts
 from orion_tpu_torch.models import load_jax_params
 from orion_tpu_torch.utils import ArrayLoader, mae
@@ -86,6 +87,7 @@ def _run(orion, net, cfg, loader, x, module_jit=False, **kw):
     net.he()
     if module_jit:
         enable_module_jit(scheme)
+        aot_precompile_forward(net, scheme, ct, workers=4)
     out = net(ct)
     return np.asarray(clear, dtype=np.float64), out, out.decrypt().decode()
 
