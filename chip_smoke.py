@@ -8,8 +8,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      CUDA source of the port is compiled here, in parallel);
   2. each hand-written kernel against its plain PyTorch version on the
      card, at the MLP's shapes (configs/mlp.yml, N = 8192) at every level
-     0-5, ks_finish with full-chain and trimmed keys, Shoup and lean: all
-     must be bit-exact (torch.equal); ms per call for both;
+     0-5, the transforms also batched over two polys as rescale_poly
+     gives them, ks_finish with full-chain and trimmed keys, Shoup and
+     lean: all must be bit-exact (torch.equal); ms per call for both;
   3. the full-width MLP 784-128-128-10 on configs/mlp.yml through the
      user entry points on `cuda`: MAE vs cleartext < 0.005, every kernel
      launched during the encrypted forward, first and steady latency; the
@@ -33,7 +34,11 @@ import yaml
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "mlp.yml"
 MEM_RATE = 3.35e12     # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
-OP_RATE = 67e12        # H100 SXM non-tensor 32-bit rate, ops/s (data sheet)
+# 32-bit integer multiplies (IMAD, IMAD.HI) per second: 64 per clock per SM
+# on compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput) x 132 SMs x 1.98 GHz boost; a quarter of the data
+# sheet's 67 TFLOP/s float32, which counts 128 lanes and 2 flops per FMA
+OP_RATE = 64 * 132 * 1.98e9
 
 
 def fail(msg):
@@ -61,11 +66,12 @@ def cuda_ms(fn, iters):
 # ------------------------------------------------------------------ #
 # bytes: each input (residues, keys, twiddle tables) read once and each
 # output written once, int64; ops: 32-bit integer multiplies (3 per Shoup
-# product, 4 per Montgomery product), against the card's non-tensor rate.
+# product, 4 per Montgomery product), against the card's IMAD rate.
 
-def ntt_work(rows, n):
+def ntt_work(rows, table_rows, n):
+    """`rows` transformed rows over `table_rows` rows of twiddles."""
     logn = n.bit_length() - 1
-    nbytes = 8 * rows * n * 2 + 8 * rows * n * 2    # data in/out + tw, tw_sh
+    nbytes = 8 * rows * n * 2 + 8 * table_rows * n * 2   # data + tw, tw_sh
     ops = 3 * rows * (n // 2) * logn + 3 * rows * n
     return nbytes, ops
 
@@ -124,7 +130,7 @@ def check_kernels(cfg):
         x = rng.integers(0, 1 << 62, size=shape, dtype=np.int64)
         return torch.as_tensor(x % hi, device="cuda")
 
-    def case(name, label, kernel_fn, plain_fn, work, iters=50):
+    def case(name, level, label, kernel_fn, plain_fn, work, iters=50):
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         err = int((got - want).abs().max().item())
@@ -132,12 +138,12 @@ def check_kernels(cfg):
         ms = cuda_ms(kernel_fn, iters)
         plain_ms = cuda_ms(plain_fn, 3)
         b, by = bound(work)
-        print(f"  {name:13s} {label:34s} bit-exact={ok} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.3f} bound_ms={b:.5f} ({by})",
+        print(f"  {name:13s} level {level} {label:36s} bit-exact={ok} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b:.5f} ({by})",
               flush=True)
         stats.setdefault(name, []).append(dict(
-            label=label, ok=ok, err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=b, bound_by=by))
+            level=level, label=f"level {level} {label}", ok=ok, err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by))
         if not ok:
             fail(f"{name} {label} differs from its plain version "
                  f"(max abs err {err})")
@@ -157,19 +163,27 @@ def check_kernels(cfg):
             fwd_rr = dl.q.rows(0, level)
         else:
             inv_rr = fwd_rr = dl.q
-        a_inv = residues((inv_rr.p.shape[0], n), inv_rr.p)
-        a_fwd = residues((fwd_rr.p.shape[0], n), fwd_rr.p)
-        case("ntt_fwd", f"level {level} ({fwd_rr.p.shape[0]}, {n})",
-             lambda: kntt.ntt_fwd(a_fwd, fwd_rr),
-             lambda: kntt.ntt_fwd_plain(a_fwd, fwd_rr),
-             ntt_work(fwd_rr.p.shape[0], n))
-        case("ntt_inv", f"level {level} ({inv_rr.p.shape[0]}, {n})",
-             lambda: kntt.ntt_inv(a_inv, inv_rr),
-             lambda: kntt.ntt_inv_plain(a_inv, inv_rr),
-             ntt_work(inv_rr.p.shape[0], n))
+        # ... and batched over a ciphertext's two polys, as rescale_poly
+        # gives them: the inverse over the last Q row, the forward over the
+        # rows below it (level 0 never rescales: its single Q row)
+        if level >= 1:
+            inv_b, fwd_b = dl.q.rows(level, level + 1), dl.q.rows(0, level)
+        else:
+            inv_b = fwd_b = dl.q
+        for kname, plain, rr, batch in (
+                ("ntt_fwd", kntt.ntt_fwd_plain, fwd_rr, ()),
+                ("ntt_inv", kntt.ntt_inv_plain, inv_rr, ()),
+                ("ntt_fwd", kntt.ntt_fwd_plain, fwd_b, (2,)),
+                ("ntt_inv", kntt.ntt_inv_plain, inv_b, (2,))):
+            rows = rr.p.shape[0]
+            a = residues(batch + (rows, n), rr.p)
+            kern = getattr(kntt, kname)
+            case(kname, level, str(batch + (rows, n)),
+                 lambda: kern(a, rr), lambda: plain(a, rr),
+                 ntt_work(a.numel() // n, rows, n))
         c = residues((nl, n), dl.q.p)
         alpha = max(dg.src_hi - dg.src_lo for dg in dl.digits)
-        case("ks_decompose", f"level {level} ({nl}, {n})",
+        case("ks_decompose", level, f"({nl}, {n})",
              lambda: kks.ks_decompose(c, dl),
              lambda: kks.ks_decompose_plain(c, dl),
              decompose_work(nl, n_t, dnum, alpha, n))
@@ -182,7 +196,7 @@ def check_kernels(cfg):
                 ("full-chain lean", rk.data, None, False),
                 ("trimmed Shoup", trim, trim_sh, True),
                 ("trimmed lean", trim, None, True)):
-            case("ks_finish", f"level {level} {label}",
+            case("ks_finish", level, label,
                  lambda: kks.ks_finish(ext, dl, kd, ks, trimmed),
                  lambda: kks.ks_finish_plain(ext, dl, kd, ks, trimmed),
                  finish_work(nl, n_t, dnum, n, ks is None))
@@ -330,7 +344,9 @@ def main():
     line = []
     for k in kernels.KERNELS:
         recs = stats[k.name]
-        top = recs[-1] if k.name != "ks_finish" else recs[-4]
+        # the first case at the top level: the 2-D transforms, full-chain
+        # Shoup keys for ks_finish
+        top = next(r for r in recs if r["level"] == recs[-1]["level"])
         line.append({
             "name": k.name, "route": "cuda",
             "source": f"orion_tpu_torch/kernels/csrc/{k.source}",

@@ -74,11 +74,13 @@ class CKKSContext:
     """Every table needed by host crypto and device kernels.
 
     Host tables (numpy) are identical to orion_tpu's; the device dict holds
-    the same values as int64 tensors on `device`."""
+    the same values as int64 tensors on `device`: `cuda` by default, and
+    without a CUDA device the constructor raises unless `device="cpu"` is
+    asked for (`placement.resolve_device`)."""
 
     def __init__(self, logn: int, logq: list[int], logp: list[int],
                  logscale: int, h: int, ring_type: str = "standard",
-                 seed: int = 0, device: str | torch.device = "cpu"):
+                 seed: int = 0, device: str | torch.device | None = None):
         rt = ring_type.lower().replace("_", "").replace("-", "")
         if rt != "standard":
             raise NotImplementedError(
@@ -87,7 +89,7 @@ class CKKSContext:
             raise ValueError(
                 f"LogN {logn} < 8: the four-step transform needs N >= 256")
         self.ring_type = "standard"
-        self.device = torch.device(device)
+        self.device = placement.resolve_device(device)
         self.logn = logn
         self.n = 1 << logn
         self.lift_n = self.n

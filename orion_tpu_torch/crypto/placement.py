@@ -1,4 +1,5 @@
-"""Buffer placement: where compiled buffers live.
+"""Buffer placement: which device the port runs on, and where compiled
+buffers live.
 
 Counterpart of `orion_tpu/crypto/placement.py`.  orion_tpu can hold compiled
 buffers (encoded diagonals, KeyPacks, key-switch keys) in host memory and
@@ -11,6 +12,21 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def resolve_device(device) -> torch.device:
+    """`cuda` by default; a request for CUDA without a CUDA device raises.
+
+    The port's entry points (`init_scheme`, `CKKSContext`) run on the GPU
+    unless the caller asks for `device="cpu"`, the plain PyTorch path."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU by default; pass "
+            "device='cpu' to run the plain PyTorch path on the host")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
 
 
 def buffer(x, device) -> torch.Tensor:

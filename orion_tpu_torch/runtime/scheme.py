@@ -17,7 +17,6 @@ import time
 from typing import Any, Dict, Union
 
 import numpy as np
-import torch
 import yaml
 
 from ..crypto import CKKSContext, Encoder, Evaluator, KeyChest
@@ -29,18 +28,6 @@ from ..compiler.fuser import Fuser
 from ..compiler.level_dag import BootstrapSolver, BootstrapPlacer
 from .config import Params, parse_config
 from .services import EncoderService, EncryptorService, LTEvaluatorService
-
-
-def resolve_device(device) -> torch.device:
-    """`cuda` by default; a request for CUDA without a CUDA device raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the GPU by default; pass "
-            "device='cpu' to run the plain PyTorch path on the host")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 class Scheme:
@@ -57,14 +44,13 @@ class Scheme:
                 config = yaml.safe_load(f)
         elif not isinstance(config, dict):
             raise TypeError("config must be a YAML path or a dict")
-        dev = resolve_device(device)
         self.params = parse_config(config)
         p = self.params
         self.tracer = None
         self.ctx = CKKSContext(
             logn=p.logn, logq=p.split_logq, logp=p.logp,
             logscale=p.logscale, h=p.h, ring_type=p.ring_type, seed=p.seed,
-            device=dev)
+            device=device)
         self.enc = Encoder(self.ctx)
         self.keys = KeyChest(self.ctx)
         self.evaluator = Evaluator(self.ctx, self.keys)

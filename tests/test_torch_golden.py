@@ -24,8 +24,9 @@ GOLDEN = Path(__file__).parent / "crypto" / "golden_vectors.npz"
 SEED = 2024
 
 # (crypto package, ciphertext module, host -> device, device -> host,
-# program wrapper): orion_tpu's chain of ops is jitted into one program
-# rather than dispatched op by op, which would compile every jnp op alone
+# program wrapper, context device keywords): orion_tpu's chain of ops is
+# jitted into one program rather than dispatched op by op, which would
+# compile every jnp op alone; the port runs its plain path on the CPU
 def _jit_unoptimised(fn):
     """jax.jit compiled without most XLA optimizations: a third less
     compile time, and integer and IEEE float32 ops give the same bits."""
@@ -40,17 +41,17 @@ def _jit_unoptimised(fn):
 
 
 JAX = (jcrypto, jct, lambda x: jnp.asarray(np.asarray(x).astype(np.uint32)),
-       lambda t: np.asarray(t).astype(np.int64), _jit_unoptimised)
+       lambda t: np.asarray(t).astype(np.int64), _jit_unoptimised, {})
 PORT = (tcrypto, tct, lambda x: torch.as_tensor(np.asarray(x, np.int64)),
-        lambda t: t.numpy(), lambda f: f)
+        lambda t: t.numpy(), lambda f: f, {"device": "cpu"})
 
 
 def run_pipeline(pkg):
     """golden_pipeline.run_pipeline written once for both packages:
     returns ({stage: decrypted vector}, {stage: raw ciphertext})."""
-    crypto, ctmod, to_dev, to_host, op = pkg
+    crypto, ctmod, to_dev, to_host, op, dev = pkg
     ctx = crypto.CKKSContext(logn=10, logq=[29, 26, 26, 26], logp=[29, 29],
-                             logscale=26, h=64, seed=SEED)
+                             logscale=26, h=64, seed=SEED, **dev)
     enc = crypto.Encoder(ctx)
     keys = crypto.KeyChest(ctx)
     ev = crypto.Evaluator(ctx, keys)
@@ -121,9 +122,9 @@ def run_evaluator_ops(pkg):
     levels, integer and float scalar products, adjust_scale, mul_plain
     without a Shoup companion, and mul_relin's two-step branch (no
     rescale, then an explicit rescale) and at level 0."""
-    crypto, ctmod, to_dev, to_host, op = pkg
+    crypto, ctmod, to_dev, to_host, op, dev = pkg
     ctx = crypto.CKKSContext(logn=8, logq=[29, 26, 26], logp=[29, 29],
-                             logscale=26, h=64, seed=SEED + 1)
+                             logscale=26, h=64, seed=SEED + 1, **dev)
     enc = crypto.Encoder(ctx)
     keys = crypto.KeyChest(ctx)
     ev = crypto.Evaluator(ctx, keys)

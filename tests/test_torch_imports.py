@@ -3,7 +3,8 @@
 * A static scan of every source of `orion_tpu_torch/` and of
   `chip_smoke.py`: none imports `jax` or `orion_tpu` (the interpreter may
   import jax at startup, so `sys.modules` cannot show this).
-* `init_scheme` without a device raises when no CUDA device is present.
+* `init_scheme` and `CKKSContext` without a device raise when no CUDA
+  device is present.
 * A tensor on another device reaches neither a kernel nor a plain version.
 * `chip_smoke.py` exits non-zero and prints no result without a GPU.
 """
@@ -56,6 +57,8 @@ def test_no_jax_or_orion_tpu_import(path):
 
 
 def test_init_scheme_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    """Both entry points, `init_scheme` and the low-level `CKKSContext`,
+    run on `cuda` unless the caller asks for the CPU."""
     with open(ROOT / "configs" / "mlp.yml") as f:
         cfg = yaml.safe_load(f)
     cfg["ckks_params"].update(LogN=8, H=64)
@@ -67,11 +70,21 @@ def test_init_scheme_needs_cuda_unless_cpu_is_asked(monkeypatch):
     scheme = orion_tpu_torch.init_scheme(cfg, device="cpu")
     assert scheme.ctx.dev["tw"].device.type == "cpu"
 
+    kw = dict(logn=8, logq=[29, 26], logp=[29], logscale=26, h=64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CKKSContext(**kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CKKSContext(**kw, device="cuda")
+    ctx = CKKSContext(**kw, device="cpu")
+    assert ctx.device.type == "cpu"
+    assert ctx.dev["tw"].device.type == "cpu"
+
 
 def test_wrappers_refuse_other_devices():
     """Only a CPU tensor takes the plain version; anything that is not on
     the CPU must launch a kernel (here: raise, as a meta tensor cannot)."""
-    ctx = CKKSContext(logn=8, logq=[29, 26], logp=[29], logscale=26, h=64)
+    ctx = CKKSContext(logn=8, logq=[29, 26], logp=[29], logscale=26, h=64,
+                      device="cpu")
     dl = dev_level(ctx, 1)
     meta = torch.empty((2, ctx.n), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):

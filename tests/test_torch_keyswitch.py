@@ -44,7 +44,7 @@ def _unoptimised_xla():
 
 @pytest.fixture(scope="module")
 def chain():
-    jctx, tctx = JContext(**CHAIN), TContext(**CHAIN)
+    jctx, tctx = JContext(**CHAIN), TContext(**CHAIN, device="cpu")
     return jctx, JKeys(jctx), tctx, TKeys(tctx)
 
 

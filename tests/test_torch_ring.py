@@ -33,7 +33,7 @@ LOGP = [29, 29]
 
 def _contexts(logn):
     kw = dict(logn=logn, logq=LOGQ, logp=LOGP, logscale=26, h=64, seed=5)
-    return JContext(**kw), TContext(**kw)
+    return JContext(**kw), TContext(**kw, device="cpu")
 
 
 @pytest.fixture(scope="module", autouse=True)
