@@ -7,16 +7,26 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. the card's name and power limit, and the kernel build time (every
      CUDA source of the port is compiled here, in parallel);
   2. each hand-written kernel against its plain PyTorch version on the
-     card, at the MLP's shapes (configs/mlp.yml, N = 8192) at every level
-     0-5, the transforms also batched over two polys as rescale_poly
-     gives them, ks_finish with full-chain and trimmed keys, Shoup and
-     lean: all must be bit-exact (torch.equal); ms per call for both;
+     card (N = 8192) at every level of configs/mlp.yml (0-5) and of
+     configs/lenet.yml (0-7, 4 digits at levels 6-7), the transforms also
+     batched over two polys as rescale_poly gives them, ks_finish with
+     full-chain and trimmed keys, Shoup and lean, and the PallasNTT
+     counterpart (crypto/ntt_pallas.py) over chosen limb rows: all must be
+     bit-exact (torch.equal); ms per call for both;
   3. the full-width MLP 784-128-128-10 on configs/mlp.yml through the
      user entry points on `cuda`: MAE vs cleartext < 0.005, every kernel
      launched during the encrypted forward, first and steady latency; the
      same flow with device="cpu" (plain path) must give equal output
      ciphertexts;
-  4. one JSON line describing each kernel, then the result line.
+  4. the full-width LeNet on configs/lenet.yml the same way, with the
+     host seconds of fit and compile, the rotation keys made and the peak
+     device memory;
+  5. one JSON line per path, one JSON line describing each kernel, the
+     card's line, then the result line.
+
+    python3 chip_smoke.py --out DIR
+
+also writes every case of phase 2 to DIR/chip_smoke.json.
 
 Imports only torch, numpy, yaml and orion_tpu_torch.
 """
@@ -32,7 +42,8 @@ import torch
 import yaml
 
 ROOT = Path(__file__).resolve().parent
-CONFIG = ROOT / "configs" / "mlp.yml"
+CONFIGS = {"mlp": ROOT / "configs" / "mlp.yml",
+           "lenet": ROOT / "configs" / "lenet.yml"}
 MEM_RATE = 3.35e12     # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 # 32-bit integer multiplies (IMAD, IMAD.HI) per second: 64 per clock per SM
 # on compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
@@ -108,9 +119,12 @@ def bound(work):
 #  Phase 2: kernels against their plain versions                     #
 # ------------------------------------------------------------------ #
 
-def check_kernels(cfg):
+def check_kernels(cfg, tag, stats):
+    """Every kernel at every level of one config; records go to `stats`
+    (kernel -> list of per-case records)."""
     from orion_tpu_torch.crypto import CKKSContext, KeyChest
-    from orion_tpu_torch.crypto.keyswitch import dev_level
+    from orion_tpu_torch.crypto.keyswitch import RingRows, dev_level
+    from orion_tpu_torch.crypto.ntt_pallas import PallasNTT
     from orion_tpu_torch.kernels import keyswitch as kks
     from orion_tpu_torch.kernels import ntt as kntt
     from orion_tpu_torch.runtime.config import parse_config
@@ -123,7 +137,6 @@ def check_kernels(cfg):
     rk = keys.relin_key
     rng = np.random.default_rng(7)
     n = ctx.n
-    stats = {}   # kernel -> list of per-case records
 
     def residues(shape, rr_p):
         hi = rr_p.cpu().numpy()[:, None]
@@ -138,17 +151,18 @@ def check_kernels(cfg):
         ms = cuda_ms(kernel_fn, iters)
         plain_ms = cuda_ms(plain_fn, 3)
         b, by = bound(work)
-        print(f"  {name:13s} level {level} {label:36s} bit-exact={ok} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b:.5f} ({by})",
-              flush=True)
+        print(f"  {tag:5s} {name:12s} level {level} {label:34s} "
+              f"bit-exact={ok} ms={ms:.4f} plain_ms={plain_ms:.3f} "
+              f"bound_ms={b:.5f} ({by})", flush=True)
         stats.setdefault(name, []).append(dict(
-            level=level, label=f"level {level} {label}", ok=ok, err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by))
+            config=tag, level=level, label=f"{tag} level {level} {label}",
+            ok=ok, err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+            bound_by=by))
         if not ok:
             fail(f"{name} {label} differs from its plain version "
                  f"(max abs err {err})")
 
-    print("phase 2: kernels vs plain PyTorch on the card "
+    print(f"phase 2: kernels vs plain PyTorch on the card, configs/{tag}.yml "
           f"(N={n}, levels 0-{ctx.max_level})", flush=True)
     for level in range(ctx.max_level + 1):
         dl = dev_level(ctx, level)
@@ -200,11 +214,26 @@ def check_kernels(cfg):
                  lambda: kks.ks_finish(ext, dl, kd, ks, trimmed),
                  lambda: kks.ks_finish_plain(ext, dl, kd, ks, trimmed),
                  finish_work(nl, n_t, dnum, n, ks is None))
-    return stats
+
+    # the PallasNTT counterpart (crypto/ntt_pallas.py), over the limb rows
+    # tests/crypto/test_ntt_pallas.py uses and over the whole chain batched
+    # as tests/crypto/test_ks_pallas.py runs pallas_ntt4
+    pn = PallasNTT(ctx)
+    top = ctx.max_level
+    for rows, batch in (([0, 1], ()), (list(range(ctx.n_all)), (2,))):
+        rr = RingRows.from_ctx(ctx, rows)
+        a = residues(batch + (len(rows), n), rr.p)
+        label = f"PallasNTT rows {rows[0]}-{rows[-1]} {batch + (len(rows), n)}"
+        case("ntt_fwd", top, label, lambda: pn.ntt(a, rows),
+             lambda: kntt.ntt_fwd_plain(a, rr),
+             ntt_work(a.numel() // n, len(rows), n))
+        case("ntt_inv", top, label, lambda: pn.intt(a, rows),
+             lambda: kntt.ntt_inv_plain(a, rr),
+             ntt_work(a.numel() // n, len(rows), n))
 
 
 # ------------------------------------------------------------------ #
-#  Phase 3: the MLP through the user entry points                    #
+#  Phases 3-4: a network through the user entry points              #
 # ------------------------------------------------------------------ #
 
 OUR_KERNELS = ("ntt_fwd_rows", "ntt_inv_rows", "fbc_ntt_digits",
@@ -240,25 +269,38 @@ def profile_forward(net, ct):
                 top=[(k[:60], v) for k, v in top])
 
 
-def run_mlp(cfg, device, params=None, steady=0):
+def run_model(cfg, model, device, params=None, steady=0):
+    """init_scheme -> fit -> compile -> encode -> encrypt -> he forward ->
+    decrypt of `models.<model>` on one device; launch counts of the first
+    forward (counts set to 0 just before it)."""
     import orion_tpu_torch as orion
     from orion_tpu_torch import kernels, models
     from orion_tpu_torch.utils import get_mnist_datasets, mae
 
-    orion.init_scheme(cfg, device=device)
+    scheme = orion.init_scheme(cfg, device=device)
     trainloader, testloader = get_mnist_datasets(batch_size=1)
-    net = models.MLP()
+    net = getattr(models, model)()
     if params is not None:
         models.load_jax_params(net, params)
     inp, _ = next(iter(testloader))
     net.eval()
     out_clear = net(inp).numpy().reshape(-1)
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
     orion.fit(net, trainloader)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     input_level = orion.compile(net)
+    sync()
+    compile_s = time.perf_counter() - t0
     ct = orion.encrypt(orion.encode(inp, input_level))
     net.he()
 
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    dev_mib = None
+    if cuda:
+        dev_mib = torch.cuda.memory_allocated() / 2 ** 20
+        torch.cuda.reset_peak_memory_stats()
     sync()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -266,25 +308,95 @@ def run_mlp(cfg, device, params=None, steady=0):
     sync()
     first_s = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    by_level = kernels.launch_counts_by_level()
     steady_s = []
     for _ in range(steady):
         t0 = time.perf_counter()
         net(ct)
         sync()
         steady_s.append(time.perf_counter() - t0)
-    prof = profile_forward(net, ct) if device == "cuda" else None
+    prof = profile_forward(net, ct) if cuda else None
     out_fhe = out.decrypt().decode().reshape(-1)[: out_clear.size]
     err = mae(out_clear, out_fhe)
     state = {k: v.detach().cpu().numpy() for k, v in net.state_dict().items()}
-    return dict(out=out, mae=err, first_s=first_s, steady_s=steady_s,
-                counts=counts, params=state, level=input_level, prof=prof)
+    return dict(
+        out=out, mae=err, first_s=first_s, steady_s=steady_s, counts=counts,
+        by_level=by_level,
+        params=state, level=input_level, prof=prof, fit_s=fit_s,
+        compile_s=compile_s, in_cts=len(ct.cts),
+        rotations=len(scheme.lt_evaluator.generated_rotations),
+        key_packs=len(scheme.evaluator._key_packs),
+        peak_mib=(torch.cuda.max_memory_allocated() / 2 ** 20 if cuda
+                  else None),
+        dev_mib=dev_mib)
+
+
+def check_model(cfg, model, title):
+    """One path on cuda, then on cpu with the same weights: MAE, launches,
+    equal output ciphertexts.  Returns the path's JSON record."""
+    print(f"{title}, device cuda", flush=True)
+    gpu = run_model(cfg, model, "cuda", steady=3)
+    steady_ms = [s * 1e3 for s in gpu["steady_s"]]
+    print(f"  input level {gpu['level']} ({gpu['in_cts']} ciphertext(s)); "
+          f"MAE vs cleartext {gpu['mae']:.3e}; first forward "
+          f"{gpu['first_s'] * 1e3:.1f} ms; steady forward "
+          f"{', '.join(f'{s:.1f}' for s in steady_ms)} ms", flush=True)
+    print(f"  host: fit {gpu['fit_s']:.2f} s, compile {gpu['compile_s']:.2f} "
+          f"s; rotation keys {gpu['rotations']}, key packs "
+          f"{gpu['key_packs']}; device memory after compile "
+          f"{gpu['dev_mib']:.0f} MiB, peak over the forwards "
+          f"{gpu['peak_mib']:.0f} MiB", flush=True)
+    print(f"  launches in one forward: {gpu['counts']}; key-switch kernels "
+          f"by level: {gpu['by_level']}", flush=True)
+    pr = gpu["prof"]
+    if not pr["device_ops"]:
+        print("  profiled forward: the profiler saw no device time "
+              "(device breakdown not measured)", flush=True)
+    print(f"  profiled forward: wall {pr['wall_ms']:.1f} ms, device "
+          f"{pr['device_ms']:.2f} ms in {pr['device_ops']} device ops "
+          f"(busy share {pr['busy_share']:.3f}), port kernels "
+          f"{pr['our_kernels_ms']:.2f} ms; top: "
+          + "; ".join(f"{k} {v:.2f} ms" for k, v in pr["top"]), flush=True)
+    if not gpu["mae"] < 0.005:
+        fail(f"{model}: MAE {gpu['mae']} >= 0.005")
+    idle = [k for k, v in gpu["counts"].items() if v == 0]
+    if idle:
+        fail(f"kernels not launched by the {model} forward: {idle}")
+
+    print(f"{title}, the same flow on device cpu (plain PyTorch path)",
+          flush=True)
+    t0 = time.perf_counter()
+    cpu = run_model(cfg, model, "cpu", params=gpu["params"])
+    print(f"  cpu flow {time.perf_counter() - t0:.1f} s; fit "
+          f"{cpu['fit_s']:.2f} s, compile {cpu['compile_s']:.2f} s, forward "
+          f"{cpu['first_s']:.1f} s; MAE {cpu['mae']:.3e}", flush=True)
+    if len(cpu["out"].cts) != len(gpu["out"].cts):
+        fail(f"{model}: output ciphertext counts differ between cuda and cpu")
+    for a, b in zip(gpu["out"].cts, cpu["out"].cts):
+        if not (a.level == b.level and a.scale == b.scale
+                and torch.equal(a.data.cpu(), b.data)):
+            fail(f"{model}: cuda and cpu output ciphertexts differ")
+    print("  cuda and cpu output ciphertexts are equal", flush=True)
+    return {"first_ms": gpu["first_s"] * 1e3, "steady_ms": steady_ms,
+            "mae": gpu["mae"], "launches": gpu["counts"],
+            "launches_by_level": gpu["by_level"], "fit_s": gpu["fit_s"], "compile_s": gpu["compile_s"],
+            "rotation_keys": gpu["rotations"], "key_packs": gpu["key_packs"],
+            "peak_device_mib": gpu["peak_mib"],
+            "cpu_forward_s": cpu["first_s"], "profile": gpu["prof"]}
 
 
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", type=Path,
+                    help="directory for chip_smoke.json (every phase-2 case)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     from orion_tpu_torch import kernels
     from orion_tpu_torch.kernels import _build
 
@@ -300,70 +412,52 @@ def main():
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(_build.SOURCES)})", flush=True)
 
-    with open(CONFIG) as f:
-        cfg = yaml.safe_load(f)
-    stats = check_kernels(cfg)
+    cfgs = {}
+    for tag, path in CONFIGS.items():
+        with open(path) as f:
+            cfgs[tag] = yaml.safe_load(f)
+    stats = {}
+    for tag, cfg in cfgs.items():
+        check_kernels(cfg, tag, stats)
+    if args.out is not None:
+        args.out.mkdir(parents=True, exist_ok=True)
+        (args.out / "chip_smoke.json").write_text(json.dumps(
+            {"device": smi, "cases": stats}, indent=1))
 
-    print("phase 3: MLP 784-128-128-10 on configs/mlp.yml, device cuda",
-          flush=True)
-    gpu = run_mlp(cfg, "cuda", steady=3)
-    steady_ms = [s * 1e3 for s in gpu["steady_s"]]
-    print(f"  input level {gpu['level']}; MAE vs cleartext {gpu['mae']:.3e}; "
-          f"first forward {gpu['first_s'] * 1e3:.1f} ms; steady forward "
-          f"{', '.join(f'{s:.1f}' for s in steady_ms)} ms", flush=True)
-    print(f"  launches in one forward: {gpu['counts']}", flush=True)
-    pr = gpu["prof"]
-    if not pr["device_ops"]:
-        print("  profiled forward: the profiler saw no device time "
-              "(device breakdown not measured)", flush=True)
-    print(f"  profiled forward: wall {pr['wall_ms']:.1f} ms, device "
-          f"{pr['device_ms']:.2f} ms in {pr['device_ops']} device ops "
-          f"(busy share {pr['busy_share']:.3f}), port kernels "
-          f"{pr['our_kernels_ms']:.2f} ms; top: "
-          + "; ".join(f"{k} {v:.2f} ms" for k, v in pr["top"]), flush=True)
-    if not gpu["mae"] < 0.005:
-        fail(f"MAE {gpu['mae']} >= 0.005")
-    idle = [k for k, v in gpu["counts"].items() if v == 0]
-    if idle:
-        fail(f"kernels not launched by the MLP forward: {idle}")
-
-    print("phase 3: the same flow on device cpu (plain PyTorch path)",
-          flush=True)
-    t0 = time.perf_counter()
-    cpu = run_mlp(cfg, "cpu", params=gpu["params"])
-    print(f"  cpu flow {time.perf_counter() - t0:.1f} s; forward "
-          f"{cpu['first_s']:.1f} s; MAE {cpu['mae']:.3e}", flush=True)
-    if len(cpu["out"].cts) != len(gpu["out"].cts):
-        fail("output ciphertext counts differ between cuda and cpu")
-    for a, b in zip(gpu["out"].cts, cpu["out"].cts):
-        if not (a.level == b.level and a.scale == b.scale
-                and torch.equal(a.data.cpu(), b.data)):
-            fail("cuda and cpu output ciphertexts differ")
-    print("  cuda and cpu output ciphertexts are equal", flush=True)
+    paths = {
+        "mlp": check_model(cfgs["mlp"], "MLP",
+                           "phase 3: MLP 784-128-128-10 on configs/mlp.yml"),
+        "lenet": check_model(cfgs["lenet"], "LeNet",
+                             "phase 4: LeNet on configs/lenet.yml"),
+    }
 
     line = []
     for k in kernels.KERNELS:
         recs = stats[k.name]
-        # the first case at the top level: the 2-D transforms, full-chain
-        # Shoup keys for ks_finish
-        top = next(r for r in recs if r["level"] == recs[-1]["level"])
+        # the first case at the top level of this slice's config: the 2-D
+        # transforms, full-chain Shoup keys for ks_finish
+        top = next(r for r in recs if r["config"] == "lenet"
+                   and r["level"] == 7)
+        by_path = {p: rec["launches"][k.name] for p, rec in paths.items()}
         line.append({
             "name": k.name, "route": "cuda",
             "source": f"orion_tpu_torch/kernels/csrc/{k.source}",
             "replaces": k.replaces,
-            "launches": gpu["counts"][k.name],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["err"] for r in recs),
             "bit_exact": all(r["ok"] for r in recs),
+            "cases": len(recs),
             "shape": top["label"],
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": None,
         })
-    print(json.dumps({"mlp": {
-        "first_ms": gpu["first_s"] * 1e3, "steady_ms": steady_ms,
-        "mae": gpu["mae"], "launches": gpu["counts"],
-        "profile": gpu["prof"]}}), flush=True)
+    for p, rec in paths.items():
+        print(json.dumps({p: rec}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)
+    print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,14 @@
 """Packing: network weights -> SIMD slot diagonals.
 
-Counterpart of `orion_tpu/compiler/packing.py` for the layers of this slice
-(Linear, BatchNorm1d): the same code, built on the multiplexed address map
-`mux_slots`.  Convolution packing is a later slice.
+Counterpart of `orion_tpu/compiler/packing.py`: the same code, built on the
+multiplexed address map `mux_slots`, from which the convolution matrix, the
+linear matrix, biases and BatchNorm vectors follow by index arithmetic.
+
+  A gap-g tensor of logical shape (C, H, W) lives in an FHE grid
+  (Cm, Hm, Wm): logical channel c splits into a stored channel c // g^2 and
+  a sub-pixel (dy, dx) = divmod(c % g^2, g); logical pixel (y, x) occupies
+  stored pixel (y*g + dy, x*g + dx).  Strided convolutions multiply the gap
+  by the stride instead of shrinking the image ("multiplexed packing").
 
 Layout conventions:
   * row-major flattening of the FHE grid (Cm, Hm, Wm);
@@ -42,11 +48,86 @@ def mux_slots(c, y, x, gap: int, grid) -> np.ndarray:
     return np.where(ok, flat, -1)
 
 
+def embed_mux(values: np.ndarray, gap: int, grid) -> np.ndarray:
+    """Scatter a logical (C, H, W) array into its flat FHE grid vector."""
+    C, H, W = values.shape
+    c, y, x = np.indices((C, H, W))
+    pos = mux_slots(c, y, x, gap, grid)
+    out = np.zeros(int(np.prod(grid)))
+    keep = pos >= 0
+    out[pos[keep]] = values[keep]
+    return out
+
+
 def _batched(matrix: sp.spmatrix, batch: int) -> sp.csr_matrix:
     """A batch of examples = a block-diagonal stack of the same transform."""
     if batch == 1:
         return matrix.tocsr()
     return sp.block_diag([matrix] * batch, format="csr")
+
+
+# ------------------------------------------------------------------ #
+#  Conv2d -> sparse matrix                                           #
+# ------------------------------------------------------------------ #
+
+def grouped_weight(layer) -> np.ndarray:
+    """Full-channel weight of a grouped conv: each group's kernel sees only
+    its own input-channel band; everything else is an exact zero."""
+    co, ci_g, kh, kw = layer.on_weight.shape
+    full = np.zeros((co, layer.in_channels, kh, kw))
+    co_per = co // layer.groups
+    for g in range(layer.groups):
+        rows = slice(g * co_per, (g + 1) * co_per)
+        cols = slice(g * ci_g, (g + 1) * ci_g)
+        full[rows, cols] = layer.on_weight[rows]
+    return full
+
+
+def conv_matrix(layer, weight: np.ndarray) -> sp.csr_matrix:
+    """Sparse matrix applying `layer` to a flat multiplexed input grid.
+
+    Derivation: enumerate the kernel's nonzero taps (co, ci, ky, kx) once,
+    broadcast them against the logical output positions (yo, xo), map both
+    ends through `mux_slots`, and scatter the surviving triplets.  Stride
+    never appears explicitly: output_gap = input_gap * stride, so stepping
+    one multiplexed output pixel advances the input anchor by exactly
+    stride input pixels.
+    """
+    batch = layer.fhe_input_shape[0]
+    in_grid = layer.fhe_input_shape[1:]
+    out_grid = layer.fhe_output_shape[1:]
+    Ho, Wo = layer.output_shape[2:]
+    P, D = layer.padding[0], layer.dilation[0]
+    iG, oG = layer.input_gap, layer.output_gap
+    s = oG // iG  # stride, recovered from the gap relation
+
+    co, ci, ky, kx = (a[:, None, None] for a in np.nonzero(weight))
+    w = weight[np.nonzero(weight)][:, None, None]
+    yo = np.arange(Ho)[None, :, None]
+    xo = np.arange(Wo)[None, None, :]
+
+    rows = mux_slots(co, yo, xo, oG, out_grid)
+    # logical input pixel of this tap; mux_slots(-1 handling) drops the
+    # taps that fall into the zero padding
+    yi = yo * s - P + ky * D
+    xi = xo * s - P + kx * D
+    cols = mux_slots(ci, yi, xi, iG, in_grid)
+
+    keep = (rows >= 0) & (cols >= 0)
+    mat = sp.coo_matrix(
+        (np.broadcast_to(w, rows.shape)[keep],
+         (rows[keep], cols[keep])),
+        shape=(int(np.prod(out_grid)), int(np.prod(in_grid))))
+    return _batched(mat, batch)
+
+
+def construct_conv2d_bias(layer) -> np.ndarray:
+    batch, Co, Ho, Wo = layer.output_shape
+    per_elem = np.broadcast_to(
+        np.asarray(layer.on_bias, np.float64).reshape(Co, 1, 1),
+        (Co, Ho, Wo))
+    vec = embed_mux(per_elem, layer.output_gap, layer.fhe_output_shape[1:])
+    return np.tile(vec, batch)
 
 
 # ------------------------------------------------------------------ #
@@ -148,6 +229,14 @@ def pack_linear(layer, last: bool):
         layer.scheme.params.embedding_method, last)
 
 
+def pack_conv2d(layer, last: bool):
+    weight = (grouped_weight(layer) if layer.groups > 1
+              else np.asarray(layer.on_weight, np.float64))
+    return extract_diagonals(
+        conv_matrix(layer, weight), layer.scheme.params.slots,
+        layer.scheme.params.embedding_method, last)
+
+
 # ------------------------------------------------------------------ #
 #  BatchNorm packing                                                 #
 # ------------------------------------------------------------------ #
@@ -160,4 +249,28 @@ def pack_bn1d(bn):
     if bn.affine:
         weight = np.tile(np.asarray(bn.on_weight, np.float64).ravel(), batch)
         bias = np.tile(np.asarray(bn.on_bias, np.float64).ravel(), batch)
+    return mean, inv_std, weight, bias
+
+
+def pack_bn2d(bn):
+    """Per-channel statistics embedded at the multiplexed slots.
+
+    Slots outside the logical tensor get inv_std = 0, which additionally
+    ZEROES any partial-sum garbage the preceding transform left in gap
+    slots (the reference instead leaves 1/sqrt(eps) there)."""
+    batch, Ci, Hi, Wi = bn.input_shape
+    grid = bn.fhe_input_shape[1:]
+
+    def spread(per_channel):
+        arr = np.broadcast_to(
+            np.asarray(per_channel, np.float64).reshape(Ci, 1, 1),
+            (Ci, Hi, Wi))
+        return np.tile(embed_mux(arr, bn.input_gap, grid), batch)
+
+    mean = spread(bn.on_running_mean)
+    inv_std = spread(1.0 / np.sqrt(bn.on_running_var + bn.eps))
+    weight = bias = None
+    if bn.affine:
+        weight = spread(bn.on_weight)
+        bias = spread(bn.on_bias)
     return mean, inv_std, weight, bias

@@ -3,14 +3,16 @@
 A `Kernel` binds a C function of a library built by `_build.py` through
 ctypes.  `launch` passes tensors as device pointers, integers as C ints,
 appends PyTorch's current stream, raises if the function returns a CUDA
-error, and adds one to `launches`.  Nothing else changes the count, so a
-run that sets it to 0 before the main path and reads it after shows which
-kernels the path went through.
+error, and adds one to `launches` (and to `by_level[level]` when the
+caller names the ciphertext level).  Nothing else changes the counts, so a
+run that sets them to 0 before the main path and reads them after shows
+which kernels the path went through, and at which levels.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -26,6 +28,7 @@ class Kernel:
         self.signature = signature    # one letter per argument: p / i
         self.replaces = replaces      # the Pallas function(s) it ports
         self.launches = 0
+        self.by_level: Counter = Counter()
         self._fn = None
 
     def _bind(self):
@@ -38,7 +41,7 @@ class Kernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, device: torch.device, *args) -> None:
+    def launch(self, device: torch.device, *args, level=None) -> None:
         fn = self._bind()
         if len(args) != len(self.signature):
             raise TypeError(f"{self.name}: {len(args)} arguments, "
@@ -61,6 +64,8 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA error {err} at launch")
         self.launches += 1
+        if level is not None:
+            self.by_level[level] += 1
 
 
 def check_residues(name: str, x: torch.Tensor, shape: tuple) -> None:

@@ -4,7 +4,11 @@
 //
 // Replaces orion_tpu/crypto/ks_pallas.py ks_decompose_pallas (bodies
 // _decompose_k, _fbc_k), which keeps the whole decomposition in one VMEM
-// program.  Hopper's thread blocks run in no order, and the basis
+// program, and ks_decompose_pallas_grid, the same function streamed one
+// digit per grid step with the digit constants padded to alpha_max (deep
+// levels: 4 digits at levels 6-7 of configs/lenet.yml).  Here every digit
+// reads its own alpha from dig_alpha, so an unequal last digit needs no
+// padded source rows.  Hopper's thread blocks run in no order, and the basis
 // conversion of one target row reads every source limb of its digit, so
 // the work is split at a launch boundary:
 //   launch A: one block per Q row - inverse NTT into a coefficient scratch;

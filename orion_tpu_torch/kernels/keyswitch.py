@@ -26,7 +26,7 @@ KS_DECOMPOSE = Kernel(
     "ks_decompose", "ks_decompose.cu", "orion_ks_decompose",
     "ppp" + "iiiii" + "p" * 17,
     "orion_tpu/crypto/ks_pallas.py:717 ks_decompose_pallas "
-    "(_decompose_k :201, _fbc_k :174)")
+    "(_decompose_k :201, _fbc_k :174), :509 ks_decompose_pallas_grid")
 KS_FINISH = Kernel(
     "ks_finish", "ks_finish.cu", "orion_ks_finish",
     "pppppp" + "iiiii" + "p" * 20,
@@ -154,7 +154,7 @@ def ks_decompose(c_ntt, dl):
         n.bit_length() - 1, d["lo"], d["alpha"], d["qi"], d["qi_sh"],
         d["srcp"], d["srcq"], d["conv"], d["conv_sh"], d["dmod"],
         d["dmod_sh"], t.p, t.tw, t.tw_shoup, t.itw, t.itw_shoup, t.ninv,
-        t.ninv_shoup)
+        t.ninv_shoup, level=dl.level)
     return ext
 
 
@@ -194,5 +194,5 @@ def ks_finish(ext, dl, ksk_data, ksk_shoup=None, trimmed=False):
         dl.t_rshoup, t.tw, t.tw_shoup, t.itw, t.itw_shoup, t.ninv,
         t.ninv_shoup, md.qhat_inv, md.qhat_inv_shoup, md.src_p,
         md.src_q_f32, md.conv, md.conv_shoup, md.d_mod_t, md.d_mod_t_shoup,
-        dl.pinv_mod_q, dl.pinv_mod_q_shoup)
+        dl.pinv_mod_q, dl.pinv_mod_q_shoup, level=dl.level)
     return out

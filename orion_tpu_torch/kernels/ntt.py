@@ -16,10 +16,12 @@ from ._launch import Kernel, check_residues
 
 NTT_FWD = Kernel(
     "ntt_fwd", "ntt.cu", "orion_ntt_fwd", "ppiiippp",
-    "orion_tpu/crypto/ks_pallas.py:351 pallas_ntt4 (_kntt :82)")
+    "orion_tpu/crypto/ks_pallas.py:351 pallas_ntt4 (_kntt :82); "
+    "orion_tpu/crypto/ntt_pallas.py:247 PallasNTT.ntt (_fwd_kernel :90)")
 NTT_INV = Kernel(
     "ntt_inv", "ntt.cu", "orion_ntt_inv", "ppiiippppp",
-    "orion_tpu/crypto/ks_pallas.py:387 pallas_intt4 (_kintt :106)")
+    "orion_tpu/crypto/ks_pallas.py:387 pallas_intt4 (_kintt :106); "
+    "orion_tpu/crypto/ntt_pallas.py:251 PallasNTT.intt (_inv_kernel :126)")
 
 
 def ntt_fwd_plain(a, rr):

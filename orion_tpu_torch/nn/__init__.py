@@ -1,10 +1,10 @@
 from .module import Module
-from .linear import Linear, LinearTransform
+from .linear import Conv2d, Linear, LinearTransform
 from .activation import Quad
-from .normalization import BatchNormNd, BatchNorm1d
+from .normalization import BatchNormNd, BatchNorm1d, BatchNorm2d
 from .reshape import Flatten
 
 __all__ = [
-    "Module", "Linear", "LinearTransform",
-    "Quad", "BatchNormNd", "BatchNorm1d", "Flatten",
+    "Module", "Linear", "LinearTransform", "Conv2d",
+    "Quad", "BatchNormNd", "BatchNorm1d", "BatchNorm2d", "Flatten",
 ]

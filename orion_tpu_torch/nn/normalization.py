@@ -1,6 +1,6 @@
 """BatchNorm modules.
 
-Counterpart of `orion_tpu/nn/normalization.py` (`BatchNorm1d`).  Running
+Counterpart of `orion_tpu/nn/normalization.py`.  Running
 statistics are buffers and the affine weight/bias are parameters.  Under
 FHE the normalisation constants are encoded so every rescale is errorless:
 mean and inverse-std at level l with scale q_l, affine weight/bias one
@@ -100,3 +100,15 @@ class BatchNorm1d(BatchNormNd):
     def pack(self):
         from ..compiler import packing
         return packing.pack_bn1d(self)
+
+
+class BatchNorm2d(BatchNormNd):
+    def forward(self, x):
+        if not self.he_mode and to_tensor(x).dim() != 4:
+            raise ValueError(
+                f"BatchNorm2d expects (N, C, H, W), got {tuple(x.shape)}")
+        return super().forward(x)
+
+    def pack(self):
+        from ..compiler import packing
+        return packing.pack_bn2d(self)

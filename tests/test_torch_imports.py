@@ -21,6 +21,7 @@ import yaml
 import orion_tpu_torch
 from orion_tpu_torch.crypto import CKKSContext
 from orion_tpu_torch.crypto.keyswitch import dev_level
+from orion_tpu_torch.crypto.ntt_pallas import PallasNTT
 from orion_tpu_torch.kernels import keyswitch as kks
 from orion_tpu_torch.kernels import ntt as kntt
 
@@ -91,6 +92,8 @@ def test_wrappers_refuse_other_devices():
         kntt.ntt_fwd(meta, dl.q)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kntt.ntt_inv(meta, dl.q)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        PallasNTT(ctx).ntt(meta, [0, 1])
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kks.ks_decompose(meta, dl)
     ext = torch.empty((len(dl.digits), 3, ctx.n), dtype=torch.int64,

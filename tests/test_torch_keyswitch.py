@@ -11,6 +11,12 @@ against the Pallas entry points
 ks_decompose_pallas, ks_finish_pallas and keyswitch_pallas, run in
 interpret mode as tests/crypto/test_ks_pallas.py runs them.  On CPU
 tensors the port runs the plain versions of its kernels.
+
+The top two levels of configs/lenet.yml's chain shape (8 Q primes, 2
+special primes, here at LogN 8) key-switch with 4 digits, unequal at level
+6 (alpha 2, 2, 2, 1).  There the port is held against the grid-streaming
+Pallas entry points ks_decompose_pallas_grid and ks_finish_pallas_grid,
+with a full-chain key read through the level's key row map.
 """
 
 import numpy as np
@@ -29,6 +35,8 @@ from orion_tpu_torch.crypto.context import CKKSContext as TContext
 
 CHAIN = dict(logn=8, logq=[29, 26, 26], logp=[29, 29], logscale=26, h=64,
              seed=3)
+LENET_CHAIN = dict(logn=8, logq=[29] + [26] * 7, logp=[29, 29], logscale=26,
+                   h=64, seed=3)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -45,6 +53,13 @@ def _unoptimised_xla():
 @pytest.fixture(scope="module")
 def chain():
     jctx, tctx = JContext(**CHAIN), TContext(**CHAIN, device="cpu")
+    return jctx, JKeys(jctx), tctx, TKeys(tctx)
+
+
+@pytest.fixture(scope="module")
+def lenet_chain():
+    jctx = JContext(**LENET_CHAIN)
+    tctx = TContext(**LENET_CHAIN, device="cpu")
     return jctx, JKeys(jctx), tctx, TKeys(tctx)
 
 
@@ -124,3 +139,25 @@ def test_against_pallas_interpret(chain, monkeypatch):
     assert _same(want, tks.ks_finish(text, tdl, rk_t.data, rk_t.shoup))
     assert _same(ks_pallas.keyswitch_pallas(jc, jdl, rk_j.data, rk_j.shoup),
                  tks.keyswitch(tc, tdl, rk_t.data, rk_t.shoup))
+
+
+@pytest.mark.parametrize("level", [6, 7])
+def test_four_digits_against_pallas_grid(lenet_chain, level):
+    """Levels 6-7 of the LeNet chain shape: the grid-streaming Pallas entry
+    points (interpret mode) against the port's plain kernels."""
+    jctx, jkeys, tctx, tkeys = lenet_chain
+    jdl, tdl = jks.dev_level(jctx, level), tks.dev_level(tctx, level)
+    alphas = [dg.src_hi - dg.src_lo for dg in tdl.digits]
+    assert alphas == ([2, 2, 2, 1] if level == 6 else [2, 2, 2, 2])
+    assert tdl.kernel_row_map(trimmed=False).tolist() == (
+        list(range(level + 1)) + [tctx.n_q, tctx.n_q + 1])
+    c = _poly(tctx, range(level + 1), seed=30 + level)
+    jc, tc = jnp.asarray(c.astype(np.uint32)), torch.as_tensor(c)
+
+    text = tks.ks_decompose(tc, tdl)
+    assert text.shape == (4, level + 3, tctx.n)
+    assert _same(ks_pallas.ks_decompose_pallas_grid(jc, jdl), text)
+    rk_j, rk_t = jkeys.relin_key, tkeys.relin_key
+    want = ks_pallas.ks_finish_pallas_grid(jks.ks_decompose(jc, jdl), jdl,
+                                           rk_j.data, rk_j.shoup)
+    assert _same(want, tks.ks_finish(text, tdl, rk_t.data, rk_t.shoup))

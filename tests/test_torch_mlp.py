@@ -56,7 +56,7 @@ def narrow_mlp(on):
     return NarrowMLP()
 
 
-def _seed_jax_net(net, rng):
+def seed_jax_net(net, rng):
     """Random weights and BN statistics on the orion_tpu net; returns them
     as the numpy dict load_jax_params takes."""
     params = {}
@@ -77,7 +77,7 @@ def _seed_jax_net(net, rng):
     return params
 
 
-def _run(orion, net, cfg, loader, x, module_jit=False, **kw):
+def run_flow(orion, net, cfg, loader, x, module_jit=False, **kw):
     scheme = orion.init_scheme(cfg, **kw)
     net.eval()
     clear = net(x)
@@ -100,7 +100,7 @@ def runs():
     cfg["ckks_params"]["H"] = 64
     rng = np.random.default_rng(11)
     jnet = narrow_mlp(jon)
-    params = _seed_jax_net(jnet, rng)
+    params = seed_jax_net(jnet, rng)
     x_fit = rng.uniform(0, 1, (32, 1, 8, 8)).astype(np.float32)
     loader = ArrayLoader(x_fit, np.zeros(len(x_fit)), batch_size=1)
     x = rng.uniform(0, 1, (1, 1, 8, 8)).astype(np.float32)
@@ -108,7 +108,7 @@ def runs():
     tnet = narrow_mlp(ton)
     load_jax_params(tnet, params)
     before = launch_counts()
-    port = _run(torion, tnet, cfg, loader, x, device="cpu")
+    port = run_flow(torion, tnet, cfg, loader, x, device="cpu")
     assert launch_counts() == before   # the plain path launches nothing
     # orion_tpu's programs compile without most XLA optimizations (a third
     # less compile time; integer and IEEE float32 ops give the same bits
@@ -116,7 +116,7 @@ def runs():
     prev = jax.config.read("jax_disable_most_optimizations")
     jax.config.update("jax_disable_most_optimizations", True)
     try:
-        jax_run = _run(jorion, jnet, cfg, loader, x, module_jit=True)
+        jax_run = run_flow(jorion, jnet, cfg, loader, x, module_jit=True)
     finally:
         jax.config.update("jax_disable_most_optimizations", prev)
     return jax_run, port
