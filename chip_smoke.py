@@ -24,10 +24,6 @@ Phases, each printing its own lines; any failure exits non-zero:
   5. one JSON line per path, one JSON line describing each kernel, the
      card's line, then the result line.
 
-    python3 chip_smoke.py --out DIR
-
-also writes every case of phase 2 to DIR/chip_smoke.json.
-
 Imports only torch, numpy, yaml and orion_tpu_torch.
 """
 
@@ -386,12 +382,6 @@ def check_model(cfg, model, title):
 
 
 def main():
-    import argparse
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", type=Path,
-                    help="directory for chip_smoke.json (every phase-2 case)")
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
@@ -419,10 +409,6 @@ def main():
     stats = {}
     for tag, cfg in cfgs.items():
         check_kernels(cfg, tag, stats)
-    if args.out is not None:
-        args.out.mkdir(parents=True, exist_ok=True)
-        (args.out / "chip_smoke.json").write_text(json.dumps(
-            {"device": smi, "cases": stats}, indent=1))
 
     paths = {
         "mlp": check_model(cfgs["mlp"], "MLP",

@@ -257,7 +257,7 @@ def pack_bn2d(bn):
 
     Slots outside the logical tensor get inv_std = 0, which additionally
     ZEROES any partial-sum garbage the preceding transform left in gap
-    slots (the reference instead leaves 1/sqrt(eps) there)."""
+    slots, as orion_tpu does (upstream Orion leaves 1/sqrt(eps) there)."""
     batch, Ci, Hi, Wi = bn.input_shape
     grid = bn.fhe_input_shape[1:]
 

@@ -156,8 +156,8 @@ def test_four_digits_against_pallas_grid(lenet_chain, level):
 
     text = tks.ks_decompose(tc, tdl)
     assert text.shape == (4, level + 3, tctx.n)
-    assert _same(ks_pallas.ks_decompose_pallas_grid(jc, jdl), text)
+    jext = ks_pallas.ks_decompose_pallas_grid(jc, jdl)
+    assert _same(jext, text)
     rk_j, rk_t = jkeys.relin_key, tkeys.relin_key
-    want = ks_pallas.ks_finish_pallas_grid(jks.ks_decompose(jc, jdl), jdl,
-                                           rk_j.data, rk_j.shoup)
+    want = ks_pallas.ks_finish_pallas_grid(jext, jdl, rk_j.data, rk_j.shoup)
     assert _same(want, tks.ks_finish(text, tdl, rk_t.data, rk_t.shoup))

@@ -2,11 +2,11 @@
 
 A LeNet-shaped net built from each package's `nn` modules (Conv2d -> BN2d
 -> Quad -> Conv2d -> BN2d -> Quad -> Flatten -> Linear -> BN1d -> Quad ->
-Linear) at narrow channels on configs/lenet.yml changed to LogN 10 (H 64).
+Linear) at narrow channels on configs/lenet.yml changed to LogN 9 (H 64).
 The chain keeps its 8 Q primes, so the input enters at level 7 and the
 key-switches at levels 6-7 run with 4 digits (unequal at level 6).  A
-1x16x16 input through conv1 (1 -> 16, k5, pad 2, stride 2) gives a
-16x8x8 output at gap 2, 1024 slots: two ciphertexts at LogN 10, a 2x1
+1x16x16 input through conv1 (1 -> 8, k5, pad 2, stride 2) gives an
+8x8x8 output at gap 2, 512 slots: two ciphertexts at LogN 9, a 2x1
 block grid for conv1 and a 1x2 grid for conv2.
 
 Weights and non-trivial BN statistics are drawn from a numpy seed onto the
@@ -43,14 +43,14 @@ def narrow_lenet(on):
     class NarrowLeNet(on.Module):
         def __init__(self):
             super().__init__()
-            self.conv1 = on.Conv2d(1, 16, kernel_size=5, padding=2, stride=2)
-            self.bn1 = on.BatchNorm2d(16)
+            self.conv1 = on.Conv2d(1, 8, kernel_size=5, padding=2, stride=2)
+            self.bn1 = on.BatchNorm2d(8)
             self.act1 = on.Quad()
-            self.conv2 = on.Conv2d(16, 32, kernel_size=5, padding=2, stride=2)
-            self.bn2 = on.BatchNorm2d(32)
+            self.conv2 = on.Conv2d(8, 16, kernel_size=5, padding=2, stride=2)
+            self.bn2 = on.BatchNorm2d(16)
             self.act2 = on.Quad()
             self.flatten = on.Flatten()
-            self.fc1 = on.Linear(32 * 4 * 4, 32)
+            self.fc1 = on.Linear(16 * 4 * 4, 32)
             self.bn3 = on.BatchNorm1d(32)
             self.act3 = on.Quad()
             self.fc2 = on.Linear(32, 10)
@@ -69,7 +69,7 @@ def narrow_lenet(on):
 def runs():
     with open(CONFIG) as f:
         cfg = yaml.safe_load(f)
-    cfg["ckks_params"]["LogN"] = 10
+    cfg["ckks_params"]["LogN"] = 9
     cfg["ckks_params"]["H"] = 64
     rng = np.random.default_rng(12)
     jnet = narrow_lenet(jon)
@@ -106,7 +106,7 @@ def test_shapes_of_the_slice(runs):
     assert tnet.conv1.level == 7
     assert sorted(tnet.conv1.compiled) == [(0, 0), (1, 0)]
     assert sorted(tnet.conv2.compiled) == [(0, 0), (0, 1)]
-    assert tnet.conv1.fhe_output_shape == (1, 4, 16, 16)
+    assert tnet.conv1.fhe_output_shape == (1, 2, 16, 16)
     assert tnet.conv2.output_gap == 4
     assert tout.cts[0].level == 0
 
