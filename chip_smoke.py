@@ -4,24 +4,40 @@
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure exits non-zero:
-  1. the card's name and power limit, and the kernel build time (every
-     CUDA source of the port is compiled here, in parallel);
+  1. the card's name and power limit, the kernel build time (every CUDA
+     source of the port is compiled here, in parallel) and ptxas'
+     registers and spills of each kernel at LogN 13 and 14;
   2. each hand-written kernel against its plain PyTorch version on the
      card (N = 8192) at every level of configs/mlp.yml (0-5) and of
-     configs/lenet.yml (0-7, 4 digits at levels 6-7), the transforms also
-     batched over two polys as rescale_poly gives them, ks_finish with
-     full-chain and trimmed keys, Shoup and lean, and the PallasNTT
-     counterpart (crypto/ntt_pallas.py) over chosen limb rows: all must be
-     bit-exact (torch.equal); ms per call for both;
+     configs/lenet.yml (0-7, 4 digits at levels 6-7), one key-switch per
+     call: the transforms also batched over two polys as rescale_poly
+     gives them, ks_finish with full-chain and trimmed keys, Shoup and
+     lean, ks_finish_raw (no ModDown), and the PallasNTT counterpart
+     (crypto/ntt_pallas.py) over chosen limb rows: all must be bit-exact
+     (torch.equal, the kernel's output allocated from memory filled with
+     -1); per call the kernel's ms (calls back to back, host included,
+     as the earlier slices took it), its device ms (calls queued behind
+     a sleep kernel, so the host's issue time is left out) and the plain
+     version's ms;
   3. the full-width MLP 784-128-128-10 on configs/mlp.yml through the
      user entry points on `cuda`: MAE vs cleartext < 0.005, every kernel
-     launched during the encrypted forward, first and steady latency; the
-     same flow with device="cpu" (plain path) must give equal output
-     ciphertexts;
+     launched during the encrypted forward, launches and items
+     (key-switches) per kernel and level, first and steady latency, a
+     profiled forward (device time by kernel; the port's kernels it
+     recorded must be those their wrappers launched); the same flow with
+     device="cpu" (plain path) must give equal output ciphertexts;
   4. the full-width LeNet on configs/lenet.yml the same way, with the
      host seconds of fit and compile, the rotation keys made and the peak
      device memory;
-  5. one JSON line per path, one JSON line describing each kernel, the
+  5. the key-switch kernels batched as the forwards of phases 3-4 batch
+     them: at every level, ks_decompose over B polys, ks_finish and
+     ks_finish_raw over a pack of K keys (shared ext) and over K paired
+     items, B and K the largest batch of that level in that config's
+     forward (4 where it has none), bit-exact against the plain versions,
+     with ms per launch, per key-switch and the bound per launch; then
+     every kernel once at LogN 14 (configs/mlp.yml's chain on a ring of
+     2^14), the instantiation that needs more than 48 KB of shared memory;
+  6. one JSON line per path, one JSON line describing each kernel, the
      card's line, then the result line.
 
 Imports only torch, numpy, yaml and orion_tpu_torch.
@@ -54,7 +70,9 @@ def fail(msg):
 
 
 def cuda_ms(fn, iters):
-    """Mean device ms per call over `iters` calls after warm-up."""
+    """Mean ms per call over `iters` back-to-back calls after warm-up, from
+    CUDA events: the device's time, or the host's where issuing the calls
+    takes longer than running them."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -68,40 +86,115 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+_SLEEP = {"cycles": 1 << 24}
+
+
+def device_ms(fn, iters):
+    """Mean device time per call over `iters` calls, launch gaps included
+    and the host's issue time left out: the calls are queued behind a
+    sleep kernel long enough for the host to issue them all, and CUDA
+    events around them time the device alone (the sleep is doubled until
+    it outlasts the issuing)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    while True:
+        sleep_s = _sleep_s()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(_SLEEP["cycles"])
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        issue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        # the device reached `start` after the sleep; had the host still
+        # been issuing then, the events would time the host
+        if issue_s < 0.8 * sleep_s:
+            return start.elapsed_time(end) / iters
+        _SLEEP["cycles"] *= 2
+        _SLEEP.pop("s")
+
+
+def poison_free_memory():
+    """Fill the caching allocator's free blocks with -1.  A kernel output
+    that misses elements then cannot pass on a stale buffer that an
+    earlier call filled with the same values (ks_finish_raw's output is
+    ks_finish's work buffer; trimmed and full-chain keys give equal
+    results)."""
+    torch.cuda.synchronize()
+    sizes = sorted((b["size"] for seg in torch.cuda.memory_snapshot()
+                    for b in seg["blocks"] if b["state"] == "inactive"),
+                   reverse=True)
+    held = [torch.full((n // 8,), -1, dtype=torch.int64, device="cuda")
+            for n in sizes if n >= 8]
+    torch.cuda.synchronize()
+    del held
+
+
+def _sleep_s():
+    """Seconds the device spends in one sleep kernel of _SLEEP cycles."""
+    if "s" not in _SLEEP:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(_SLEEP["cycles"])
+        b.record()
+        torch.cuda.synchronize()
+        _SLEEP["s"] = a.elapsed_time(b) / 1e3
+    return _SLEEP["s"]
+
+
 # ------------------------------------------------------------------ #
 #  Work of one kernel call, for its bound                            #
 # ------------------------------------------------------------------ #
 # bytes: each input (residues, keys, twiddle tables) read once and each
-# output written once, int64; ops: 32-bit integer multiplies (3 per Shoup
-# product, 4 per Montgomery product), against the card's IMAD rate.
+# output written once, int64, a twiddle and its Shoup companion packed in
+# one word (kernels/ntt.py pack_twiddles); ops: 32-bit integer multiplies
+# (3 per Shoup product, 4 per Montgomery product), against the card's IMAD
+# rate.
 
 def ntt_work(rows, table_rows, n):
     """`rows` transformed rows over `table_rows` rows of twiddles."""
     logn = n.bit_length() - 1
-    nbytes = 8 * rows * n * 2 + 8 * table_rows * n * 2   # data + tw, tw_sh
+    nbytes = 8 * rows * n * 2 + 8 * table_rows * n   # data + packed tw
     ops = 3 * rows * (n // 2) * logn + 3 * rows * n
     return nbytes, ops
 
 
 def decompose_work(nl, n_t, dnum, alpha, n):
     logn = n.bit_length() - 1
-    nbytes = 8 * n * (nl + dnum * n_t + 2 * nl + 2 * n_t)
+    # c, ext, the inverse tables of the nl Q rows, the forward of n_t rows
+    nbytes = 8 * n * (nl + dnum * n_t + nl + n_t)
     ops = (3 * nl * (n // 2) * logn + 3 * nl * n
            + dnum * n_t * n * (6 * alpha + 3)
            + 3 * dnum * n_t * (n // 2) * logn)
     return nbytes, ops
 
 
-def finish_work(nl, n_t, dnum, n, lean):
+def decompose_batch_work(nl, n_t, dnum, alpha, n, batch):
+    """B polys: data and operations B times, the tables once."""
+    nbytes, ops = decompose_work(nl, n_t, dnum, alpha, n)
+    tables = 8 * n * (nl + n_t)
+    return batch * (nbytes - tables) + tables, batch * ops
+
+
+def finish_work(nl, n_t, dnum, n, lean, items=1, paired=False,
+                moddown=True):
+    """K items over K keys; a shared ext is read once, the tables once."""
     logn = n.bit_length() - 1
     n_sp = n_t - nl
-    key_words = dnum * 2 * n_t * n * (1 if lean else 2)
-    nbytes = 8 * (dnum * n_t * n + key_words + 2 * nl * n
-                  + 2 * n_sp * n + 2 * nl * n)
-    ops = (2 * dnum * n_t * n * (7 if lean else 3)
-           + 2 * n_sp * (3 * (n // 2) * logn + 3 * n)
-           + 2 * nl * n * (6 * n_sp + 3)
-           + 2 * nl * (3 * (n // 2) * logn + 3 * n))
+    key_words = items * dnum * 2 * n_t * n * (1 if lean else 2)
+    ext_words = (items if paired else 1) * dnum * n_t * n
+    ops = items * 2 * dnum * n_t * n * (7 if lean else 3)
+    if not moddown:
+        return 8 * (ext_words + key_words + items * 2 * n_t * n), ops
+    nbytes = 8 * (ext_words + key_words + items * 2 * nl * n
+                  + n_sp * n + nl * n)
+    ops += items * (2 * n_sp * (3 * (n // 2) * logn + 3 * n)
+                    + 2 * nl * n * (6 * n_sp + 3)
+                    + 2 * nl * (3 * (n // 2) * logn + 3 * n))
     return nbytes, ops
 
 
@@ -115,52 +208,87 @@ def bound(work):
 #  Phase 2: kernels against their plain versions                     #
 # ------------------------------------------------------------------ #
 
-def check_kernels(cfg, tag, stats):
-    """Every kernel at every level of one config; records go to `stats`
-    (kernel -> list of per-case records)."""
-    from orion_tpu_torch.crypto import CKKSContext, KeyChest
+def make_context(cfg, logn=None):
+    """The config's context on the card (its ring, or a ring of 2^logn)."""
+    from orion_tpu_torch.crypto import CKKSContext
+    from orion_tpu_torch.runtime.config import parse_config
+
+    p = parse_config(cfg)
+    return CKKSContext(logn=logn or p.logn, logq=p.split_logq, logp=p.logp,
+                       logscale=p.logscale, h=p.h, seed=p.seed,
+                       device="cuda")
+
+
+class Cases:
+    """Runs and records kernel-vs-plain cases of one context."""
+
+    def __init__(self, ctx, tag, stats, seed=7):
+        self.ctx, self.tag, self.stats = ctx, tag, stats
+        self.rng = np.random.default_rng(seed)
+        self.gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def residues(self, shape, rr_p):
+        hi = rr_p.cpu().numpy()[:, None]
+        x = self.rng.integers(0, 1 << 62, size=shape, dtype=np.int64)
+        return torch.as_tensor(x % hi, device="cuda")
+
+    def device_residues(self, shape, rr_p):
+        """Random residues of a large (..., rows, N) array, made on the card
+        (row r mod rr_p[r])."""
+        x = torch.randint(0, 1 << 62, shape, generator=self.gen,
+                          device="cuda")
+        return x % rr_p[:, None]
+
+    def case(self, name, level, label, kernel_fn, plain_fn, work, iters=50,
+             items=1, plain_iters=3):
+        """Bit-exactness and ms per launch; with plain_iters=0 the plain
+        version runs once, for the comparison only."""
+        want = plain_fn()
+        poison_free_memory()
+        got = kernel_fn()
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max().item())
+        ok = torch.equal(got, want)
+        del got, want
+        ms = cuda_ms(kernel_fn, iters)
+        dev_ms = device_ms(kernel_fn, iters)
+        plain_ms = cuda_ms(plain_fn, plain_iters) if plain_iters else None
+        b, by = bound(work)
+        per = (f" per_item={ms / items:.5f} device_per_item="
+               f"{dev_ms / items:.5f}" if items > 1 else "")
+        plain = f" plain_ms={plain_ms:.3f}" if plain_ms is not None else ""
+        print(f"  {self.tag:5s} {name:12s} level {level} {label:34s} "
+              f"bit-exact={ok} ms={ms:.4f} device_ms={dev_ms:.4f}{per}"
+              f"{plain} bound_ms={b:.5f} ({by})", flush=True)
+        self.stats.setdefault(name, []).append(dict(
+            config=self.tag, level=level,
+            label=f"{self.tag} level {level} {label}", items=items, ok=ok,
+            err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+            bound_ms=b, bound_by=by))
+        if not ok:
+            fail(f"{name} {self.tag} level {level} {label} differs from its "
+                 f"plain version (max abs err {err})")
+
+
+def check_kernels(cfg, tag, stats, logn=None, levels=None):
+    """Every kernel, one key-switch per call, at every level of one config
+    (or at `levels` on a ring of 2^logn); records go to `stats` (kernel ->
+    list of per-case records)."""
+    from orion_tpu_torch.crypto import KeyChest
     from orion_tpu_torch.crypto.keyswitch import RingRows, dev_level
     from orion_tpu_torch.crypto.ntt_pallas import PallasNTT
     from orion_tpu_torch.kernels import keyswitch as kks
     from orion_tpu_torch.kernels import ntt as kntt
-    from orion_tpu_torch.runtime.config import parse_config
 
-    p = parse_config(cfg)
-    ctx = CKKSContext(logn=p.logn, logq=p.split_logq, logp=p.logp,
-                      logscale=p.logscale, h=p.h, seed=p.seed,
-                      device="cuda")
-    keys = KeyChest(ctx)
-    rk = keys.relin_key
-    rng = np.random.default_rng(7)
+    ctx = make_context(cfg, logn)
+    rk = KeyChest(ctx).relin_key
+    cs = Cases(ctx, tag, stats)
     n = ctx.n
-
-    def residues(shape, rr_p):
-        hi = rr_p.cpu().numpy()[:, None]
-        x = rng.integers(0, 1 << 62, size=shape, dtype=np.int64)
-        return torch.as_tensor(x % hi, device="cuda")
-
-    def case(name, level, label, kernel_fn, plain_fn, work, iters=50):
-        got, want = kernel_fn(), plain_fn()
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max().item())
-        ok = torch.equal(got, want)
-        ms = cuda_ms(kernel_fn, iters)
-        plain_ms = cuda_ms(plain_fn, 3)
-        b, by = bound(work)
-        print(f"  {tag:5s} {name:12s} level {level} {label:34s} "
-              f"bit-exact={ok} ms={ms:.4f} plain_ms={plain_ms:.3f} "
-              f"bound_ms={b:.5f} ({by})", flush=True)
-        stats.setdefault(name, []).append(dict(
-            config=tag, level=level, label=f"{tag} level {level} {label}",
-            ok=ok, err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-            bound_by=by))
-        if not ok:
-            fail(f"{name} {label} differs from its plain version "
-                 f"(max abs err {err})")
-
-    print(f"phase 2: kernels vs plain PyTorch on the card, configs/{tag}.yml "
-          f"(N={n}, levels 0-{ctx.max_level})", flush=True)
-    for level in range(ctx.max_level + 1):
+    levels = range(ctx.max_level + 1) if levels is None else levels
+    print(f"phase {2 if logn is None else 5}: kernels vs plain PyTorch on "
+          f"the card, configs/{tag}.yml (N={n}, levels "
+          f"{', '.join(map(str, levels))})", flush=True)
+    for level in levels:
         dl = dev_level(ctx, level)
         nl = level + 1
         n_t = dl.t.p.shape[0]
@@ -186,17 +314,17 @@ def check_kernels(cfg, tag, stats):
                 ("ntt_fwd", kntt.ntt_fwd_plain, fwd_b, (2,)),
                 ("ntt_inv", kntt.ntt_inv_plain, inv_b, (2,))):
             rows = rr.p.shape[0]
-            a = residues(batch + (rows, n), rr.p)
+            a = cs.residues(batch + (rows, n), rr.p)
             kern = getattr(kntt, kname)
-            case(kname, level, str(batch + (rows, n)),
-                 lambda: kern(a, rr), lambda: plain(a, rr),
-                 ntt_work(a.numel() // n, rows, n))
-        c = residues((nl, n), dl.q.p)
+            cs.case(kname, level, str(batch + (rows, n)),
+                    lambda: kern(a, rr), lambda: plain(a, rr),
+                    ntt_work(a.numel() // n, rows, n))
+        c = cs.residues((nl, n), dl.q.p)
         alpha = max(dg.src_hi - dg.src_lo for dg in dl.digits)
-        case("ks_decompose", level, f"({nl}, {n})",
-             lambda: kks.ks_decompose(c, dl),
-             lambda: kks.ks_decompose_plain(c, dl),
-             decompose_work(nl, n_t, dnum, alpha, n))
+        cs.case("ks_decompose", level, f"({nl}, {n})",
+                lambda: kks.ks_decompose(c, dl),
+                lambda: kks.ks_decompose_plain(c, dl),
+                decompose_work(nl, n_t, dnum, alpha, n))
         ext = kks.ks_decompose(c, dl)
         rows = dl.ksk_rows_idx
         trim = rk.data[:dnum][:, :, rows].contiguous()
@@ -206,10 +334,17 @@ def check_kernels(cfg, tag, stats):
                 ("full-chain lean", rk.data, None, False),
                 ("trimmed Shoup", trim, trim_sh, True),
                 ("trimmed lean", trim, None, True)):
-            case("ks_finish", level, label,
-                 lambda: kks.ks_finish(ext, dl, kd, ks, trimmed),
-                 lambda: kks.ks_finish_plain(ext, dl, kd, ks, trimmed),
-                 finish_work(nl, n_t, dnum, n, ks is None))
+            cs.case("ks_finish", level, label,
+                    lambda: kks.ks_finish(ext, dl, kd, ks, trimmed),
+                    lambda: kks.ks_finish_plain(ext, dl, kd, ks, trimmed),
+                    finish_work(nl, n_t, dnum, n, ks is None))
+        # the inner product alone, as the fused mul_relin gives it
+        cs.case("ks_finish", level, "raw full-chain Shoup",
+                lambda: kks.ks_finish_raw(ext, dl, rk.data, rk.shoup),
+                lambda: kks.ks_inner(ext, dl, rk.data, rk.shoup),
+                finish_work(nl, n_t, dnum, n, False, moddown=False))
+    if logn is not None:
+        return ctx
 
     # the PallasNTT counterpart (crypto/ntt_pallas.py), over the limb rows
     # tests/crypto/test_ntt_pallas.py uses and over the whole chain batched
@@ -218,14 +353,69 @@ def check_kernels(cfg, tag, stats):
     top = ctx.max_level
     for rows, batch in (([0, 1], ()), (list(range(ctx.n_all)), (2,))):
         rr = RingRows.from_ctx(ctx, rows)
-        a = residues(batch + (len(rows), n), rr.p)
+        a = cs.residues(batch + (len(rows), n), rr.p)
         label = f"PallasNTT rows {rows[0]}-{rows[-1]} {batch + (len(rows), n)}"
-        case("ntt_fwd", top, label, lambda: pn.ntt(a, rows),
-             lambda: kntt.ntt_fwd_plain(a, rr),
-             ntt_work(a.numel() // n, len(rows), n))
-        case("ntt_inv", top, label, lambda: pn.intt(a, rows),
-             lambda: kntt.ntt_inv_plain(a, rr),
-             ntt_work(a.numel() // n, len(rows), n))
+        cs.case("ntt_fwd", top, label, lambda: pn.ntt(a, rows),
+                lambda: kntt.ntt_fwd_plain(a, rr),
+                ntt_work(a.numel() // n, len(rows), n))
+        cs.case("ntt_inv", top, label, lambda: pn.intt(a, rows),
+                lambda: kntt.ntt_inv_plain(a, rr),
+                ntt_work(a.numel() // n, len(rows), n))
+    return ctx
+
+
+def check_batched(ctx, tag, stats, sizes, levels=None, default=4):
+    """The key-switch kernels over batches (phase 5).  sizes: {kernel:
+    {level: {items per launch: launches}}} from a forward; B and K are the
+    largest batch of the level, `default` where the forward has none.
+    Keys are a random trimmed pack (K, dnum, 2, n_t, N) made on the card:
+    the kernels' arithmetic does not depend on the key being a real one."""
+    from orion_tpu_torch.crypto.keyswitch import dev_level
+    from orion_tpu_torch.kernels import keyswitch as kks
+
+    cs = Cases(ctx, tag, stats, seed=11)
+    n = ctx.n
+    levels = range(ctx.max_level + 1) if levels is None else levels
+    print(f"phase 5: batched key-switch kernels vs plain PyTorch, "
+          f"configs/{tag}.yml (N={n})", flush=True)
+
+    def largest(kernel, level):
+        return max(sizes.get(kernel, {}).get(level, {default: 0}))
+
+    for level in levels:
+        dl = dev_level(ctx, level)
+        nl = level + 1
+        n_t = dl.t.p.shape[0]
+        dnum = len(dl.digits)
+        alpha = max(dg.src_hi - dg.src_lo for dg in dl.digits)
+        b = largest("ks_decompose", level)
+        c = cs.device_residues((b, nl, n), dl.q.p)
+        cs.case("ks_decompose", level, f"batch B={b} ({b}, {nl}, {n})",
+                lambda: kks.ks_decompose(c, dl),
+                lambda: kks.ks_decompose_plain(c, dl),
+                decompose_batch_work(nl, n_t, dnum, alpha, n, b),
+                iters=20, items=b, plain_iters=0)
+        del c
+        k = largest("ks_finish", level)
+        pack = cs.device_residues((k, dnum, 2, n_t, n), dl.t.p)
+        pack_sh = (pack << 32) // dl.t.p[:, None]
+        ext1 = cs.device_residues((dnum, n_t, n), dl.t.p)
+        extk = cs.device_residues((k, dnum, n_t, n), dl.t.p)
+        # key slots out of order, as a transform's giants may have them
+        idx = torch.randperm(k, generator=cs.gen, device="cuda")
+        for ext, how in ((ext1, "shared"), (extk, "paired")):
+            for fn, plain, raw in ((kks.ks_finish, kks.ks_finish_plain, ""),
+                                   (kks.ks_finish_raw, kks.ks_inner,
+                                    "raw ")):
+                cs.case("ks_finish", level,
+                        f"{raw}pack K={k} {how} trimmed Shoup",
+                        lambda: fn(ext, dl, pack, pack_sh, True, idx),
+                        lambda: plain(ext, dl, pack, pack_sh, True, idx),
+                        finish_work(nl, n_t, dnum, n, False, items=k,
+                                    paired=how == "paired",
+                                    moddown=not raw),
+                        iters=20, items=k, plain_iters=0)
+        del pack, pack_sh, ext1, extk
 
 
 # ------------------------------------------------------------------ #
@@ -236,30 +426,65 @@ OUR_KERNELS = ("ntt_fwd_rows", "ntt_inv_rows", "fbc_ntt_digits",
                "ks_inner_intt", "moddown_rows")
 
 
+def launched_grids():
+    """Device kernels by name that the port's wrappers launched since the
+    counts were last set to 0: ntt_inv_rows is also ks_decompose's first
+    grid, moddown_rows ks_finish's second (ks_finish_raw has none)."""
+    from orion_tpu_torch.kernels import KS_DECOMPOSE, KS_FINISH, NTT_FWD
+    from orion_tpu_torch.kernels import NTT_INV
+
+    dec, fin = KS_DECOMPOSE, KS_FINISH
+    return {"ntt_fwd_rows": NTT_FWD.grids,
+            "ntt_inv_rows": NTT_INV.grids + dec.grids - dec.launches,
+            "fbc_ntt_digits": dec.launches,
+            "ks_inner_intt": fin.launches,
+            "moddown_rows": fin.grids - fin.launches}
+
+
 def profile_forward(net, ct):
     """Device time of one steady forward by kernel (torch.profiler), the
-    share spent in the port's kernels, and the device's busy share."""
-    from torch.profiler import ProfilerActivity, profile
+    share spent in the port's kernels, and the device's busy share; with
+    the port's kernels the profile recorded, by name, beside those their
+    wrappers launched in that forward.  A first forward warms the profiler
+    up and is not recorded: a profile started cold lost one kernel record
+    of LeNet's forward."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from orion_tpu_torch import kernels
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        net(ct)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    with profile(activities=acts,
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):     # warm-up, then the recorded forward
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            net(ct)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launched = launched_grids()
+            prof.step()
+    by_name, seen = {}, dict.fromkeys(OUR_KERNELS, 0)
     n_kernels = 0
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # the schedule's step annotation is mirrored on the device's
+        # timeline; it spans the forward and is no device work
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.name.startswith("ProfilerStep")):
             continue
         n_kernels += 1
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.time_range.elapsed_us() / 1e3)
+        for o in OUR_KERNELS:
+            seen[o] += o in e.name
     dev_ms = sum(by_name.values())
-    ours = sum(v for k, v in by_name.items()
-               if any(o in k for o in OUR_KERNELS))
+    ours_by = {o: sum(v for k, v in by_name.items() if o in k)
+               for o in OUR_KERNELS}
+    ours = sum(ours_by.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return dict(wall_ms=wall_ms, device_ms=dev_ms, our_kernels_ms=ours,
+                our_kernels_by_name=ours_by,
+                our_kernels_recorded=seen, our_kernels_launched=launched,
                 device_ops=n_kernels,
                 busy_share=dev_ms / wall_ms if wall_ms else None,
                 top=[(k[:60], v) for k, v in top])
@@ -305,6 +530,9 @@ def run_model(cfg, model, device, params=None, steady=0):
     first_s = time.perf_counter() - t0
     counts = kernels.launch_counts()
     by_level = kernels.launch_counts_by_level()
+    items = kernels.item_counts()
+    items_by_level = kernels.item_counts_by_level()
+    batches = kernels.batch_sizes()
     steady_s = []
     for _ in range(steady):
         t0 = time.perf_counter()
@@ -317,7 +545,8 @@ def run_model(cfg, model, device, params=None, steady=0):
     state = {k: v.detach().cpu().numpy() for k, v in net.state_dict().items()}
     return dict(
         out=out, mae=err, first_s=first_s, steady_s=steady_s, counts=counts,
-        by_level=by_level,
+        by_level=by_level, items=items, items_by_level=items_by_level,
+        batches=batches,
         params=state, level=input_level, prof=prof, fit_s=fit_s,
         compile_s=compile_s, in_cts=len(ct.cts),
         rotations=len(scheme.lt_evaluator.generated_rotations),
@@ -344,6 +573,11 @@ def check_model(cfg, model, title):
           f"{gpu['peak_mib']:.0f} MiB", flush=True)
     print(f"  launches in one forward: {gpu['counts']}; key-switch kernels "
           f"by level: {gpu['by_level']}", flush=True)
+    print(f"  items in one forward (key-switches; rows for the NTTs): "
+          f"{gpu['items']}; key-switch kernels by level: "
+          f"{gpu['items_by_level']}", flush=True)
+    print(f"  key-switch batches {{kernel: {{level: {{items per launch: "
+          f"launches}}}}}}: {gpu['batches']}", flush=True)
     pr = gpu["prof"]
     if not pr["device_ops"]:
         print("  profiled forward: the profiler saw no device time "
@@ -351,13 +585,21 @@ def check_model(cfg, model, title):
     print(f"  profiled forward: wall {pr['wall_ms']:.1f} ms, device "
           f"{pr['device_ms']:.2f} ms in {pr['device_ops']} device ops "
           f"(busy share {pr['busy_share']:.3f}), port kernels "
-          f"{pr['our_kernels_ms']:.2f} ms; top: "
+          f"{pr['our_kernels_ms']:.2f} ms ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in
+                      pr["our_kernels_by_name"].items())
+          + "); top: "
           + "; ".join(f"{k} {v:.2f} ms" for k, v in pr["top"]), flush=True)
+    print(f"  port kernels the profile recorded {pr['our_kernels_recorded']}"
+          f", launched {pr['our_kernels_launched']}", flush=True)
     if not gpu["mae"] < 0.005:
         fail(f"{model}: MAE {gpu['mae']} >= 0.005")
     idle = [k for k, v in gpu["counts"].items() if v == 0]
     if idle:
         fail(f"kernels not launched by the {model} forward: {idle}")
+    if pr["our_kernels_recorded"] != pr["our_kernels_launched"]:
+        fail(f"{model}: the profile lost port kernels, so their device "
+             f"time is not measured")
 
     print(f"{title}, the same flow on device cpu (plain PyTorch path)",
           flush=True)
@@ -375,10 +617,36 @@ def check_model(cfg, model, title):
     print("  cuda and cpu output ciphertexts are equal", flush=True)
     return {"first_ms": gpu["first_s"] * 1e3, "steady_ms": steady_ms,
             "mae": gpu["mae"], "launches": gpu["counts"],
-            "launches_by_level": gpu["by_level"], "fit_s": gpu["fit_s"], "compile_s": gpu["compile_s"],
+            "launches_by_level": gpu["by_level"], "items": gpu["items"],
+            "items_by_level": gpu["items_by_level"],
+            "batches": gpu["batches"], "fit_s": gpu["fit_s"],
+            "compile_s": gpu["compile_s"],
             "rotation_keys": gpu["rotations"], "key_packs": gpu["key_packs"],
             "peak_device_mib": gpu["peak_mib"],
             "cpu_forward_s": cpu["first_s"], "profile": gpu["prof"]}
+
+
+def print_ptxas(libs):
+    """Registers and spills of each kernel at LogN 13 and 14, from ptxas'
+    report beside each library."""
+    import re
+
+    for src, so in libs.items():
+        log = so.with_suffix(".log").read_text()
+        name = None
+        for line in log.splitlines():
+            m = re.search(r"entry function '_Z\w*?(\d+)([a-z_]+)ILi(\d+)E",
+                          line)
+            if m:
+                name = (f"{m.group(2)}<{m.group(3)}>"
+                        if m.group(3) in ("13", "14") else None)
+            elif name and "spill" in line:
+                spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+            elif name and "Used" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                print(f"phase 1: {src} {name}: {regs} registers, {spill} "
+                      f"bytes spilled", flush=True)
+                name = None
 
 
 def main():
@@ -398,9 +666,10 @@ def main():
     print(f"phase 1: device {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    _build.build_all()
+    libs = _build.build_all()
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(_build.SOURCES)})", flush=True)
+    print_ptxas(libs)
 
     cfgs = {}
     for tag, path in CONFIGS.items():
@@ -416,6 +685,13 @@ def main():
         "lenet": check_model(cfgs["lenet"], "LeNet",
                              "phase 4: LeNet on configs/lenet.yml"),
     }
+
+    for tag, cfg in cfgs.items():
+        check_batched(make_context(cfg), tag, stats, paths[tag]["batches"])
+    # LogN 14: one key-switch per call, then a batch of 4, at the top level
+    ctx14 = check_kernels(cfgs["mlp"], "mlp14", stats, logn=14, levels=[5])
+    check_batched(ctx14, "mlp14", stats, {}, levels=[5])
+    del ctx14
 
     line = []
     for k in kernels.KERNELS:
@@ -435,10 +711,22 @@ def main():
             "bit_exact": all(r["ok"] for r in recs),
             "cases": len(recs),
             "shape": top["label"],
-            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "ms": top["ms"], "device_ms": top["device_ms"],
+            "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": None,
         })
+        # conv2's batch (lenet level 5): the largest launch of the forward
+        batched = [r for r in recs if r["config"] == "lenet"
+                   and r["level"] == 5 and r["items"] > 1]
+        if batched:
+            r = batched[0]
+            line[-1]["batched"] = {
+                "shape": r["label"], "items": r["items"], "ms": r["ms"],
+                "device_ms": r["device_ms"],
+                "ms_per_item": r["ms"] / r["items"],
+                "device_ms_per_item": r["device_ms"] / r["items"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
     for p, rec in paths.items():
         print(json.dumps({p: rec}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)

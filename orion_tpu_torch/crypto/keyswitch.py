@@ -5,12 +5,14 @@ standard RNS-CKKS set (full-RNS HPS fast basis conversion with a float32
 correction term, hybrid gadget decomposition, ModDown by the special
 primes).
 
-Dispatch: `ring_ntt` / `ring_intt`, `ks_decompose`, `ks_finish` and
-`keyswitch` launch the hand-written CUDA kernels (`kernels/`) when given
-CUDA tensors, at every level, and run the plain PyTorch versions on CPU
-tensors.  `ks_finish_raw` and the elementwise glue of the fused epilogues
-(`mod_drop_rescale`, `rescale_poly`) are plain torch ops on either device,
-as orion_tpu computes them in jnp outside Pallas.
+Dispatch: `ring_ntt` / `ring_intt`, `ks_decompose`, `ks_finish`,
+`ks_finish_raw` and `keyswitch` launch the hand-written CUDA kernels
+(`kernels/`) when given CUDA tensors, at every level, and run the plain
+PyTorch versions on CPU tensors.  The key-switch kernels take a batch of
+key-switches per launch (`kernels/keyswitch.py`).  The elementwise glue
+of the fused epilogues (`mod_drop_rescale`, `rescale_poly`) is plain
+torch ops on either device, as orion_tpu computes it in jnp outside
+Pallas.
 
 Float32 v-correction: the HPS correction term only needs to be within +-1
 of round(sum z_m / q_m); an off-by-one adds a multiple of the digit
@@ -25,9 +27,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..kernels.keyswitch import (fbc, ks_decompose, ks_finish, ks_inner,
-                                 mod_down)
-from ..kernels.ntt import ntt_fwd, ntt_inv
+from ..kernels.keyswitch import (fbc, ks_decompose, ks_finish,
+                                 ks_finish_raw, mod_down)
+from ..kernels.ntt import ntt_fwd, ntt_inv, packed_twiddles
 from .context import CKKSContext, DigitTables, LevelKSTables
 from .modops import sub_mod
 
@@ -54,7 +56,8 @@ class DevDigit:
 class RingRows:
     """NTT tables of a list of prime rows (all contiguous, on the device).
 
-    The kernels read the merged-psi twiddles with their Shoup companions;
+    The kernels read the merged-psi twiddles with their Shoup companions,
+    packed (`kernels.ntt.packed_twiddles`, cached in `kernel_tables`);
     the plain versions read the four-step tables `t4`."""
     p: torch.Tensor               # (L,)
     tw: torch.Tensor              # (L, N)
@@ -64,6 +67,7 @@ class RingRows:
     ninv: torch.Tensor            # (L,)
     ninv_shoup: torch.Tensor
     t4: dict
+    kernel_tables: dict = field(default_factory=dict)
 
     @classmethod
     def from_ctx(cls, ctx: CKKSContext, rows) -> "RingRows":
@@ -76,10 +80,15 @@ class RingRows:
                    {k[3:]: d[k][idx] for k in ctx.t4_keys})
 
     def rows(self, lo: int, hi: int) -> "RingRows":
+        """Rows lo..hi-1 as views.  On the card the packed kernel tables
+        are built on this set first, so that every slice shares them."""
+        if self.p.is_cuda:
+            packed_twiddles(self)
         return RingRows(self.p[lo:hi], self.tw[lo:hi], self.tw_shoup[lo:hi],
                         self.itw[lo:hi], self.itw_shoup[lo:hi],
                         self.ninv[lo:hi], self.ninv_shoup[lo:hi],
-                        {k: v[lo:hi] for k, v in self.t4.items()})
+                        {k: v[lo:hi] for k, v in self.t4.items()},
+                        {k: v[lo:hi] for k, v in self.kernel_tables.items()})
 
 
 @dataclass
@@ -221,13 +230,6 @@ def keyswitch(c_ntt, dl: DevLevel, ksk_data, ksk_shoup):
     """Switch poly c (level+1, N, NTT domain) with a hybrid KSK: the
     ks_decompose and ks_finish kernels back to back on a CUDA tensor."""
     return ks_finish(ks_decompose(c_ntt, dl), dl, ksk_data, ksk_shoup)
-
-
-def ks_finish_raw(ext, dl: DevLevel, ksk_data, ksk_shoup=None,
-                  trimmed=False):
-    """Inner product WITHOUT ModDown: (2, n_t, N) extended-basis acc
-    (plain torch ops on either device)."""
-    return ks_inner(ext, dl, ksk_data, ksk_shoup, trimmed)
 
 
 def mod_drop_rescale(acc, dl: DevLevel):

@@ -2,14 +2,16 @@
 
 Counterpart of `orion_tpu/crypto/lintrans_scan.py`.  orion_tpu writes the
 rotation loops as `lax.scan` so its XLA programs stay small; the port runs
-eagerly, so each scan is a Python loop over the same per-step inputs, in
-the same order.
+each scan as one batch: the baby steps of a key pack are one `ks_finish`
+call over the pack, and the giant steps of a transform one `ks_decompose`
+and one `ks_finish` (or `ks_finish_raw`) call, summed afterwards.  Modular
+sums are exact, so the residues equal the scan's bit for bit.
 
 Structure per transform (diag idx = g*n1 + b):
   1. baby steps : rot_b(ct) for every needed b, sharing ONE decomposition
                   of the ciphertext (hoisting) across rotations;
   2. diagonals  : acc[g] += pt_d * rot[b_pos(d)]      (elementwise)
-  3. giant steps: out += rot_{g*n1}(acc[g])           (key-switch each)
+  3. giant steps: out += rot_{g*n1}(acc[g])           (one batch)
 
 Rotation keys for a set of amounts are stacked once, pre-permuted by the
 inverse automorphism and trimmed to the level (KeyPack), cached per unique
@@ -18,7 +20,7 @@ inverse automorphism and trimmed to the level (KeyPack), cached per unique
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -51,6 +53,23 @@ class KeyPack:
     ksk_shoup: torch.Tensor
     level: int | None = None       # if set, ksk is trimmed to this level
     cache_key: tuple = None
+    index: dict = field(default_factory=dict)  # device index tensors
+
+    def slots_index(self, slots) -> torch.Tensor:
+        """The pack slots `slots` as an int64 tensor on the keys' device
+        (cached): the key_index of a batched ks_finish."""
+        slots = tuple(int(s) for s in slots)
+        if slots not in self.index:
+            if any(not 0 <= s < len(self.amounts) for s in slots):
+                raise ValueError(f"slots {slots} outside the pack of "
+                                 f"{len(self.amounts)} keys")
+            self.index[slots] = placement.buffer(slots, self.ksk.device)
+        return self.index[slots]
+
+
+def _permute(x, perms):
+    """x[k][..., perms[k]] for each item k of x (K, 2, L, N)."""
+    return torch.gather(x, -1, perms[:, None, None, :].expand_as(x))
 
 
 def build_key_pack(ev: Evaluator, amounts, level: int | None = None) -> KeyPack:
@@ -109,14 +128,12 @@ def rotate_scan(ev: Evaluator, ct: Ciphertext, pack: KeyPack):
     dl = dev_level(ev.ctx, ct.level)
     qp = dl.q.p[:, None]
     ext = ks_decompose(ct.data[1], dl)  # shared across all rotations
-    trimmed = pack.level is not None
-    rots = []
-    for slot in range(len(pack.amounts)):
-        ks = ks_finish(ext, dl, pack.ksk[slot], pack.ksk_shoup[slot],
-                       trimmed=trimmed)
-        t0 = add_mod(ct.data[0], ks[0], qp)
-        rots.append(torch.stack([t0, ks[1]])[..., pack.perms[slot]])
-    return torch.stack(rots)
+    # one ks_finish over the whole pack
+    ks = ks_finish(ext, dl, pack.ksk, pack.ksk_shoup,
+                   trimmed=pack.level is not None,
+                   key_index=pack.slots_index(range(len(pack.amounts))))
+    t0 = add_mod(ct.data[0], ks[:, 0], qp)
+    return _permute(torch.stack([t0, ks[:, 1]], dim=1), pack.perms)
 
 
 @dataclass
@@ -132,6 +149,7 @@ class ScanTransform:
     babies: tuple            # baby rotation amounts needed (excluding 0)
     giants: tuple            # giant rotation amounts per accumulator row
     n_giants: int
+    giant_rows: torch.Tensor  # (n_nonzero,) long: rows of nonzero giants
 
 
 def compile_transform_scan(encoder, diagonals, level, slots,
@@ -173,6 +191,8 @@ def compile_transform_scan(encoder, diagonals, level, slots,
         babies=tuple(b for b in babies if b != 0),
         giants=tuple(g * n1 for g in giants),
         n_giants=len(giants),
+        giant_rows=placement.buffer(
+            [i for i, g in enumerate(giants) if g != 0], dev),
     )
 
 
@@ -200,14 +220,16 @@ def _diagonal_step(tr: ScanTransform, ct: Ciphertext, rots_cache: dict, qp):
     return acc
 
 
-def _giant_pack(ev: Evaluator, tr: ScanTransform, level: int):
-    """(pack, [(accumulator row, pack slot)]) for the nonzero giants."""
-    nonzero = [(i, a) for i, a in enumerate(tr.giants) if a != 0]
+def _giant_batch(ev: Evaluator, tr: ScanTransform, level: int):
+    """The nonzero giants as one batch: (pack, their accumulator rows,
+    their pack slots as a key_index), or None.  The slots are passed
+    explicitly: a giant's pack slot need not follow its row."""
+    nonzero = [a for a in tr.giants if a != 0]
     if not nonzero:
-        return None, []
-    pack = build_key_pack(ev, [a for _, a in nonzero], level=level)
+        return None
+    pack = build_key_pack(ev, nonzero, level=level)
     slot = {a: s for s, a in enumerate(pack.amounts)}
-    return pack, [(i, slot[a]) for i, a in nonzero]
+    return pack, tr.giant_rows, pack.slots_index(slot[a] for a in nonzero)
 
 
 def eval_transform_scan(ev: Evaluator, tr: ScanTransform, ct: Ciphertext,
@@ -223,13 +245,19 @@ def eval_transform_scan(ev: Evaluator, tr: ScanTransform, ct: Ciphertext,
     acc = _diagonal_step(tr, ct, rots_cache, qp)
 
     out = acc[0] if tr.giants and tr.giants[0] == 0 else None
-    pack, steps = _giant_pack(ev, tr, ct.level)
-    for i, slot in steps:
-        ks = ks_finish(ks_decompose(acc[i, 1], dl), dl, pack.ksk[slot],
-                       pack.ksk_shoup[slot], trimmed=pack.level is not None)
-        t0 = add_mod(acc[i, 0], ks[0], qp)
-        rot = torch.stack([t0, ks[1]])[..., pack.perms[slot]]
-        out = rot if out is None else add_mod(out, rot, qp)
+    batch = _giant_batch(ev, tr, ct.level)
+    if batch is not None:
+        pack, rows, slots = batch
+        sel = acc.index_select(0, rows)
+        ks = ks_finish(ks_decompose(sel[:, 1].contiguous(), dl), dl,
+                       pack.ksk, pack.ksk_shoup,
+                       trimmed=pack.level is not None, key_index=slots)
+        t0 = add_mod(sel[:, 0], ks[:, 0], qp)
+        rot = _permute(torch.stack([t0, ks[:, 1]], dim=1),
+                       pack.perms.index_select(0, slots))
+        # residues < 2^31: the int64 sum of the giants is exact
+        part = rot.sum(0) % qp
+        out = part if out is None else add_mod(out, part, qp)
     if out is None:
         raise ValueError("empty transform")
     return Ciphertext(out, ct.level, ct.scale * tr.pt_scale)
@@ -271,15 +299,20 @@ def eval_transform_scan_ext(ev: Evaluator, tr: ScanTransform,
                          dim=1)
 
     out = fold_q(acc[0]) if tr.giants and tr.giants[0] == 0 else None
-    pack, steps = _giant_pack(ev, tr, ct.level)
-    for i, slot in steps:
-        raw = ks_finish_raw(ks_decompose(acc[i, 1], dl), dl, pack.ksk[slot],
-                            pack.ksk_shoup[slot],
-                            trimmed=pack.level is not None)
-        pc0 = acc[i, 0] * dl.p_mod_q % qp
-        r0 = torch.cat([add_mod(raw[0, :nl], pc0, qp), raw[0, nl:]])
-        rot = torch.stack([r0, raw[1]])[..., pack.perms[slot]]
-        out = rot if out is None else add_mod(out, rot, tp)
+    batch = _giant_batch(ev, tr, ct.level)
+    if batch is not None:
+        pack, rows, slots = batch
+        sel = acc.index_select(0, rows)
+        raw = ks_finish_raw(ks_decompose(sel[:, 1].contiguous(), dl), dl,
+                            pack.ksk, pack.ksk_shoup,
+                            trimmed=pack.level is not None, key_index=slots)
+        pc0 = sel[:, 0] * dl.p_mod_q % qp
+        r0 = torch.cat([add_mod(raw[:, 0, :nl], pc0, qp), raw[:, 0, nl:]],
+                       dim=1)
+        rot = _permute(torch.stack([r0, raw[:, 1]], dim=1),
+                       pack.perms.index_select(0, slots))
+        part = rot.sum(0) % tp
+        out = part if out is None else add_mod(out, part, tp)
     if out is None:
         raise ValueError("empty transform")
     return out

@@ -3,7 +3,8 @@ build (`_build.py`) and their wrappers (`ntt.py`, `keyswitch.py`).
 
 Every wrapper launches its kernel on a CUDA tensor (or raises) and runs
 its plain PyTorch version on a CPU tensor.  `KERNELS` lists them with
-their launch counts (in all, and per level for the key-switch kernels).
+their launch and item counts (in all, and per level for the key-switch
+kernels).
 """
 
 from .keyswitch import KS_DECOMPOSE, KS_FINISH
@@ -14,8 +15,7 @@ KERNELS = (NTT_FWD, NTT_INV, KS_DECOMPOSE, KS_FINISH)
 
 def reset_launches() -> None:
     for k in KERNELS:
-        k.launches = 0
-        k.by_level.clear()
+        k.reset()
 
 
 def launch_counts() -> dict[str, int]:
@@ -25,5 +25,32 @@ def launch_counts() -> dict[str, int]:
 def launch_counts_by_level() -> dict[str, dict[int, int]]:
     """Launches per ciphertext level of the kernels whose wrappers know it
     (the key-switch kernels)."""
-    return {k.name: dict(sorted(k.by_level.items())) for k in KERNELS
-            if k.by_level}
+    return _by_level(lambda items, n: n)
+
+
+def item_counts() -> dict[str, int]:
+    """Items per kernel: key-switches for the key-switch kernels, so
+    items / launches is how full a launch was."""
+    return {k.name: k.items for k in KERNELS}
+
+
+def item_counts_by_level() -> dict[str, dict[int, int]]:
+    return _by_level(lambda items, n: items * n)
+
+
+def batch_sizes() -> dict[str, dict[int, dict[int, int]]]:
+    """{kernel: {level: {items per launch: launches}}} of the key-switch
+    kernels."""
+    out: dict = {}
+    for k in KERNELS:
+        for (level, items), n in sorted(k.batches.items()):
+            out.setdefault(k.name, {}).setdefault(level, {})[items] = n
+    return out
+
+
+def _by_level(count) -> dict[str, dict[int, int]]:
+    out: dict = {}
+    for name, levels in batch_sizes().items():
+        out[name] = {level: sum(count(i, n) for i, n in sizes.items())
+                     for level, sizes in levels.items()}
+    return out

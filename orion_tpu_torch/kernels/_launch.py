@@ -3,10 +3,15 @@
 A `Kernel` binds a C function of a library built by `_build.py` through
 ctypes.  `launch` passes tensors as device pointers, integers as C ints,
 appends PyTorch's current stream, raises if the function returns a CUDA
-error, and adds one to `launches` (and to `by_level[level]` when the
-caller names the ciphertext level).  Nothing else changes the counts, so a
-run that sets them to 0 before the main path and reads them after shows
-which kernels the path went through, and at which levels.
+error, and adds one to `launches`, the launch's `items` (the
+key-switches, or rows, it computed) to `items` and the device kernels
+(grids) the C function launched to `grids`, which a profile of the card
+can be held against.  When the caller names
+the ciphertext level, it also counts the launch under (level, items) in
+`batches`: launches say how often the path went to the card, items how
+full each launch was.  Nothing else changes the counts, so a run that
+sets them to 0 before the main path and reads them after shows which
+kernels the path went through, at which levels and in which batches.
 """
 
 from __future__ import annotations
@@ -28,8 +33,14 @@ class Kernel:
         self.signature = signature    # one letter per argument: p / i
         self.replaces = replaces      # the Pallas function(s) it ports
         self.launches = 0
-        self.by_level: Counter = Counter()
+        self.items = 0
+        self.grids = 0
+        self.batches: Counter = Counter()   # (level, items) -> launches
         self._fn = None
+
+    def reset(self) -> None:
+        self.launches = self.items = self.grids = 0
+        self.batches.clear()
 
     def _bind(self):
         if self._fn is None:
@@ -41,7 +52,8 @@ class Kernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, device: torch.device, *args, level=None) -> None:
+    def launch(self, device: torch.device, *args, level=None, items=1,
+               grids=1) -> None:
         fn = self._bind()
         if len(args) != len(self.signature):
             raise TypeError(f"{self.name}: {len(args)} arguments, "
@@ -64,8 +76,10 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA error {err} at launch")
         self.launches += 1
+        self.items += items
+        self.grids += grids
         if level is not None:
-            self.by_level[level] += 1
+            self.batches[(level, items)] += 1
 
 
 def check_residues(name: str, x: torch.Tensor, shape: tuple) -> None:

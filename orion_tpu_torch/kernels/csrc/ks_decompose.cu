@@ -1,6 +1,7 @@
-// ks_decompose: the hoistable half of a hybrid key-switch.  c (nl, N) in
-// the NTT domain -> ext (dnum, n_t, N) in the NTT domain, where digit d's
-// alpha source limbs are converted to all n_t = nl + n_sp target primes.
+// ks_decompose: the hoistable half of a hybrid key-switch, over a batch.
+// c (B, nl, N) in the NTT domain -> ext (B, dnum, n_t, N) in the NTT
+// domain, where digit d's alpha source limbs are converted to all
+// n_t = nl + n_sp target primes.
 //
 // Replaces orion_tpu/crypto/ks_pallas.py ks_decompose_pallas (bodies
 // _decompose_k, _fbc_k), which keeps the whole decomposition in one VMEM
@@ -10,81 +11,88 @@
 // reads its own alpha from dig_alpha, so an unequal last digit needs no
 // padded source rows.  Hopper's thread blocks run in no order, and the basis
 // conversion of one target row reads every source limb of its digit, so
-// the work is split at a launch boundary:
-//   launch A: one block per Q row - inverse NTT into a coefficient scratch;
-//   launch B: one block per (target row t, digit d) - the fast basis
-//             conversion of the digit into shared memory, the forward NTT
-//             with row t's tables, and one write of ext[d, t].
+// the work is split at a launch boundary, one gap per batch:
+//   launch A: grid (nl, B) - inverse NTT of each Q row into a coefficient
+//             scratch (B, nl, N);
+//   launch B: grid (n_t, dnum, B) - the fast basis conversion of the digit,
+//             computed straight into the registers of the forward NTT's
+//             first pass, the NTT with row t's tables, and one write of
+//             ext[b, d, t].
+// The batch is the giant steps of one BSGS transform (or one poly):
+// launch B has n_t * dnum * B blocks, 40 * B at configs/lenet.yml's
+// level 7, so a batch fills the 132 SMs where one key-switch cannot.
 //
 // What bounds it: device memory.  It reads c and writes ext once (int64),
-// plus the scratch round trip and the twiddle tables; launch B re-reads
-// the alpha source rows once per target row (n_t times), from L2 at the
-// MLP's sizes.  The conversion and the transforms stay in registers and
-// shared memory.  The grid is small at the MLP (dnum * n_t <= 24 blocks of
-// 512 threads); filling the card with more rows per launch is later speed
-// work.
+// plus the scratch round trip and the packed twiddle tables; launch B
+// re-reads the alpha source rows once per target row (n_t times), from L2.
+// The conversion and the transforms stay in registers and shared memory.
 //
 // Table layouts (all contiguous int64 except srcq, float32):
 //   dig_lo, dig_alpha (dnum); qi, qi_sh, srcp, srcq (dnum, amax);
 //   conv, conv_sh (dnum, amax, n_t); dmod, dmod_sh (dnum, n_t);
-//   t_* are the target rows' tables (Q rows 0..nl-1 first, then specials).
+//   t_* are the target rows' tables (Q rows 0..nl-1 first, then specials),
+//   t_twp / t_itwp packed as modarith.cuh describes.
 
 #include "modarith.cuh"
 
 using namespace orion;
 
-__global__ void fbc_ntt_digits(
-        int64_t* ext, const int64_t* coeff, int n_t, int amax, int logn,
-        const int64_t* dig_lo, const int64_t* dig_alpha, const int64_t* qi,
-        const int64_t* qi_sh, const int64_t* srcp, const float* srcq,
-        const int64_t* conv, const int64_t* conv_sh, const int64_t* dmod,
-        const int64_t* dmod_sh, const int64_t* t_p, const int64_t* t_tw,
-        const int64_t* t_tw_sh) {
+template <int LOGN>
+__global__ void __launch_bounds__(Ring<LOGN>::T) fbc_ntt_digits(
+        int64_t* ext, const int64_t* coeff, int nl, int n_t, int dnum,
+        int amax, const int64_t* dig_lo, const int64_t* dig_alpha,
+        const int64_t* qi, const int64_t* qi_sh, const int64_t* srcp,
+        const float* srcq, const int64_t* conv, const int64_t* conv_sh,
+        const int64_t* dmod, const int64_t* dmod_sh, const int64_t* t_p,
+        const int64_t* t_twp) {
     extern __shared__ uint32_t s[];
-    const int n = 1 << logn;
+    constexpr int N = Ring<LOGN>::N;
     const int t = blockIdx.x;
     const int d = blockIdx.y;
+    const int64_t b = blockIdx.z;
     const uint32_t pt = (uint32_t)t_p[t];
     const int alpha = (int)dig_alpha[d];
-    const int64_t* z = coeff + dig_lo[d] * n;
+    const int64_t* z = coeff + (b * nl + dig_lo[d]) * N;
     const int64_t dg = (int64_t)d * amax;
     const int64_t* cv = conv + dg * n_t + t;
     const int64_t* cv_sh = conv_sh + dg * n_t + t;
     const uint32_t dm = (uint32_t)dmod[(int64_t)d * n_t + t];
     const uint32_t dm_sh = (uint32_t)dmod_sh[(int64_t)d * n_t + t];
-    for (int k = threadIdx.x; k < n; k += blockDim.x)
-        s[k] = fbc_one(z + k, n, alpha, qi + dg, qi_sh + dg, srcp + dg,
-                       srcq + dg, cv, cv_sh, n_t, dm, dm_sh, pt);
-    __syncthreads();
-    ntt_fwd_smem(s, logn, t_tw + (int64_t)t * n, t_tw_sh + (int64_t)t * n,
-                 pt);
-    int64_t* dst = ext + ((int64_t)d * n_t + t) * n;
-    for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = s[k];
+    int64_t* dst = ext + ((b * dnum + d) * n_t + t) * N;
+    ntt_fwd_row<LOGN>(
+        s, t_twp + (int64_t)t * N, pt,
+        [&](int i) {
+            return fbc_one(z + i, N, alpha, qi + dg, qi_sh + dg, srcp + dg,
+                           srcq + dg, cv, cv_sh, n_t, dm, dm_sh, pt);
+        },
+        [&](int i, uint32_t v) { dst[i] = v; });
 }
 
 extern "C" int orion_ks_decompose(
-        int64_t* ext, int64_t* coeff, const int64_t* c, int nl, int n_t,
-        int dnum, int amax, int logn, const int64_t* dig_lo,
+        int64_t* ext, int64_t* coeff, const int64_t* c, int batch, int nl,
+        int n_t, int dnum, int amax, int logn, const int64_t* dig_lo,
         const int64_t* dig_alpha, const int64_t* qi, const int64_t* qi_sh,
         const int64_t* srcp, const float* srcq, const int64_t* conv,
         const int64_t* conv_sh, const int64_t* dmod, const int64_t* dmod_sh,
-        const int64_t* t_p, const int64_t* t_tw, const int64_t* t_tw_sh,
-        const int64_t* t_itw, const int64_t* t_itw_sh, const int64_t* t_ninv,
-        const int64_t* t_ninv_sh, void* stream) {
-    const size_t smem = row_smem(logn);
-    const int threads = row_threads(logn);
+        const int64_t* t_p, const int64_t* t_twp, const int64_t* t_itwp,
+        const int64_t* t_ninv, const int64_t* t_ninv_sh, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    cudaError_t e = allow_smem(ntt_inv_rows, smem);
-    if (e == cudaSuccess) e = allow_smem(fbc_ntt_digits, smem);
-    if (e != cudaSuccess) return (int)e;
-    // A: the Q rows are the first nl rows of the target tables
-    ntt_inv_rows<<<nl, threads, smem, st>>>(coeff, c, nl, logn, t_p, t_itw,
-                                            t_itw_sh, t_ninv, t_ninv_sh);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    // B
-    fbc_ntt_digits<<<dim3(n_t, dnum), threads, smem, st>>>(
-        ext, coeff, n_t, amax, logn, dig_lo, dig_alpha, qi, qi_sh, srcp,
-        srcq, conv, conv_sh, dmod, dmod_sh, t_p, t_tw, t_tw_sh);
-    return (int)cudaGetLastError();
+    return (int)with_logn(logn, [&](auto cst) {
+        constexpr int LOGN = decltype(cst)::value;
+        using RG = Ring<LOGN>;
+        cudaError_t e = allow_smem(ntt_inv_rows<LOGN>, RG::SMEM);
+        if (e == cudaSuccess) e = allow_smem(fbc_ntt_digits<LOGN>, RG::SMEM);
+        if (e != cudaSuccess) return e;
+        // A: the Q rows are the first nl rows of the target tables
+        ntt_inv_rows<LOGN><<<dim3(nl, batch), RG::T, RG::SMEM, st>>>(
+            coeff, c, nl, t_p, t_itwp, t_ninv, t_ninv_sh);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return e;
+        // B
+        fbc_ntt_digits<LOGN><<<dim3(n_t, dnum, batch), RG::T, RG::SMEM,
+                               st>>>(
+            ext, coeff, nl, n_t, dnum, amax, dig_lo, dig_alpha, qi, qi_sh,
+            srcp, srcq, conv, conv_sh, dmod, dmod_sh, t_p, t_twp);
+        return cudaGetLastError();
+    });
 }

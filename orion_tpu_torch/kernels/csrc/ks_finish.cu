@@ -1,137 +1,184 @@
-// ks_finish: the key inner product and ModDown of a hybrid key-switch.
-// ext (dnum, n_t, N) and a key-switch key -> (2, nl, N), NTT domain.
+// ks_finish: the key inner product and ModDown of a hybrid key-switch,
+// over a batch of K items.  Item k takes ext[k] (or one shared ext) and
+// key key_idx[k] of a stacked pack, and gives (2, nl, N) in the NTT domain;
+// with moddown = 0 it stops after the inner product and gives the
+// extended-basis accumulator (2, n_t, N) (ks_finish_raw).
 //
 // Replaces orion_tpu/crypto/ks_pallas.py ks_finish_pallas (body
 // _finish_k, single-shot in VMEM) and ks_finish_pallas_grid (the same over
 // a (digit, poly) grid that streams the key when it exceeds VMEM).  The
 // TPU split exists only for VMEM's budget; Hopper has none, so one design
 // covers every level:
-//   launch A: one block per (extended row t, poly q) - sum_j ext[j, t] *
-//             ksk[j, q, row(t)] mod p_t (Shoup companions, or a Montgomery
-//             lift when the key is lean); Q rows are stored to the work
-//             buffer as they are, special rows get their inverse NTT in
-//             shared memory first;
-//   launch B: one block per (Q row i, poly q) - the fast basis conversion
-//             of the special rows to q_i, the forward NTT, then
-//             (acc_q - lift) * P^-1 mod q_i.
+//   launch A: grid (n_t, 2, K), one block per (extended row t, poly q,
+//             item k) - sum_j ext[k, j, t] * ksk[key_idx[k], j, q, row(t)]
+//             mod p_t (Shoup companions, or a Montgomery lift when the key
+//             is lean).  Q rows (and every row without ModDown) go to the
+//             work buffer as they are; special rows land in shared memory
+//             and get their inverse NTT there first;
+//   launch B: grid (nl, 2, K), one block per (Q row i, poly q, item k) -
+//             the fast basis conversion of the special rows to q_i,
+//             computed into the registers of the forward NTT's first pass,
+//             the NTT, then (acc_q - lift) * P^-1 mod q_i.
 // The conversion reads every special row of its poly, which is why the two
-// halves meet at a launch boundary (blocks run in no order).
+// halves meet at a launch boundary (blocks run in no order).  One launch
+// pair covers a whole key pack (rotate_scan's baby steps, ext shared) or a
+// transform's giant steps (ext paired), not one key-switch.
 //
-// Keys: trimmed (dnum, 2, n_t, N) or full-chain (dnum_full, 2, n_all, N);
-// row_map[t] gives the key row of extended row t and krows the key's row
-// count, so both layouts are read in place without a gather.
+// Keys: a pack (n_keys, kdig, 2, krows, N), trimmed (kdig = dnum,
+// krows = n_t) or full-chain (kdig >= dnum, krows = n_all); row_map[t]
+// gives the key row of extended row t, so both layouts and every key of
+// the pack are read in place: no gather, no copy.
 //
-// What bounds it: device memory.  The key dominates the bytes: 2 * dnum *
-// n_t * N int64 words, twice that with Shoup companions, each read once;
-// ext is read once per poly.  The work buffer (2, n_t, N) makes one round
-// trip.  Everything else stays in registers and shared memory.
+// What bounds it: device memory, and at batch sizes the keys: 2 * dnum *
+// n_t * N int64 words per item, twice that with Shoup companions, each read
+// once, as 16-byte loads with the digit loop unrolled so that many are in
+// flight.  A shared ext row is read once per (t, q) block; the block of
+// the other poly finds it in L2.  The work buffer (K, 2, n_t, N) makes one
+// round trip.  Everything else stays in registers and shared memory.
 
 #include "modarith.cuh"
 
 using namespace orion;
 
-__global__ void ks_inner_intt(
-        int64_t* work, const int64_t* ext, const int64_t* ksk,
-        const int64_t* ksk_sh, const int64_t* row_map, int krows, int nl,
-        int n_t, int dnum, int logn, const int64_t* t_p,
-        const int64_t* t_pinv, const int64_t* t_rmod, const int64_t* t_rsh,
-        const int64_t* t_itw, const int64_t* t_itw_sh, const int64_t* t_ninv,
-        const int64_t* t_ninv_sh) {
+__device__ __forceinline__ longlong2 ld2(const int64_t* p) {
+    return __ldg(reinterpret_cast<const longlong2*>(p));
+}
+
+template <int LOGN>
+__global__ void __launch_bounds__(Ring<LOGN>::T) ks_inner_intt(
+        int64_t* __restrict__ work, const int64_t* __restrict__ ext,
+        int ext_item, const int64_t* __restrict__ ksk,
+        const int64_t* __restrict__ ksk_sh, const int64_t* key_idx,
+        int kdig, int krows, const int64_t* row_map, int nl, int n_t,
+        int dnum, int moddown, const int64_t* t_p, const int64_t* t_pinv,
+        const int64_t* t_rmod, const int64_t* t_rsh, const int64_t* t_itwp,
+        const int64_t* t_ninv, const int64_t* t_ninv_sh) {
     extern __shared__ uint32_t s[];
-    const int n = 1 << logn;
+    using RG = Ring<LOGN>;
+    constexpr int N = RG::N;
     const int t = blockIdx.x;
     const int q = blockIdx.y;
+    const int64_t k = blockIdx.z;
     const uint32_t p = (uint32_t)t_p[t];
-    const int64_t row = row_map[t];
     const bool lean = ksk_sh == nullptr;
     const uint32_t pinv = (uint32_t)t_pinv[t];
     const uint32_t rm = (uint32_t)t_rmod[t];
     const uint32_t rsh = (uint32_t)t_rsh[t];
-    const bool special = t >= nl;
-    int64_t* dst = work + ((int64_t)q * n_t + t) * n;
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
-        uint32_t acc = 0;
+    const bool special = moddown && t >= nl;
+    const int64_t* e_row = ext + k * ext_item + (int64_t)t * N;
+    const int64_t e_dig = (int64_t)n_t * N;
+    const int64_t k_off = key_idx[k] * ((int64_t)kdig * 2 * krows * N)
+                          + ((int64_t)q * krows + row_map[t]) * N;
+    const int64_t k_dig = (int64_t)2 * krows * N;
+    int64_t* dst = work + ((k * 2 + q) * n_t + t) * N;
+#pragma unroll
+    for (int r = 0; r < RG::R / 2; ++r) {
+        const int i = 2 * ((int)threadIdx.x + r * RG::T);
+        uint32_t a0 = 0, a1 = 0;
+#pragma unroll 4
         for (int j = 0; j < dnum; ++j) {
-            const uint32_t e = (uint32_t)ext[((int64_t)j * n_t + t) * n + k];
-            const int64_t ki = (((int64_t)j * 2 + q) * krows + row) * n + k;
-            const uint32_t key = (uint32_t)ksk[ki];
-            const uint32_t term =
-                lean ? mont_mul(e, shoup_mul(key, rm, rsh, p), p, pinv)
-                     : shoup_mul(e, key, (uint32_t)ksk_sh[ki], p);
-            acc = add_mod(acc, term, p);
+            const longlong2 e = ld2(e_row + j * e_dig + i);
+            const longlong2 kv = ld2(ksk + k_off + j * k_dig + i);
+            uint32_t t0, t1;
+            if (lean) {
+                t0 = mont_mul((uint32_t)e.x,
+                              shoup_mul((uint32_t)kv.x, rm, rsh, p), p,
+                              pinv);
+                t1 = mont_mul((uint32_t)e.y,
+                              shoup_mul((uint32_t)kv.y, rm, rsh, p), p,
+                              pinv);
+            } else {
+                const longlong2 sv = ld2(ksk_sh + k_off + j * k_dig + i);
+                t0 = shoup_mul((uint32_t)e.x, (uint32_t)kv.x,
+                               (uint32_t)sv.x, p);
+                t1 = shoup_mul((uint32_t)e.y, (uint32_t)kv.y,
+                               (uint32_t)sv.y, p);
+            }
+            a0 = add_mod(a0, t0, p);
+            a1 = add_mod(a1, t1, p);
         }
-        if (special) s[k] = acc;
-        else dst[k] = acc;
+        if (special) {
+            s[pad(i)] = a0;
+            s[pad(i + 1)] = a1;
+        } else {
+            *reinterpret_cast<longlong2*>(dst + i) =
+                make_longlong2((long long)a0, (long long)a1);
+        }
     }
     if (!special) return;  // uniform per block
     __syncthreads();
-    ntt_inv_smem(s, logn, t_itw + (int64_t)t * n, t_itw_sh + (int64_t)t * n,
-                 p);
     const uint32_t nv = (uint32_t)t_ninv[t];
     const uint32_t nv_sh = (uint32_t)t_ninv_sh[t];
-    for (int k = threadIdx.x; k < n; k += blockDim.x)
-        dst[k] = shoup_mul(s[k], nv, nv_sh, p);
+    ntt_inv_row<LOGN>(
+        s, t_itwp + (int64_t)t * N, p, [&](int i) { return s[pad(i)]; },
+        [&](int i, uint32_t v) { dst[i] = shoup_mul(v, nv, nv_sh, p); });
 }
 
-__global__ void moddown_rows(
+template <int LOGN>
+__global__ void __launch_bounds__(Ring<LOGN>::T) moddown_rows(
         int64_t* out, const int64_t* work, int nl, int n_t, int n_sp,
-        int logn, const int64_t* md_qi, const int64_t* md_qi_sh,
+        const int64_t* md_qi, const int64_t* md_qi_sh,
         const int64_t* md_srcp, const float* md_srcq, const int64_t* md_conv,
         const int64_t* md_conv_sh, const int64_t* md_dmod,
         const int64_t* md_dmod_sh, const int64_t* pinv_q,
-        const int64_t* pinv_q_sh, const int64_t* t_p, const int64_t* t_tw,
-        const int64_t* t_tw_sh) {
+        const int64_t* pinv_q_sh, const int64_t* t_p, const int64_t* t_twp) {
     extern __shared__ uint32_t s[];
-    const int n = 1 << logn;
+    constexpr int N = Ring<LOGN>::N;
     const int i = blockIdx.x;
     const int q = blockIdx.y;
+    const int64_t k = blockIdx.z;
     const uint32_t p = (uint32_t)t_p[i];
-    const int64_t* poly = work + (int64_t)q * n_t * n;
-    const int64_t* sp = poly + (int64_t)nl * n;
+    const int64_t* poly = work + (k * 2 + q) * n_t * N;
+    const int64_t* sp = poly + (int64_t)nl * N;
+    const int64_t* qrow = poly + (int64_t)i * N;
+    int64_t* dst = out + ((k * 2 + q) * nl + i) * N;
     const uint32_t dm = (uint32_t)md_dmod[i];
     const uint32_t dm_sh = (uint32_t)md_dmod_sh[i];
-    for (int k = threadIdx.x; k < n; k += blockDim.x)
-        s[k] = fbc_one(sp + k, n, n_sp, md_qi, md_qi_sh, md_srcp, md_srcq,
-                       md_conv + i, md_conv_sh + i, nl, dm, dm_sh, p);
-    __syncthreads();
-    ntt_fwd_smem(s, logn, t_tw + (int64_t)i * n, t_tw_sh + (int64_t)i * n,
-                 p);
     const uint32_t pv = (uint32_t)pinv_q[i];
     const uint32_t pv_sh = (uint32_t)pinv_q_sh[i];
-    const int64_t* qrow = poly + (int64_t)i * n;
-    int64_t* dst = out + ((int64_t)q * nl + i) * n;
-    for (int k = threadIdx.x; k < n; k += blockDim.x)
-        dst[k] = shoup_mul(sub_mod((uint32_t)qrow[k], s[k], p), pv, pv_sh,
-                           p);
+    ntt_fwd_row<LOGN>(
+        s, t_twp + (int64_t)i * N, p,
+        [&](int c) {
+            return fbc_one(sp + c, N, n_sp, md_qi, md_qi_sh, md_srcp,
+                           md_srcq, md_conv + i, md_conv_sh + i, nl, dm,
+                           dm_sh, p);
+        },
+        [&](int c, uint32_t v) {
+            dst[c] = shoup_mul(sub_mod((uint32_t)qrow[c], v, p), pv, pv_sh,
+                               p);
+        });
 }
 
 extern "C" int orion_ks_finish(
-        int64_t* out, int64_t* work, const int64_t* ext, const int64_t* ksk,
-        const int64_t* ksk_sh, const int64_t* row_map, int krows, int nl,
-        int n_t, int dnum, int logn, const int64_t* t_p,
+        int64_t* out, int64_t* work, const int64_t* ext, int ext_item,
+        const int64_t* ksk, const int64_t* ksk_sh, const int64_t* key_idx,
+        const int64_t* row_map, int items, int kdig, int krows, int nl,
+        int n_t, int dnum, int logn, int moddown, const int64_t* t_p,
         const int64_t* t_pinv, const int64_t* t_rmod, const int64_t* t_rsh,
-        const int64_t* t_tw, const int64_t* t_tw_sh, const int64_t* t_itw,
-        const int64_t* t_itw_sh, const int64_t* t_ninv,
+        const int64_t* t_twp, const int64_t* t_itwp, const int64_t* t_ninv,
         const int64_t* t_ninv_sh, const int64_t* md_qi,
         const int64_t* md_qi_sh, const int64_t* md_srcp,
         const float* md_srcq, const int64_t* md_conv,
         const int64_t* md_conv_sh, const int64_t* md_dmod,
         const int64_t* md_dmod_sh, const int64_t* pinv_q,
         const int64_t* pinv_q_sh, void* stream) {
-    const size_t smem = row_smem(logn);
-    const int threads = row_threads(logn);
     cudaStream_t st = (cudaStream_t)stream;
-    cudaError_t e = allow_smem(ks_inner_intt, smem);
-    if (e == cudaSuccess) e = allow_smem(moddown_rows, smem);
-    if (e != cudaSuccess) return (int)e;
-    ks_inner_intt<<<dim3(n_t, 2), threads, smem, st>>>(
-        work, ext, ksk, ksk_sh, row_map, krows, nl, n_t, dnum, logn, t_p,
-        t_pinv, t_rmod, t_rsh, t_itw, t_itw_sh, t_ninv, t_ninv_sh);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    moddown_rows<<<dim3(nl, 2), threads, smem, st>>>(
-        out, work, nl, n_t, n_t - nl, logn, md_qi, md_qi_sh, md_srcp,
-        md_srcq, md_conv, md_conv_sh, md_dmod, md_dmod_sh, pinv_q, pinv_q_sh,
-        t_p, t_tw, t_tw_sh);
-    return (int)cudaGetLastError();
+    return (int)with_logn(logn, [&](auto c) {
+        constexpr int LOGN = decltype(c)::value;
+        using RG = Ring<LOGN>;
+        cudaError_t e = allow_smem(ks_inner_intt<LOGN>, RG::SMEM);
+        if (e == cudaSuccess) e = allow_smem(moddown_rows<LOGN>, RG::SMEM);
+        if (e != cudaSuccess) return e;
+        ks_inner_intt<LOGN><<<dim3(n_t, 2, items), RG::T, RG::SMEM, st>>>(
+            work, ext, ext_item, ksk, ksk_sh, key_idx, kdig, krows, row_map,
+            nl, n_t, dnum, moddown, t_p, t_pinv, t_rmod, t_rsh, t_itwp,
+            t_ninv, t_ninv_sh);
+        e = cudaGetLastError();
+        if (e != cudaSuccess || !moddown) return e;
+        moddown_rows<LOGN><<<dim3(nl, 2, items), RG::T, RG::SMEM, st>>>(
+            out, work, nl, n_t, n_t - nl, md_qi, md_qi_sh, md_srcp, md_srcq,
+            md_conv, md_conv_sh, md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, t_p,
+            t_twp);
+        return cudaGetLastError();
+    });
 }

@@ -1,5 +1,5 @@
-// 32-bit modular arithmetic and the shared-memory NTT used by every kernel
-// of the port (orion_tpu_torch/kernels/csrc/*.cu).
+// 32-bit modular arithmetic and the register-resident NTT core used by
+// every kernel of the port (orion_tpu_torch/kernels/csrc/*.cu).
 //
 // Residues live in device memory as int64 (the port's storage type) and
 // are computed here in 32-bit unsigned registers: every prime is < 2^31,
@@ -10,15 +10,40 @@
 // The transform is the merged-psi negacyclic NTT of crypto/ref.py:
 // Cooley-Tukey, standard order in, bit-reversed order out, twiddles
 // tw[m + i] = psi^bitrev(m + i); the inverse is Gentleman-Sande with the
-// bit-reversed psi^-1 table, then a Shoup multiply by n^-1.  One thread
-// block holds one length-N row in shared memory (N * 4 bytes: 32 KiB at
-// N = 8192) and runs the log2(N) stages with a barrier between them.
+// bit-reversed psi^-1 table (the caller scales by n^-1).  Modular results
+// are unique, so the output equals ntt4's residue for residue.
+//
+// Design (Hopper): one thread block transforms one length-N row with
+// T = N / R threads, each holding R residues in registers (R = 8 up to
+// LogN 13, 16 at LogN 14: 1024 threads).  The log2(N) radix-2 stages are
+// cut into passes of at most log2(R) stages.  In a pass, each thread loads
+// groups of 2^S residues that only butterfly among themselves over the
+// pass's S stages, runs those stages in registers, and writes them back;
+// passes exchange through shared memory with one barrier between them
+// (LogN 13: passes of 1, 3, 3, 3 and 3 stages, 4 barriers, where a stage
+// loop needs 13).  R = 8 beat R = 16 (512 threads, 3 barriers) on the
+// H100 in every single and batched case: a block is latency-bound, and
+// twice the warps hide more of it than fewer barriers save.  The
+// first pass reads its input through a caller's functor, coalesced, and
+// the last one hands its output to another, so neither touches shared
+// memory.  Shared memory is padded by one word per 32 (`pad`): at LogN 13
+// one pass of five has 4-way bank conflicts, the others none.
+//
+// Twiddles come packed, w | w_shoup << 32 in one 8-byte word, reordered
+// so that the 2^S - 1 twiddles of one group of one pass are contiguous
+// (kernels/ntt.py `pack_twiddles` builds the tables).  For the pass over
+// stages [A, A + S) and the group with high index `hi`, stage A + u reads
+// packed[2^A + hi * (2^S - 1) + 2^u - 1 + m], m < 2^u, which holds
+// tw[2^(A+u) + hi * 2^u + m].
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace orion {
+
+using u64 = unsigned long long;  // a packed twiddle (for __ldg)
 
 __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
                                             uint32_t p) {
@@ -39,6 +64,12 @@ __device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint32_t w,
     return r >= p ? r - p : r;
 }
 
+// Shoup product with a packed twiddle w | w_sh << 32.
+__device__ __forceinline__ uint32_t shoup_mul(uint32_t a, u64 wp,
+                                              uint32_t p) {
+    return shoup_mul(a, (uint32_t)wp, (uint32_t)(wp >> 32), p);
+}
+
 // Montgomery product a * b * 2^-32 mod p, pinv = -p^-1 mod 2^32.
 __device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b,
                                              uint32_t p, uint32_t pinv) {
@@ -49,53 +80,173 @@ __device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b,
     return t >= p ? t - p : t;
 }
 
-// Forward NTT of the row in shared memory s[0 .. 2^logn).  The caller
-// synchronises after filling s; the last stage ends with a barrier.
-__device__ __forceinline__ void ntt_fwd_smem(uint32_t* s, int logn,
-                                             const int64_t* tw,
-                                             const int64_t* tw_sh,
-                                             uint32_t p) {
-    const int half = 1 << (logn - 1);
-    for (int logm = 0; logm < logn; ++logm) {
-        const int logt = logn - 1 - logm;
-        const int tmask = (1 << logt) - 1;
-        for (int k = threadIdx.x; k < half; k += blockDim.x) {
-            const int i = k >> logt;
-            const int lo = (i << (logt + 1)) + (k & tmask);
-            const int hi = lo + (1 << logt);
-            const int wi = (1 << logm) + i;
-            const uint32_t v = shoup_mul(s[hi], (uint32_t)tw[wi],
-                                         (uint32_t)tw_sh[wi], p);
-            const uint32_t u = s[lo];
-            s[lo] = add_mod(u, v, p);
-            s[hi] = sub_mod(u, v, p);
+// ------------------------------------------------------------------ //
+//  The transform core                                                //
+// ------------------------------------------------------------------ //
+
+template <int LOGN>
+struct Ring {
+    static constexpr int N = 1 << LOGN;
+    static constexpr int LOGR = LOGN >= 14 ? 4 : 3;
+    static constexpr int R = 1 << LOGR;          // residues per thread
+    static constexpr int T = N / R;              // threads per block
+    static constexpr int PASSES = (LOGN + LOGR - 1) / LOGR;
+    static constexpr int S0 = LOGN - LOGR * (PASSES - 1);  // first pass
+    static constexpr size_t SMEM = sizeof(uint32_t) * (N + N / 32);
+};
+
+__device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
+
+// Element j of the k-th group a thread holds in the pass over stages
+// [A, A + S): groups q = tid + k * T, elements base(q) + j * 2^(LOGN-A-S).
+template <int LOGN, int A, int S>
+__device__ __forceinline__ int pass_elem(int k, int j) {
+    constexpr int LG = LOGN - A - S;
+    const int q = (int)threadIdx.x + k * Ring<LOGN>::T;
+    return ((q >> LG) << (LOGN - A)) + (q & ((1 << LG) - 1)) + (j << LG);
+}
+
+template <int LOGN, int A, int S>
+__device__ __forceinline__ const u64* pass_tw(const u64* twp, int k) {
+    const int q = (int)threadIdx.x + k * Ring<LOGN>::T;
+    return twp + (1 << A) + (q >> (LOGN - A - S)) * ((1 << S) - 1);
+}
+
+// Cooley-Tukey stages [A, A + S) on the registers x (R / 2^S groups).
+template <int LOGN, int A, int S>
+__device__ __forceinline__ void ct_stages(uint32_t* x, const u64* twp,
+                                          uint32_t p) {
+#pragma unroll
+    for (int k = 0; k < (Ring<LOGN>::R >> S); ++k) {
+        const u64* w = pass_tw<LOGN, A, S>(twp, k);
+        uint32_t* r = x + (k << S);
+#pragma unroll
+        for (int u = 0; u < S; ++u) {
+            const int hs = 1 << (S - 1 - u);
+#pragma unroll
+            for (int j = 0; j < (1 << S); ++j) {
+                if (j & hs) continue;
+                const u64 wp = __ldg(w + (1 << u) - 1 + (j >> (S - u)));
+                const uint32_t v = shoup_mul(r[j + hs], wp, p);
+                const uint32_t a = r[j];
+                r[j] = add_mod(a, v, p);
+                r[j + hs] = sub_mod(a, v, p);
+            }
         }
-        __syncthreads();
     }
 }
 
-// Inverse NTT (without the n^-1 scale) of the row in shared memory.
-__device__ __forceinline__ void ntt_inv_smem(uint32_t* s, int logn,
-                                             const int64_t* itw,
-                                             const int64_t* itw_sh,
-                                             uint32_t p) {
-    const int half = 1 << (logn - 1);
-    for (int logm = logn - 1; logm >= 0; --logm) {
-        const int logt = logn - 1 - logm;
-        const int tmask = (1 << logt) - 1;
-        for (int k = threadIdx.x; k < half; k += blockDim.x) {
-            const int i = k >> logt;
-            const int lo = (i << (logt + 1)) + (k & tmask);
-            const int hi = lo + (1 << logt);
-            const int wi = (1 << logm) + i;
-            const uint32_t u = s[lo];
-            const uint32_t w = s[hi];
-            s[lo] = add_mod(u, w, p);
-            s[hi] = shoup_mul(sub_mod(u, w, p), (uint32_t)itw[wi],
-                              (uint32_t)itw_sh[wi], p);
+// Gentleman-Sande stages [A, A + S), last stage first.
+template <int LOGN, int A, int S>
+__device__ __forceinline__ void gs_stages(uint32_t* x, const u64* twp,
+                                          uint32_t p) {
+#pragma unroll
+    for (int k = 0; k < (Ring<LOGN>::R >> S); ++k) {
+        const u64* w = pass_tw<LOGN, A, S>(twp, k);
+        uint32_t* r = x + (k << S);
+#pragma unroll
+        for (int u = S - 1; u >= 0; --u) {
+            const int hs = 1 << (S - 1 - u);
+#pragma unroll
+            for (int j = 0; j < (1 << S); ++j) {
+                if (j & hs) continue;
+                const u64 wp = __ldg(w + (1 << u) - 1 + (j >> (S - u)));
+                const uint32_t a = r[j];
+                const uint32_t b = r[j + hs];
+                r[j] = add_mod(a, b, p);
+                r[j + hs] = shoup_mul(sub_mod(a, b, p), wp, p);
+            }
         }
-        __syncthreads();
     }
+}
+
+// The forward passes from stage A on.  Pass 0 reads load(i); the last
+// pass calls store(i, v); the others go through shared memory s.
+template <int LOGN, int A, class Load, class Store>
+__device__ __forceinline__ void fwd_passes(uint32_t* s, const u64* twp,
+                                           uint32_t p, Load& load,
+                                           Store& store) {
+    using RG = Ring<LOGN>;
+    constexpr int S = A == 0 ? RG::S0 : RG::LOGR;
+    constexpr bool last = A + S == LOGN;
+    uint32_t x[RG::R];
+#pragma unroll
+    for (int k = 0; k < (RG::R >> S); ++k)
+#pragma unroll
+        for (int j = 0; j < (1 << S); ++j) {
+            const int i = pass_elem<LOGN, A, S>(k, j);
+            x[(k << S) + j] = A == 0 ? load(i) : s[pad(i)];
+        }
+    ct_stages<LOGN, A, S>(x, twp, p);
+#pragma unroll
+    for (int k = 0; k < (RG::R >> S); ++k)
+#pragma unroll
+        for (int j = 0; j < (1 << S); ++j) {
+            const int i = pass_elem<LOGN, A, S>(k, j);
+            if (last) store(i, x[(k << S) + j]);
+            else s[pad(i)] = x[(k << S) + j];
+        }
+    if constexpr (!last) {
+        __syncthreads();
+        fwd_passes<LOGN, A + S>(s, twp, p, load, store);
+    }
+}
+
+// The inverse passes from the pass that starts at stage A down to stage 0.
+template <int LOGN, int A, class Load, class Store>
+__device__ __forceinline__ void inv_passes(uint32_t* s, const u64* twp,
+                                           uint32_t p, Load& load,
+                                           Store& store) {
+    using RG = Ring<LOGN>;
+    constexpr int S = A == 0 ? RG::S0 : RG::LOGR;
+    constexpr bool first = A + S == LOGN;
+    uint32_t x[RG::R];
+#pragma unroll
+    for (int k = 0; k < (RG::R >> S); ++k)
+#pragma unroll
+        for (int j = 0; j < (1 << S); ++j) {
+            const int i = pass_elem<LOGN, A, S>(k, j);
+            x[(k << S) + j] = first ? load(i) : s[pad(i)];
+        }
+    gs_stages<LOGN, A, S>(x, twp, p);
+#pragma unroll
+    for (int k = 0; k < (RG::R >> S); ++k)
+#pragma unroll
+        for (int j = 0; j < (1 << S); ++j) {
+            const int i = pass_elem<LOGN, A, S>(k, j);
+            if (A == 0) store(i, x[(k << S) + j]);
+            else s[pad(i)] = x[(k << S) + j];
+        }
+    if constexpr (A != 0) {
+        __syncthreads();
+        inv_passes<LOGN, (A == RG::S0 ? 0 : A - RG::LOGR)>(s, twp, p, load,
+                                                           store);
+    }
+}
+
+// Forward NTT of one row: load(i) -> uint32 input i (called once per i,
+// consecutive threads on consecutive i); store(i, v) takes output i.
+// s: Ring<LOGN>::SMEM bytes of shared memory.  No barrier is needed
+// before the call; the caller synchronises before reusing s.
+template <int LOGN, class Load, class Store>
+__device__ __forceinline__ void ntt_fwd_row(uint32_t* s, const int64_t* twp,
+                                            uint32_t p, Load load,
+                                            Store store) {
+    fwd_passes<LOGN, 0>(s, reinterpret_cast<const u64*>(twp), p, load,
+                        store);
+}
+
+// Inverse NTT (without the n^-1 scale): load(i) is called by each thread
+// for R / 2^LOGR runs of consecutive i; store(i, v) on consecutive i
+// across threads.  load may read s itself if the caller filled it (with
+// `pad`) and synchronised.
+template <int LOGN, class Load, class Store>
+__device__ __forceinline__ void ntt_inv_row(uint32_t* s, const int64_t* itwp,
+                                            uint32_t p, Load load,
+                                            Store store) {
+    using RG = Ring<LOGN>;
+    inv_passes<LOGN, LOGN - RG::LOGR>(
+        s, reinterpret_cast<const u64*>(itwp), p, load, store);
 }
 
 // One coefficient of the approximate HPS fast basis conversion
@@ -126,61 +277,69 @@ __device__ __forceinline__ uint32_t fbc_one(
     return sub_mod(acc, shoup_mul(v, dmod, dmod_sh, pt), pt);
 }
 
-// Row transforms: block r handles row r of a (rows, N) int64 array whose
-// limb (table row) is r % L.  in and out may alias.
-__global__ void ntt_fwd_rows(int64_t* out, const int64_t* in, int L,
-                             int logn, const int64_t* p,
-                             const int64_t* tw, const int64_t* tw_sh) {
+// Row transforms: block (x, y) handles row r = y * gridDim.x + x of a
+// (rows, N) int64 array whose limb (table row) is r % L.  in and out may
+// alias: a block reads its whole row before its first write.
+template <int LOGN>
+__global__ void __launch_bounds__(Ring<LOGN>::T)
+ntt_fwd_rows(int64_t* out, const int64_t* in, int L, const int64_t* p,
+             const int64_t* twp) {
     extern __shared__ uint32_t s[];
-    const int n = 1 << logn;
-    const int row = blockIdx.x;
-    const int limb = row % L;
-    const int64_t* src = in + (int64_t)row * n;
-    for (int k = threadIdx.x; k < n; k += blockDim.x) s[k] = (uint32_t)src[k];
-    __syncthreads();
-    ntt_fwd_smem(s, logn, tw + (int64_t)limb * n, tw_sh + (int64_t)limb * n,
-                 (uint32_t)p[limb]);
-    int64_t* dst = out + (int64_t)row * n;
-    for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = s[k];
+    constexpr int N = Ring<LOGN>::N;
+    const int64_t row = (int64_t)blockIdx.y * gridDim.x + blockIdx.x;
+    const int limb = (int)(row % L);
+    const int64_t* src = in + row * N;
+    int64_t* dst = out + row * N;
+    ntt_fwd_row<LOGN>(
+        s, twp + (int64_t)limb * N, (uint32_t)p[limb],
+        [&](int i) { return (uint32_t)src[i]; },
+        [&](int i, uint32_t v) { dst[i] = v; });
 }
 
-__global__ void ntt_inv_rows(int64_t* out, const int64_t* in, int L,
-                             int logn, const int64_t* p,
-                             const int64_t* itw, const int64_t* itw_sh,
-                             const int64_t* ninv, const int64_t* ninv_sh) {
+template <int LOGN>
+__global__ void __launch_bounds__(Ring<LOGN>::T)
+ntt_inv_rows(int64_t* out, const int64_t* in, int L, const int64_t* p,
+             const int64_t* itwp, const int64_t* ninv,
+             const int64_t* ninv_sh) {
     extern __shared__ uint32_t s[];
-    const int n = 1 << logn;
-    const int row = blockIdx.x;
-    const int limb = row % L;
+    constexpr int N = Ring<LOGN>::N;
+    const int64_t row = (int64_t)blockIdx.y * gridDim.x + blockIdx.x;
+    const int limb = (int)(row % L);
     const uint32_t pl = (uint32_t)p[limb];
-    const int64_t* src = in + (int64_t)row * n;
-    for (int k = threadIdx.x; k < n; k += blockDim.x) s[k] = (uint32_t)src[k];
-    __syncthreads();
-    ntt_inv_smem(s, logn, itw + (int64_t)limb * n,
-                 itw_sh + (int64_t)limb * n, pl);
     const uint32_t nv = (uint32_t)ninv[limb];
     const uint32_t nv_sh = (uint32_t)ninv_sh[limb];
-    int64_t* dst = out + (int64_t)row * n;
-    for (int k = threadIdx.x; k < n; k += blockDim.x)
-        dst[k] = shoup_mul(s[k], nv, nv_sh, pl);
+    const int64_t* src = in + row * N;
+    int64_t* dst = out + row * N;
+    ntt_inv_row<LOGN>(
+        s, itwp + (int64_t)limb * N, pl,
+        [&](int i) { return (uint32_t)src[i]; },
+        [&](int i, uint32_t v) { dst[i] = shoup_mul(v, nv, nv_sh, pl); });
 }
-
-// Threads per block: N/2 butterflies per stage, at most 512 threads.
-inline int row_threads(int logn) {
-    int t = 1 << (logn - 1);
-    return t < 512 ? t : 512;
-}
-
-inline size_t row_smem(int logn) { return sizeof(uint32_t) << logn; }
 
 // Allow more than the default 48 KB of dynamic shared memory when a row
-// needs it (N > 12288); a no-op at the port's ring sizes.
+// needs it (LogN 14: 66 KiB with the padding).
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
     if (bytes <= 48 * 1024) return cudaSuccess;
     return cudaFuncSetAttribute(kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)bytes);
+}
+
+// Calls f(std::integral_constant<int, LOGN>{}) for the ring sizes the port
+// supports, N = 2^8 .. 2^14; returns what f returns.
+template <class F>
+inline cudaError_t with_logn(int logn, F f) {
+    switch (logn) {
+        case 8: return f(std::integral_constant<int, 8>{});
+        case 9: return f(std::integral_constant<int, 9>{});
+        case 10: return f(std::integral_constant<int, 10>{});
+        case 11: return f(std::integral_constant<int, 11>{});
+        case 12: return f(std::integral_constant<int, 12>{});
+        case 13: return f(std::integral_constant<int, 13>{});
+        case 14: return f(std::integral_constant<int, 14>{});
+        default: return cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace orion

@@ -1,17 +1,28 @@
 """Wrappers of the `ks_decompose` and `ks_finish` kernels, with their plain
-PyTorch versions.
+PyTorch versions.  Both take a batch of key-switches per launch.
 
-`ks_decompose(c, dl)`: c (nl, N) NTT domain -> ext (dnum, n_t, N), every
-digit converted to the level's n_t = nl + n_sp primes (`csrc/ks_decompose.cu`).
-`ks_finish(ext, dl, ksk, ksk_shoup, trimmed)`: key inner product + ModDown
--> (2, nl, N) (`csrc/ks_finish.cu`); full-chain or level-trimmed keys,
-Shoup companions or lean (Montgomery) keys.
+`ks_decompose(c, dl)`: c (nl, N) or (B, nl, N), NTT domain -> ext
+(dnum, n_t, N) or (B, dnum, n_t, N), every digit converted to the level's
+n_t = nl + n_sp primes (`csrc/ks_decompose.cu`).
+`ks_finish(ext, dl, ksk, ksk_shoup, trimmed, key_index)`: key inner
+product + ModDown -> (2, nl, N) per item (`csrc/ks_finish.cu`);
+`ks_finish_raw` the inner product alone -> (2, n_t, N) per item.  Keys
+are full-chain or level-trimmed, with Shoup companions or lean
+(Montgomery).  Items:
+  - key_index None: `ksk` is one key (kdig, 2, rows, N) and ext
+    (dnum, n_t, N) gives one result;
+  - key_index (K,) int64: `ksk` is a stacked pack (n_keys, kdig, 2, rows,
+    N) and item k takes key key_index[k], read in place; ext is shared
+    (dnum, n_t, N) or paired (K, dnum, n_t, N).  Results are (K, ...).
+The caller keeps key_index within the pack (the kernel does not check
+values, which would cost a device sync).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version in this module, which is the port of
-orion_tpu's jnp key-switch (`orion_tpu/crypto/keyswitch.py`).  The plain
-versions call the four-step torch transforms directly, so on the card they
-stay pure torch ops and can be held against the kernels.
+orion_tpu's jnp key-switch (`orion_tpu/crypto/keyswitch.py`), looped over
+the batch.  The plain versions call the four-step torch transforms
+directly, so on the card they stay pure torch ops and can be held against
+the kernels.
 """
 
 from __future__ import annotations
@@ -21,15 +32,16 @@ import torch
 from ..crypto.modops import add_mod, sub_mod
 from ..crypto.ntt4 import intt4, ntt4
 from ._launch import Kernel, check_residues
+from .ntt import packed_twiddles
 
 KS_DECOMPOSE = Kernel(
     "ks_decompose", "ks_decompose.cu", "orion_ks_decompose",
-    "ppp" + "iiiii" + "p" * 17,
+    "ppp" + "iiiiii" + "p" * 15,
     "orion_tpu/crypto/ks_pallas.py:717 ks_decompose_pallas "
     "(_decompose_k :201, _fbc_k :174), :509 ks_decompose_pallas_grid")
 KS_FINISH = Kernel(
     "ks_finish", "ks_finish.cu", "orion_ks_finish",
-    "pppppp" + "iiiii" + "p" * 20,
+    "pppi" + "pppp" + "iiiiiiii" + "p" * 18,
     "orion_tpu/crypto/ks_pallas.py:740 ks_finish_pallas (_finish_k :217), "
     ":592 ks_finish_pallas_grid")
 
@@ -56,6 +68,8 @@ def fbc(z, dg, tgt_p):
 
 
 def ks_decompose_plain(c_ntt, dl):
+    if c_ntt.dim() == 3:
+        return torch.stack([ks_decompose_plain(c, dl) for c in c_ntt])
     c_coeff = intt4(c_ntt, dl.q.t4, dl.q.ninv, dl.q.p)
     exts = [fbc(c_coeff[dg.src_lo:dg.src_hi], dg, dl.t.p[:, None])
             for dg in dl.digits]
@@ -64,9 +78,21 @@ def ks_decompose_plain(c_ntt, dl):
     return ntt4(torch.stack(exts), dl.t.t4, dl.t.p)
 
 
-def ks_inner(ext, dl, ksk_data, ksk_shoup=None, trimmed=False):
-    """Key inner product WITHOUT ModDown: (2, n_t, N) extended-basis acc.
-    Shoup and lean keys give the same residues, so ksk_shoup is not read."""
+def _items(ext, ksk, key_index):
+    """[(ext, key)] per item, and whether the call is batched.  The plain
+    versions read no Shoup companions: they give the same residues."""
+    if key_index is None:
+        if ext.dim() != 3:
+            raise ValueError("a batch of ext items needs a key_index")
+        return [(ext, ksk)], False
+    idx = key_index.tolist()
+    exts = [ext] * len(idx) if ext.dim() == 3 else list(ext)
+    if len(exts) != len(idx):
+        raise ValueError(f"{len(exts)} paired ext items for {len(idx)} keys")
+    return [(e, ksk[i]) for e, i in zip(exts, idx)], True
+
+
+def _inner_one(ext, dl, ksk_data, trimmed):
     tp = dl.t.p[:, None]
     acc0 = acc1 = None
     for j in range(len(dl.digits)):
@@ -83,6 +109,15 @@ def ks_inner(ext, dl, ksk_data, ksk_shoup=None, trimmed=False):
     return torch.stack([acc0, acc1])
 
 
+def ks_inner(ext, dl, ksk_data, ksk_shoup=None, trimmed=False,
+             key_index=None):
+    """Key inner product WITHOUT ModDown: (2, n_t, N) extended-basis acc
+    per item (the plain version of `ks_finish_raw`)."""
+    items, batched = _items(ext, ksk_data, key_index)
+    out = [_inner_one(e, dl, k, trimmed) for e, k in items]
+    return torch.stack(out) if batched else out[0]
+
+
 def mod_down(x, dl):
     """Divide an extended-basis poly (nl + n_sp, N, NTT) by P -> Q base."""
     lvl = dl.level
@@ -94,9 +129,13 @@ def mod_down(x, dl):
     return diff * dl.pinv_mod_q % qp
 
 
-def ks_finish_plain(ext, dl, ksk_data, ksk_shoup=None, trimmed=False):
-    acc = ks_inner(ext, dl, ksk_data, ksk_shoup, trimmed)
-    return torch.stack([mod_down(acc[0], dl), mod_down(acc[1], dl)])
+def ks_finish_plain(ext, dl, ksk_data, ksk_shoup=None, trimmed=False,
+                    key_index=None):
+    items, batched = _items(ext, ksk_data, key_index)
+    out = [torch.stack([mod_down(acc, dl)
+                        for acc in _inner_one(e, dl, k, trimmed)])
+           for e, k in items]
+    return torch.stack(out) if batched else out[0]
 
 
 # ------------------------------------------------------------------ #
@@ -138,61 +177,119 @@ def _digit_stack(dl) -> dict:
 
 
 def ks_decompose(c_ntt, dl):
-    """Digit-decompose c and extend every digit to the full basis."""
+    """Digit-decompose c, (nl, N) or (B, nl, N), and extend every digit to
+    the full basis: (dnum, n_t, N) or (B, dnum, n_t, N), one launch pair."""
     if c_ntt.device.type == "cpu":
         return ks_decompose_plain(c_ntt, dl)
     nl, n = dl.level + 1, dl.ring_n
     n_t = dl.t.p.shape[0]
     dnum = len(dl.digits)
-    check_residues(KS_DECOMPOSE.name, c_ntt, (nl, n))
+    batched = c_ntt.dim() == 3
+    c3 = c_ntt if batched else c_ntt[None]
+    b = c3.shape[0]
+    check_residues(KS_DECOMPOSE.name, c3, (b, nl, n))
     d = _digit_stack(dl)
-    ext = torch.empty((dnum, n_t, n), dtype=torch.int64, device=c_ntt.device)
-    coeff = torch.empty((nl, n), dtype=torch.int64, device=c_ntt.device)
     t = dl.t
+    twp, itwp = packed_twiddles(t)
+    ext = torch.empty((b, dnum, n_t, n), dtype=torch.int64,
+                      device=c_ntt.device)
+    coeff = torch.empty((b, nl, n), dtype=torch.int64, device=c_ntt.device)
     KS_DECOMPOSE.launch(
-        c_ntt.device, ext, coeff, c_ntt, nl, n_t, dnum, d["amax"],
+        c_ntt.device, ext, coeff, c3, b, nl, n_t, dnum, d["amax"],
         n.bit_length() - 1, d["lo"], d["alpha"], d["qi"], d["qi_sh"],
         d["srcp"], d["srcq"], d["conv"], d["conv_sh"], d["dmod"],
-        d["dmod_sh"], t.p, t.tw, t.tw_shoup, t.itw, t.itw_shoup, t.ninv,
-        t.ninv_shoup, level=dl.level)
-    return ext
+        d["dmod_sh"], t.p, twp, itwp, t.ninv, t.ninv_shoup, level=dl.level,
+        items=b, grids=2)
+    return ext if batched else ext[0]
 
 
-def ks_finish(ext, dl, ksk_data, ksk_shoup=None, trimmed=False):
-    """Inner-product the decomposed digits with a KSK and ModDown.
-
-    ext: (dnum, n_t, N); ksk arrays: (dnum_full, 2, n_all, N), or, with
-    trimmed=True, already sliced to this level's digits and prime rows
-    (dnum, 2, n_t, N).  ksk_shoup=None is a lean key (Montgomery lift).
-    Returns (2, level+1, N) in NTT domain.
-    """
-    if ext.device.type == "cpu":
-        return ks_finish_plain(ext, dl, ksk_data, ksk_shoup, trimmed)
+def _finish(ext, dl, ksk_data, ksk_shoup, trimmed, key_index, moddown):
+    """Launch ks_finish.cu over the items (see the module docstring)."""
     name = KS_FINISH.name
+    dev = ext.device
     nl, n = dl.level + 1, dl.ring_n
     n_t = dl.t.p.shape[0]
     dnum = len(dl.digits)
-    check_residues(name, ext, (dnum, n_t, n))
-    if trimmed:
-        krows, row_map = n_t, dl.kernel_row_map(trimmed=True)
-        check_residues(name, ksk_data, (dnum, 2, n_t, n))
+    paired = ext.dim() == 4
+    batched = key_index is not None
+    if not batched:
+        if paired:
+            raise ValueError(f"{name}: a batch of ext items needs a "
+                             f"key_index")
+        pack = ksk_data[None]
+        pack_sh = None if ksk_shoup is None else ksk_shoup[None]
+        k = 1
+        if "key0" not in dl.kernel_tables:
+            dl.kernel_tables["key0"] = torch.zeros(1, dtype=torch.int64,
+                                                   device=dev)
+        key_index = dl.kernel_tables["key0"]
     else:
-        krows, row_map = ksk_data.shape[2], dl.kernel_row_map(trimmed=False)
-        if ksk_data.shape[0] < dnum:
-            raise ValueError(f"{name}: key has {ksk_data.shape[0]} digits, "
-                             f"level {dl.level} needs {dnum}")
-        check_residues(name, ksk_data,
-                       (ksk_data.shape[0], 2, max(dl.ksk_rows) + 1, n))
-    if ksk_shoup is not None:
-        check_residues(name, ksk_shoup, tuple(ksk_data.shape))
-    out = torch.empty((2, nl, n), dtype=torch.int64, device=ext.device)
-    work = torch.empty((2, n_t, n), dtype=torch.int64, device=ext.device)
-    t, md = dl.t, dl.moddown
+        pack, pack_sh = ksk_data, ksk_shoup
+        k = key_index.shape[0]
+        if key_index.device != dev or key_index.dtype != torch.int64 \
+                or key_index.dim() != 1 or not key_index.is_contiguous():
+            raise ValueError(f"{name}: key_index must be a contiguous 1-D "
+                             f"int64 tensor on {dev}")
+    if k < 1:
+        raise ValueError(f"{name}: no items")
+    check_residues(name, ext, ((k,) if paired else ()) + (dnum, n_t, n))
+    if pack.dim() != 5:
+        raise ValueError(f"{name}: key shape {tuple(pack.shape)}")
+    n_keys, kdig, krows = pack.shape[0], pack.shape[1], pack.shape[3]
+    if trimmed:
+        row_map = dl.kernel_row_map(trimmed=True)
+        check_residues(name, pack, (n_keys, dnum, 2, n_t, n))
+    else:
+        row_map = dl.kernel_row_map(trimmed=False)
+        if kdig < dnum:
+            raise ValueError(f"{name}: key has {kdig} digits, level "
+                             f"{dl.level} needs {dnum}")
+        check_residues(name, pack, (n_keys, kdig, 2, max(dl.ksk_rows) + 1,
+                                    n))
+    if pack_sh is not None:
+        check_residues(name, pack_sh, tuple(pack.shape))
+    work = torch.empty((k, 2, n_t, n), dtype=torch.int64, device=dev)
+    out = (torch.empty((k, 2, nl, n), dtype=torch.int64, device=dev)
+           if moddown else None)
     KS_FINISH.launch(
-        ext.device, out, work, ext, ksk_data, ksk_shoup, row_map, krows, nl,
-        n_t, dnum, n.bit_length() - 1, t.p, dl.t_pinv, dl.t_rmod,
-        dl.t_rshoup, t.tw, t.tw_shoup, t.itw, t.itw_shoup, t.ninv,
-        t.ninv_shoup, md.qhat_inv, md.qhat_inv_shoup, md.src_p,
-        md.src_q_f32, md.conv, md.conv_shoup, md.d_mod_t, md.d_mod_t_shoup,
-        dl.pinv_mod_q, dl.pinv_mod_q_shoup, level=dl.level)
-    return out
+        dev, out, work, ext, dnum * n_t * n if paired else 0, pack, pack_sh,
+        key_index, row_map, k, kdig, krows, nl, n_t, dnum,
+        n.bit_length() - 1, int(moddown), *_finish_tables(dl),
+        level=dl.level, items=k, grids=2 if moddown else 1)
+    res = out if moddown else work
+    return res if batched else res[0]
+
+
+def _finish_tables(dl) -> tuple:
+    """The level's ks_finish tables, in the kernel's argument order."""
+    t, md = dl.t, dl.moddown
+    twp, itwp = packed_twiddles(t)
+    return (t.p, dl.t_pinv, dl.t_rmod, dl.t_rshoup, twp, itwp, t.ninv,
+            t.ninv_shoup, md.qhat_inv, md.qhat_inv_shoup, md.src_p,
+            md.src_q_f32, md.conv, md.conv_shoup, md.d_mod_t,
+            md.d_mod_t_shoup, dl.pinv_mod_q, dl.pinv_mod_q_shoup)
+
+
+def ks_finish(ext, dl, ksk_data, ksk_shoup=None, trimmed=False,
+              key_index=None):
+    """Inner-product the decomposed digits with key-switch keys and ModDown.
+
+    ext: (dnum, n_t, N), or (K, dnum, n_t, N) paired with key_index; keys
+    and key_index as in the module docstring: full-chain (kdig, 2, n_all, N) or, with trimmed=True,
+    sliced to this level's digits and prime rows (dnum, 2, n_t, N), one
+    key or a stacked pack.  ksk_shoup=None is a lean key (Montgomery lift).
+    Returns (2, level+1, N), or (K, 2, level+1, N) for a batch, NTT domain.
+    """
+    if ext.device.type == "cpu":
+        return ks_finish_plain(ext, dl, ksk_data, ksk_shoup, trimmed,
+                               key_index)
+    return _finish(ext, dl, ksk_data, ksk_shoup, trimmed, key_index, True)
+
+
+def ks_finish_raw(ext, dl, ksk_data, ksk_shoup=None, trimmed=False,
+                  key_index=None):
+    """The inner product of ks_finish WITHOUT ModDown: (2, n_t, N) per
+    item, extended basis, NTT domain (the ks_finish kernel's launch A)."""
+    if ext.device.type == "cpu":
+        return ks_inner(ext, dl, ksk_data, ksk_shoup, trimmed, key_index)
+    return _finish(ext, dl, ksk_data, ksk_shoup, trimmed, key_index, False)

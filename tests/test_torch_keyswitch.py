@@ -17,6 +17,11 @@ special primes, here at LogN 8) key-switch with 4 digits, unequal at level
 6 (alpha 2, 2, 2, 1).  There the port is held against the grid-streaming
 Pallas entry points ks_decompose_pallas_grid and ks_finish_pallas_grid,
 with a full-chain key read through the level's key row map.
+
+The batched forms (a batch of polys through ks_decompose, a key pack or
+paired items through ks_finish and ks_finish_raw) must equal the stack of
+single calls, in the plain versions and through the wrappers on CPU
+tensors.
 """
 
 import numpy as np
@@ -32,6 +37,7 @@ from orion_tpu.crypto.context import CKKSContext as JContext
 from orion_tpu_torch.crypto import KeyChest as TKeys
 from orion_tpu_torch.crypto import keyswitch as tks
 from orion_tpu_torch.crypto.context import CKKSContext as TContext
+from orion_tpu_torch.kernels import keyswitch as kks
 
 CHAIN = dict(logn=8, logq=[29, 26, 26], logp=[29, 29], logscale=26, h=64,
              seed=3)
@@ -161,3 +167,46 @@ def test_four_digits_against_pallas_grid(lenet_chain, level):
     rk_j, rk_t = jkeys.relin_key, tkeys.relin_key
     want = ks_pallas.ks_finish_pallas_grid(jext, jdl, rk_j.data, rk_j.shoup)
     assert _same(want, tks.ks_finish(text, tdl, rk_t.data, rk_t.shoup))
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["shared", "paired"])
+@pytest.mark.parametrize("trimmed", [False, True], ids=["full", "trimmed"])
+@pytest.mark.parametrize("lean", [False, True], ids=["shoup", "lean"])
+def test_batched_equals_stacked_singles(chain, lean, trimmed, paired):
+    """B = K = 3 items over a pack of 4 keys, key slots out of order and
+    repeated: every batched result equals the stack of single calls."""
+    _, _, tctx, tkeys = chain
+    level = tctx.max_level
+    tdl = tks.dev_level(tctx, level)
+    c = torch.as_tensor(np.stack([_poly(tctx, range(level + 1), seed=40 + b)
+                                  for b in range(3)]))
+    ext_b = kks.ks_decompose_plain(c, tdl)
+    singles = [kks.ks_decompose_plain(c[b], tdl) for b in range(3)]
+    assert torch.equal(ext_b, torch.stack(singles))
+    assert torch.equal(tks.ks_decompose(c, tdl), ext_b)
+
+    keys = [tkeys.relin_key] + [tkeys.galois_key(tctx.galois_element(r))
+                                for r in (1, 2, 5)]
+    if trimmed:
+        dnum, rows = len(tdl.digits), tdl.ksk_rows_idx
+        data = [k.data[:dnum][:, :, rows] for k in keys]
+        shoup = [k.shoup[:dnum][:, :, rows] for k in keys]
+    else:
+        data, shoup = [k.data for k in keys], [k.shoup for k in keys]
+    pack = torch.stack(data).contiguous()
+    pack_sh = None if lean else torch.stack(shoup).contiguous()
+    slots = [2, 0, 2]
+    key_index = torch.tensor(slots, dtype=torch.int64)
+    ext = ext_b if paired else singles[0]
+    ext_of = (lambda k: singles[k]) if paired else (lambda k: singles[0])
+
+    for plain, wrapper in ((kks.ks_finish_plain, tks.ks_finish),
+                           (kks.ks_inner, tks.ks_finish_raw)):
+        want = torch.stack([
+            plain(ext_of(k), tdl, pack[s],
+                  None if lean else pack_sh[s], trimmed)
+            for k, s in enumerate(slots)])
+        got = plain(ext, tdl, pack, pack_sh, trimmed, key_index)
+        assert torch.equal(got, want)
+        assert torch.equal(wrapper(ext, tdl, pack, pack_sh, trimmed,
+                                   key_index), want)

@@ -26,6 +26,7 @@ from orion_tpu_torch.crypto.keyswitch import dev_level as tdev_level
 from orion_tpu_torch.crypto.keyswitch import ring_intt, ring_ntt
 from orion_tpu_torch.crypto.ntt4 import intt4, ntt4
 from orion_tpu_torch.kernels import launch_counts
+from orion_tpu_torch.kernels.ntt import _passes, pack_twiddles
 
 LOGQ = [29, 26, 26, 26, 26, 26]   # configs/mlp.yml
 LOGP = [29, 29]
@@ -162,6 +163,62 @@ def test_ring_seam_bit_exact(ctxs, level):
         assert np.array_equal(ring_intt(tf, rr).numpy(), a)
     # CPU tensors take the plain path: no kernel was launched
     assert launch_counts() == before
+
+
+def _core_model(x, packed, p, logn, inverse):
+    """The CUDA transform core's pass structure (kernels/csrc/modarith.cuh)
+    in numpy: per pass over stages [a, a+s), groups of 2^s residues at
+    stride 2^(logn-a-s), butterflied with twiddles read from the packed
+    table at the core's offsets."""
+    x = x.copy()
+    w_all, w_sh_all = packed & 0xFFFFFFFF, (packed >> 32) & 0xFFFFFFFF
+    assert np.array_equal(w_sh_all, (w_all << 32) // p)  # Shoup companions
+    order = _passes(logn)[::-1] if inverse else _passes(logn)
+    for a, s in order:
+        g = 1 << (logn - a - s)
+        hi = np.arange(1 << a)[:, None, None]
+        idx = (hi << (logn - a)) + np.arange(g)[None, :, None] \
+            + (np.arange(1 << s) * g)[None, None, :]
+        r = x[idx]
+        for u in (range(s - 1, -1, -1) if inverse else range(s)):
+            hs = 1 << (s - 1 - u)
+            for j in range(1 << s):
+                if j & hs:
+                    continue
+                w = w_all[(1 << a) + hi[:, :, 0] * ((1 << s) - 1)
+                          + (1 << u) - 1 + (j >> (s - u))]
+                lo_, hi_ = r[..., j].copy(), r[..., j + hs].copy()
+                if inverse:
+                    r[..., j] = (lo_ + hi_) % p
+                    r[..., j + hs] = (lo_ - hi_) % p * w % p
+                else:
+                    v = hi_ * w % p
+                    r[..., j] = (lo_ + v) % p
+                    r[..., j + hs] = (lo_ - v) % p
+        x[idx] = r
+    return x
+
+
+def test_packed_twiddles_drive_the_core_model(ctxs):
+    """The packed tables the kernels read, walked in the CUDA core's pass
+    order, give ntt4's forward and inverse transforms residue for residue
+    (before the inverse's n^-1 scale)."""
+    _, tctx = ctxs
+    d = tctx.dev
+    rows = [0, tctx.n_all - 1]
+    twp = pack_twiddles(d["tw"][rows], d["tw_shoup"][rows]).numpy()
+    itwp = pack_twiddles(d["itw"][rows], d["itw_shoup"][rows]).numpy()
+    rng = np.random.default_rng(4)
+    t4 = {k[3:]: d[k][rows] for k in tctx.t4_keys}
+    primes = [tctx.primes[i] for i in rows]
+    a = _residues(rng, (2, tctx.n), primes)
+    want = ntt4(_t(a), t4, d["p"][rows]).numpy()
+    for r, p in enumerate(primes):
+        got = _core_model(a[r], twp[r], p, tctx.logn, inverse=False)
+        assert np.array_equal(got, want[r])
+        back = _core_model(got, itwp[r], p, tctx.logn, inverse=True)
+        ninv = int(d["ninv"][rows[r]])
+        assert np.array_equal(back * ninv % p, a[r])
 
 
 def test_host_ntt_native_matches_numpy(monkeypatch):
