@@ -5,15 +5,21 @@
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. the card's name and power limit, the kernel build time (every CUDA
-     source of the port is compiled here, in parallel) and ptxas'
-     registers and spills of each kernel at LogN 13 and 14;
+     source of the port is compiled here, in parallel), ptxas' registers
+     and spills of each kernel at LogN 13 and 14, and the CTAs per row of
+     the cluster transforms at each ring size (more than one at LogN 13
+     and 14, or the run fails);
   2. each hand-written kernel against its plain PyTorch version on the
      card (N = 8192) at every level of configs/mlp.yml (0-5) and of
      configs/lenet.yml (0-7, 4 digits at levels 6-7), one key-switch per
      call: the transforms also batched over two polys as rescale_poly
      gives them, ks_finish with full-chain and trimmed keys, Shoup and
-     lean, ks_finish_raw (no ModDown), and the PallasNTT counterpart
-     (crypto/ntt_pallas.py) over chosen limb rows: all must be bit-exact
+     lean, ks_finish_raw (no ModDown), the rescale epilogues at every
+     level >= 1 (mod_drop_rescale and rescale_poly over one ciphertext and
+     over a batch of 2: each of their two launches and the pair), and the
+     PallasNTT counterpart (crypto/ntt_pallas.py) over chosen limb rows;
+     one profiled call of each epilogue must record exactly its two
+     kernels on the card: all must be bit-exact
      (torch.equal, the kernel's output allocated from memory filled with
      -1); per call the kernel's ms (calls back to back, host included,
      as the earlier slices took it), its device ms (calls queued behind
@@ -21,7 +27,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      version's ms;
   3. the full-width MLP 784-128-128-10 on configs/mlp.yml through the
      user entry points on `cuda`: MAE vs cleartext < 0.005, every kernel
-     launched during the encrypted forward, launches and items
+     of the path launched during the encrypted forward (the generic
+     transforms and rescale_poly's second launch serve PallasNTT, ring_ntt
+     and Evaluator.rescale, which neither forward calls), the rescale
+     epilogues' launch pairs per level and the device ops, launches and items
      (key-switches) per kernel and level, first and steady latency, a
      profiled forward (device time by kernel; the port's kernels it
      recorded must be those their wrappers launched); the same flow with
@@ -163,6 +172,35 @@ def ntt_work(rows, table_rows, n):
     return nbytes, ops
 
 
+def divisor_intt_work(groups, n_div, n):
+    """Launch A of a rescale epilogue: the divisor rows (int64) and their
+    inverse tables read, the uint32 scratch written."""
+    logn = n.bit_length() - 1
+    nbytes = 8 * groups * n_div * n + 8 * n_div * n + 4 * groups * n_div * n
+    return nbytes, 3 * groups * n_div * ((n // 2) * logn + n)
+
+
+def lift_ntt_work(groups, n_div, l, n, fbc):
+    """Launch B: the scratch, acc's (or c's) l target rows and their
+    forward tables read, the output written; per coefficient the lift (the
+    basis conversion over n_div rows, or the centered lift's reduction),
+    the butterflies and the subtract-and-scale."""
+    logn = n.bit_length() - 1
+    nbytes = 4 * groups * n_div * n + 8 * l * n + 16 * groups * l * n
+    lift = 6 * n_div + 3 if fbc else 3
+    return nbytes, groups * l * (n * (lift + 3) + 3 * (n // 2) * logn)
+
+
+def drop_work(groups, n_div, l, n, fbc):
+    """The launch pair of mod_drop_rescale (fbc) or rescale_poly, each
+    input once: the divisor rows, the target rows, the packed twiddles of
+    both transforms, and the output (the scratch is internal)."""
+    a_bytes, a_ops = divisor_intt_work(groups, n_div, n)
+    b_bytes, b_ops = lift_ntt_work(groups, n_div, l, n, fbc)
+    nbytes = a_bytes + b_bytes - 8 * groups * n_div * n
+    return nbytes, a_ops + b_ops
+
+
 def decompose_work(nl, n_t, dnum, alpha, n):
     logn = n.bit_length() - 1
     # c, ext, the inverse tables of the nl Q rows, the forward of n_t rows
@@ -279,6 +317,7 @@ def check_kernels(cfg, tag, stats, logn=None, levels=None):
     from orion_tpu_torch.crypto.ntt_pallas import PallasNTT
     from orion_tpu_torch.kernels import keyswitch as kks
     from orion_tpu_torch.kernels import ntt as kntt
+    from orion_tpu_torch.kernels import rescale as krs
 
     ctx = make_context(cfg, logn)
     rk = KeyChest(ctx).relin_key
@@ -319,6 +358,8 @@ def check_kernels(cfg, tag, stats, logn=None, levels=None):
             cs.case(kname, level, str(batch + (rows, n)),
                     lambda: kern(a, rr), lambda: plain(a, rr),
                     ntt_work(a.numel() // n, rows, n))
+        if level >= 1:
+            check_epilogues(cs, dl, krs)
         c = cs.residues((nl, n), dl.q.p)
         alpha = max(dg.src_hi - dg.src_lo for dg in dl.digits)
         cs.case("ks_decompose", level, f"({nl}, {n})",
@@ -345,6 +386,7 @@ def check_kernels(cfg, tag, stats, logn=None, levels=None):
                 finish_work(nl, n_t, dnum, n, False, moddown=False))
     if logn is not None:
         return ctx
+    profile_epilogues(dev_level(ctx, ctx.max_level), tag, krs)
 
     # the PallasNTT counterpart (crypto/ntt_pallas.py), over the limb rows
     # tests/crypto/test_ntt_pallas.py uses and over the whole chain batched
@@ -362,6 +404,79 @@ def check_kernels(cfg, tag, stats, logn=None, levels=None):
                 lambda: kntt.ntt_inv_plain(a, rr),
                 ntt_work(a.numel() // n, len(rows), n))
     return ctx
+
+
+def check_epilogues(cs, dl, krs):
+    """mod_drop_rescale and rescale_poly at one level >= 1, over one
+    ciphertext (2, rows, N) and a batch of two (2, 2, rows, N): launch A,
+    launch B (from launch A's scratch) and the pair, each against its plain
+    version."""
+    n, level = cs.ctx.n, dl.level
+    n_t = dl.t.p.shape[0]
+    n_sp1 = dl.kernel_tables["drop_rows"].p.shape[0]
+    for batch in ((2,), (2, 2)):
+        groups = int(np.prod(batch))
+        for what, rows, rr_p, n_div, fbc, b_name, b_fn, b_plain, pair, \
+                pair_plain in (
+                ("drop", n_t, dl.t.p, n_sp1, True, "drop_ntt",
+                 krs.drop_lift_ntt, krs.drop_lift_ntt_plain,
+                 krs.mod_drop_rescale, krs.mod_drop_rescale_plain),
+                ("rescale", level + 1, dl.q.p, 1, False, "rescale_ntt",
+                 krs.rescale_lift_ntt, krs.rescale_lift_ntt_plain,
+                 krs.rescale_poly, krs.rescale_poly_plain)):
+            x = cs.residues(batch + (rows, n), rr_p)
+            drop = what == "drop"
+            label = f"{what} {batch + (rows, n)}"
+            cs.case("drop_intt", level, label,
+                    lambda: krs.divisor_intt(x, dl, drop),
+                    lambda: krs.divisor_intt_plain(x, dl, drop),
+                    divisor_intt_work(groups, n_div, n))
+            z = krs.divisor_intt(x, dl, drop)
+            cs.case(b_name, level, label, lambda: b_fn(x, z, dl),
+                    lambda: b_plain(x, z, dl),
+                    lift_ntt_work(groups, n_div, level, n, fbc))
+            cs.case(f"{what}_pair", level, label, lambda: pair(x, dl),
+                    lambda: pair_plain(x, dl),
+                    drop_work(groups, n_div, level, n, fbc))
+
+
+def device_kernels(fn):
+    """Names of the device kernels one call of fn ran, from torch.profiler
+    (a first call warms the profiler up and is not recorded)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts,
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep")]
+
+
+def profile_epilogues(dl, tag, krs):
+    """One profiled call of each rescale epilogue on a ciphertext must run
+    exactly its two kernels on the card: no torch op between them."""
+    n = dl.ring_n
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for name, rows, fn, want in (
+            ("mod_drop_rescale", dl.t.p, krs.mod_drop_rescale,
+             ("drop_intt_rows", "drop_lift_ntt")),
+            ("rescale_poly", dl.q.p, krs.rescale_poly,
+             ("drop_intt_rows", "rescale_lift_ntt"))):
+        x = torch.randint(0, 1 << 62, (2, rows.shape[0], n), generator=gen,
+                          device="cuda") % rows[:, None]
+        names = device_kernels(lambda: fn(x, dl))
+        print(f"  {tag:5s} one profiled {name} call at level {dl.level}: "
+              f"{len(names)} device kernels: "
+              f"{', '.join(k[:40] for k in names)}", flush=True)
+        if len(names) != 2 or not all(w in k for w, k in zip(want, names)):
+            fail(f"{name} ran {names} on the card, not its two kernels "
+                 f"{want}")
 
 
 def check_batched(ctx, tag, stats, sizes, levels=None, default=4):
@@ -422,23 +537,32 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4):
 #  Phases 3-4: a network through the user entry points              #
 # ------------------------------------------------------------------ #
 
-OUR_KERNELS = ("ntt_fwd_rows", "ntt_inv_rows", "fbc_ntt_digits",
-               "ks_inner_intt", "moddown_rows")
+OUR_KERNELS = ("ntt_fwd_cluster", "ntt_inv_cluster", "ntt_inv_rows",
+               "fbc_ntt_digits", "ks_inner_intt", "moddown_rows",
+               "drop_intt_rows", "drop_lift_ntt", "rescale_lift_ntt")
+# kernels that neither forward launches: the generic transforms serve
+# PallasNTT and ring_ntt, rescale_ntt is rescale_poly's second launch
+# (Evaluator.rescale); every multiply of both networks rescales through the
+# fused drop (drop_intt, drop_ntt)
+OFF_PATH = ("ntt_fwd", "ntt_inv", "rescale_ntt")
 
 
 def launched_grids():
     """Device kernels by name that the port's wrappers launched since the
-    counts were last set to 0: ntt_inv_rows is also ks_decompose's first
-    grid, moddown_rows ks_finish's second (ks_finish_raw has none)."""
-    from orion_tpu_torch.kernels import KS_DECOMPOSE, KS_FINISH, NTT_FWD
-    from orion_tpu_torch.kernels import NTT_INV
+    counts were last set to 0: ntt_inv_rows is ks_decompose's first grid,
+    moddown_rows ks_finish's second (ks_finish_raw has none)."""
+    from orion_tpu_torch import kernels as k
 
-    dec, fin = KS_DECOMPOSE, KS_FINISH
-    return {"ntt_fwd_rows": NTT_FWD.grids,
-            "ntt_inv_rows": NTT_INV.grids + dec.grids - dec.launches,
+    dec, fin = k.KS_DECOMPOSE, k.KS_FINISH
+    return {"ntt_fwd_cluster": k.NTT_FWD.grids,
+            "ntt_inv_cluster": k.NTT_INV.grids,
+            "ntt_inv_rows": dec.grids - dec.launches,
             "fbc_ntt_digits": dec.launches,
             "ks_inner_intt": fin.launches,
-            "moddown_rows": fin.grids - fin.launches}
+            "moddown_rows": fin.grids - fin.launches,
+            "drop_intt_rows": k.DROP_INTT.grids,
+            "drop_lift_ntt": k.DROP_NTT.grids,
+            "rescale_lift_ntt": k.RESCALE_NTT.grids}
 
 
 def profile_forward(net, ct):
@@ -576,9 +700,14 @@ def check_model(cfg, model, title):
     print(f"  items in one forward (key-switches; rows for the NTTs): "
           f"{gpu['items']}; key-switch kernels by level: "
           f"{gpu['items_by_level']}", flush=True)
-    print(f"  key-switch batches {{kernel: {{level: {{items per launch: "
-          f"launches}}}}}}: {gpu['batches']}", flush=True)
+    print(f"  key-switch and rescale batches {{kernel: {{level: {{items per "
+          f"launch: launches}}}}}}: {gpu['batches']}", flush=True)
     pr = gpu["prof"]
+    drops = gpu["by_level"].get("drop_ntt", {})
+    print(f"  rescale epilogues in one forward: {sum(drops.values())} "
+          f"mod_drop_rescale launch pairs (drop_intt + drop_ntt) by level "
+          f"{drops}, {gpu['counts']['rescale_ntt']} rescale_poly pairs; "
+          f"{pr['device_ops']} device ops", flush=True)
     if not pr["device_ops"]:
         print("  profiled forward: the profiler saw no device time "
               "(device breakdown not measured)", flush=True)
@@ -594,9 +723,13 @@ def check_model(cfg, model, title):
           f", launched {pr['our_kernels_launched']}", flush=True)
     if not gpu["mae"] < 0.005:
         fail(f"{model}: MAE {gpu['mae']} >= 0.005")
-    idle = [k for k, v in gpu["counts"].items() if v == 0]
+    idle = [k for k, v in gpu["counts"].items()
+            if v == 0 and k not in OFF_PATH]
     if idle:
         fail(f"kernels not launched by the {model} forward: {idle}")
+    c = gpu["counts"]
+    if c["drop_intt"] != c["drop_ntt"] + c["rescale_ntt"]:
+        fail(f"{model}: rescale launches do not come in pairs: {c}")
     if pr["our_kernels_recorded"] != pr["our_kernels_launched"]:
         fail(f"{model}: the profile lost port kernels, so their device "
              f"time is not measured")
@@ -670,6 +803,16 @@ def main():
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(_build.SOURCES)})", flush=True)
     print_ptxas(libs)
+    from orion_tpu_torch.kernels import ntt as kntt
+
+    ctas = {logn: kntt.cluster_size(logn) for logn in range(8, 15)}
+    print(f"phase 1: ntt_fwd / ntt_inv and the rescale epilogues launch "
+          f"clusters of C CTAs per row, by LogN: {ctas}", flush=True)
+    if any(c != 1 << kntt.split_logc(logn) for logn, c in ctas.items()):
+        fail(f"the built ntt.cu splits rows as {ctas}, kernels/ntt.py packs "
+             f"twiddles for {[1 << kntt.split_logc(g) for g in ctas]}")
+    if min(ctas[13], ctas[14]) < 2:
+        fail("the transforms at LogN 13 and 14 are not split over a cluster")
 
     cfgs = {}
     for tag, path in CONFIGS.items():
@@ -697,7 +840,8 @@ def main():
     for k in kernels.KERNELS:
         recs = stats[k.name]
         # the first case at the top level of this slice's config: the 2-D
-        # transforms, full-chain Shoup keys for ks_finish
+        # transforms, full-chain Shoup keys for ks_finish, one ciphertext
+        # for the rescale epilogues
         top = next(r for r in recs if r["config"] == "lenet"
                    and r["level"] == 7)
         by_path = {p: rec["launches"][k.name] for p, rec in paths.items()}
@@ -716,6 +860,19 @@ def main():
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": None,
         })
+        if k.source == "ntt.cu":
+            line[-1]["cluster_ctas"] = ctas[13]
+        pair = {"drop_ntt": "drop_pair",
+                "rescale_ntt": "rescale_pair"}.get(k.name)
+        if pair:
+            r = next(r for r in stats[pair] if r["config"] == "lenet"
+                     and r["level"] == 7)
+            line[-1]["pair"] = {
+                "shape": r["label"], "ms": r["ms"],
+                "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "max_abs_err": max(x["err"] for x in stats[pair]),
+                "bit_exact": all(x["ok"] for x in stats[pair])}
         # conv2's batch (lenet level 5): the largest launch of the forward
         batched = [r for r in recs if r["config"] == "lenet"
                    and r["level"] == 5 and r["items"] > 1]

@@ -6,13 +6,14 @@ correction term, hybrid gadget decomposition, ModDown by the special
 primes).
 
 Dispatch: `ring_ntt` / `ring_intt`, `ks_decompose`, `ks_finish`,
-`ks_finish_raw` and `keyswitch` launch the hand-written CUDA kernels
-(`kernels/`) when given CUDA tensors, at every level, and run the plain
-PyTorch versions on CPU tensors.  The key-switch kernels take a batch of
-key-switches per launch (`kernels/keyswitch.py`).  The elementwise glue
-of the fused epilogues (`mod_drop_rescale`, `rescale_poly`) is plain
-torch ops on either device, as orion_tpu computes it in jnp outside
-Pallas.
+`ks_finish_raw`, `keyswitch`, `mod_drop_rescale` and `rescale_poly` launch
+the hand-written CUDA kernels (`kernels/`) when given CUDA tensors, at
+every level, and run the plain PyTorch versions on CPU tensors.  The
+key-switch kernels take a batch of key-switches per launch
+(`kernels/keyswitch.py`); each rescale epilogue is one launch pair over
+any leading batch shape, its elementwise glue fused into the transforms'
+launches (`kernels/rescale.py`), where orion_tpu computes it in jnp
+outside Pallas.
 
 Float32 v-correction: the HPS correction term only needs to be within +-1
 of round(sum z_m / q_m); an off-by-one adds a multiple of the digit
@@ -29,9 +30,10 @@ import torch
 
 from ..kernels.keyswitch import (fbc, ks_decompose, ks_finish,
                                  ks_finish_raw, mod_down)
-from ..kernels.ntt import ntt_fwd, ntt_inv, packed_twiddles
+from ..kernels import rescale as _rescale
+from ..kernels.ntt import (cluster_twiddles, ntt_fwd, ntt_inv,
+                           packed_twiddles)
 from .context import CKKSContext, DigitTables, LevelKSTables
-from .modops import sub_mod
 
 __all__ = ["DevDigit", "RingRows", "DevLevel", "dev_level", "ring_ntt",
            "ring_intt", "fbc", "ks_decompose", "ks_finish", "keyswitch",
@@ -57,7 +59,8 @@ class RingRows:
     """NTT tables of a list of prime rows (all contiguous, on the device).
 
     The kernels read the merged-psi twiddles with their Shoup companions,
-    packed (`kernels.ntt.packed_twiddles`, cached in `kernel_tables`);
+    packed (`kernels.ntt.packed_twiddles` and `cluster_twiddles`, cached
+    in `kernel_tables`);
     the plain versions read the four-step tables `t4`."""
     p: torch.Tensor               # (L,)
     tw: torch.Tensor              # (L, N)
@@ -84,6 +87,7 @@ class RingRows:
         are built on this set first, so that every slice shares them."""
         if self.p.is_cuda:
             packed_twiddles(self)
+            cluster_twiddles(self)
         return RingRows(self.p[lo:hi], self.tw[lo:hi], self.tw_shoup[lo:hi],
                         self.itw[lo:hi], self.itw_shoup[lo:hi],
                         self.ninv[lo:hi], self.ninv_shoup[lo:hi],
@@ -238,35 +242,16 @@ def mod_drop_rescale(acc, dl: DevLevel):
     Returns (..., level, N): the fused ModDown+rescale epilogue.  One
     iNTT over the (n_sp+1) divisor rows + one FBC + one NTT over the
     (level) surviving rows replaces ModDown's full round trip followed by
-    rescale's second one.
+    rescale's second one: on the card the `drop_intt` and `drop_ntt`
+    launches, whatever the leading shape.
     """
-    if acc.dim() > 2:
-        # fbc contracts over a leading source-limb axis and so does not
-        # broadcast over batch dims: unroll the (small) leading axis
-        return torch.stack([mod_drop_rescale(acc[i], dl)
-                            for i in range(acc.shape[0])])
-    lvl = dl.level
-    div = torch.cat([acc[lvl + 1:], acc[lvl:lvl + 1]])  # [specials..., q_l]
-    z = ring_intt(div, dl.kernel_tables["drop_rows"])
-    qp = dl.q.p[:lvl, None]
-    lift = fbc(z, dl.dropdown, qp)
-    lift_ntt = ring_ntt(lift, dl.q.rows(0, lvl))
-    diff = sub_mod(acc[:lvl], lift_ntt, qp)
-    return diff * dl.dqinv % qp
+    return _rescale.mod_drop_rescale(acc.contiguous(), dl)
 
 
 def rescale_poly(c, dl: DevLevel):
     """Drop the last limb of c (..., level+1, N, NTT) with centered rounding.
 
-    Returns (..., level, N).  Caller adjusts level/scale metadata.
+    Returns (..., level, N): on the card the `drop_intt` and `rescale_ntt`
+    launches.  Caller adjusts level/scale metadata.
     """
-    lvl = dl.level
-    qp = dl.q.p[:lvl, None]
-    last = ring_intt(c[..., lvl:lvl + 1, :], dl.q.rows(lvl, lvl + 1))[..., 0, :]
-    # centered lift of `last` into each remaining modulus
-    red = last[..., None, :] % qp
-    v = (last >= dl.qlast_half)[..., None, :]
-    y = sub_mod(red, torch.where(v, dl.qlast_mod_t, 0), qp)
-    y_ntt = ring_ntt(y, dl.q.rows(0, lvl))
-    diff = sub_mod(c[..., :lvl, :], y_ntt, qp)
-    return diff * dl.qlast_inv % qp
+    return _rescale.rescale_poly(c.contiguous(), dl)

@@ -281,7 +281,7 @@ def eval_transform_scan_ext(ev: Evaluator, tr: ScanTransform,
     """eval_transform_scan with DEFERRED ModDown: returns the extended-basis
     accumulator (2, n_t, N) in NTT domain, Q-basis contributions folded in
     as P*x.  The caller sums accumulators across column blocks and divides
-    ONCE by P*q_l (mod_drop_rescale) per output row.
+    ONCE by P*q_l (mod_drop_rescale), all output rows in one call.
     """
     _check_level(tr, ct)
     dl = dev_level(ev.ctx, ct.level)
@@ -346,11 +346,11 @@ def eval_transform_blocked_scan(ev: Evaluator, grid: dict,
         if dl.dropdown is not None:
             # deferred path: per (row, col) the giants accumulate in the
             # extended basis; column blocks sum there too; ONE fused
-            # ModDown+rescale per output row.  The plaintext scale is
-            # taken from the first grid cell, as orion_tpu does.
+            # ModDown+rescale over the stacked output rows.  The plaintext
+            # scale is taken from the first grid cell, as orion_tpu does.
             tp = dl.t.p[:, None]
             pt_scale = next(iter(grid.values())).pt_scale
-            outs = []
+            accs = []
             for i in range(num_rows):
                 acc = None
                 for j in range(num_cols):
@@ -360,11 +360,10 @@ def eval_transform_blocked_scan(ev: Evaluator, grid: dict,
                     part = eval_transform_scan_ext(ev, tr, cts[j],
                                                    rot_caches[j])
                     acc = part if acc is None else add_mod(acc, part, tp)
-                data = mod_drop_rescale(acc, dl)
-                outs.append(Ciphertext(
-                    data, lvl - 1,
-                    cts[0].scale * pt_scale / ev.ctx.q_primes[lvl]))
-            return outs
+                accs.append(acc)
+            data = mod_drop_rescale(torch.stack(accs), dl)
+            scale = cts[0].scale * pt_scale / ev.ctx.q_primes[lvl]
+            return [Ciphertext(d, lvl - 1, scale) for d in data]
 
     outs = []
     for i in range(num_rows):

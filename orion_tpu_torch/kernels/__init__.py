@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels (sources in `csrc/`), their
-build (`_build.py`) and their wrappers (`ntt.py`, `keyswitch.py`).
+build (`_build.py`) and their wrappers (`ntt.py`, `keyswitch.py`,
+`rescale.py`).
 
 Every wrapper launches its kernel on a CUDA tensor (or raises) and runs
 its plain PyTorch version on a CPU tensor.  `KERNELS` lists them with
@@ -9,8 +10,10 @@ kernels).
 
 from .keyswitch import KS_DECOMPOSE, KS_FINISH
 from .ntt import NTT_FWD, NTT_INV
+from .rescale import DROP_INTT, DROP_NTT, RESCALE_NTT
 
-KERNELS = (NTT_FWD, NTT_INV, KS_DECOMPOSE, KS_FINISH)
+KERNELS = (NTT_FWD, NTT_INV, KS_DECOMPOSE, KS_FINISH, DROP_INTT, DROP_NTT,
+           RESCALE_NTT)
 
 
 def reset_launches() -> None:
@@ -24,7 +27,7 @@ def launch_counts() -> dict[str, int]:
 
 def launch_counts_by_level() -> dict[str, dict[int, int]]:
     """Launches per ciphertext level of the kernels whose wrappers know it
-    (the key-switch kernels)."""
+    (the key-switch kernels and the rescale epilogues)."""
     return _by_level(lambda items, n: n)
 
 
@@ -40,7 +43,7 @@ def item_counts_by_level() -> dict[str, dict[int, int]]:
 
 def batch_sizes() -> dict[str, dict[int, dict[int, int]]]:
     """{kernel: {level: {items per launch: launches}}} of the key-switch
-    kernels."""
+    kernels and the rescale epilogues."""
     out: dict = {}
     for k in KERNELS:
         for (level, items), n in sorted(k.batches.items()):

@@ -256,9 +256,11 @@ __device__ __forceinline__ void ntt_inv_row(uint32_t* s, const int64_t* itwp,
 //   v    = round(sum_m f32(zq_m) / f32(q_m))        (IEEE float32, in order)
 //   out  = sum_m zq_m * conv_m - v * dmod  mod pt
 // conv[m * cstride] is [D / q_m]_pt.  The float32 sum and division must
-// round as on the CPU (no fast-math), or v differs by one.
+// round as on the CPU (no fast-math), or v differs by one.  z holds int64
+// residues or a kernel's uint32 scratch.
+template <class Z>
 __device__ __forceinline__ uint32_t fbc_one(
-        const int64_t* z, int64_t zstride, int alpha, const int64_t* qi,
+        const Z* z, int64_t zstride, int alpha, const int64_t* qi,
         const int64_t* qi_sh, const int64_t* srcp, const float* srcq,
         const int64_t* conv, const int64_t* conv_sh, int cstride,
         uint32_t dmod, uint32_t dmod_sh, uint32_t pt) {
@@ -277,25 +279,9 @@ __device__ __forceinline__ uint32_t fbc_one(
     return sub_mod(acc, shoup_mul(v, dmod, dmod_sh, pt), pt);
 }
 
-// Row transforms: block (x, y) handles row r = y * gridDim.x + x of a
-// (rows, N) int64 array whose limb (table row) is r % L.  in and out may
-// alias: a block reads its whole row before its first write.
-template <int LOGN>
-__global__ void __launch_bounds__(Ring<LOGN>::T)
-ntt_fwd_rows(int64_t* out, const int64_t* in, int L, const int64_t* p,
-             const int64_t* twp) {
-    extern __shared__ uint32_t s[];
-    constexpr int N = Ring<LOGN>::N;
-    const int64_t row = (int64_t)blockIdx.y * gridDim.x + blockIdx.x;
-    const int limb = (int)(row % L);
-    const int64_t* src = in + row * N;
-    int64_t* dst = out + row * N;
-    ntt_fwd_row<LOGN>(
-        s, twp + (int64_t)limb * N, (uint32_t)p[limb],
-        [&](int i) { return (uint32_t)src[i]; },
-        [&](int i, uint32_t v) { dst[i] = v; });
-}
-
+// Inverse row transforms: block (x, y) handles row r = y * gridDim.x + x
+// of a (rows, N) int64 array whose limb (table row) is r % L.  in and out
+// may alias: a block reads its whole row before its first write.
 template <int LOGN>
 __global__ void __launch_bounds__(Ring<LOGN>::T)
 ntt_inv_rows(int64_t* out, const int64_t* in, int L, const int64_t* p,

@@ -1,53 +1,238 @@
 // ntt_fwd / ntt_inv: negacyclic NTT and inverse NTT of (rows, N) int64
-// residues, one thread block per row.
+// residues, one thread-block cluster per row (cluster_ntt.cuh); and the
+// rescale epilogues built on them, two launches each:
+//   drop_intt:   launch A of mod_drop_rescale and rescale_poly - the
+//                inverse NTT of the divisor rows, read in place from the
+//                ciphertext through a row map, into a uint32 scratch;
+//   drop_ntt:    launch B of mod_drop_rescale - per (item, poly, target
+//                row j < l) the fast basis conversion of the scratch rows
+//                to q_j in the load functor, the forward NTT, and
+//                (acc_j - lift) * (P q_l)^-1 mod q_j in the store functor;
+//   rescale_ntt: launch B of rescale_poly - the centered lift of the last
+//                limb to q_j, the forward NTT, (c_j - lift) * q_l^-1.
 //
 // Replaces orion_tpu/crypto/ks_pallas.py pallas_ntt4 (body _kntt) and
 // pallas_intt4 (body _kintt), which run the four-step transform on an
-// (R, 128) VMEM tile with rolls and selects.  Hopper has no such layout
-// constraint: a row fits one block, whose threads hold it in registers and
-// exchange it through shared memory between passes of up to three radix-2
-// stages (the core in modarith.cuh).  Output order equals ntt4's
-// (bit-reversed).
+// (R, 128) VMEM tile with rolls and selects, and the jnp epilogues around
+// them in orion_tpu/crypto/keyswitch.py (mod_drop_rescale, rescale_poly):
+// the concatenation of the divisor rows, the basis conversion and the
+// final subtract-and-scale.  Output order equals ntt4's (bit-reversed).
 //
-// What bounds it: device memory.  Per row it reads N int64 residues and
-// writes N, and reads the row's packed twiddle table (N words); the
-// 13 * N/2 Shoup butterflies at N = 8192 are ~4 integer multiplies each,
-// far below the card's integer rate.  Each residue crosses device memory
-// once each way.  The launch is still one block per row, so a call with
-// few rows leaves most SMs idle; its time is the latency of one block.
+// What bounds them: device memory.  A transform reads N residues and
+// writes N per row, and reads the row's packed twiddles (N words); the
+// LogN * N/2 Shoup butterflies are far below the card's integer rate.
+// The fused pair reads the divisor rows and the target rows of acc once,
+// writes the output once, and makes one round trip of a uint32 scratch of
+// the divisor rows; the conversion re-reads those rows per target row,
+// from L2.  Every other value stays in registers and shared memory.
 //
-// C interface (ctypes): pointers to contiguous int64 device arrays, the
-// CUDA stream as an opaque pointer; returns the cudaError_t of the launch.
+// C interface (ctypes): pointers to contiguous device arrays, the CUDA
+// stream as an opaque pointer; returns the cudaError_t of the launch.
 
-#include "modarith.cuh"
+#include "cluster_ntt.cuh"
 
 using namespace orion;
 
+#define SPLIT_KERNEL(name) \
+    template <int LOGN>    \
+    __global__ void __launch_bounds__(Split<LOGN>::T) name
+
+SPLIT_KERNEL(ntt_fwd_cluster)(int64_t* out, const int64_t* in, int L,
+                              const int64_t* p, const int64_t* twc) {
+    extern __shared__ uint32_t s[];
+    constexpr int N = 1 << LOGN;
+    const int64_t row = blockIdx.x / Split<LOGN>::C;
+    const int limb = (int)(row % L);
+    const int64_t* src = in + row * N;
+    int64_t* dst = out + row * N;
+    ntt_fwd_split<LOGN>(
+        s, twc + (int64_t)limb * N, (uint32_t)p[limb],
+        [&](int i) { return (uint32_t)src[i]; },
+        [&](int i, uint32_t v) { dst[i] = v; });
+}
+
+SPLIT_KERNEL(ntt_inv_cluster)(int64_t* out, const int64_t* in, int L,
+                              const int64_t* p, const int64_t* itwc,
+                              const int64_t* ninv, const int64_t* ninv_sh) {
+    extern __shared__ uint32_t s[];
+    constexpr int N = 1 << LOGN;
+    const int64_t row = blockIdx.x / Split<LOGN>::C;
+    const int limb = (int)(row % L);
+    const uint32_t pl = (uint32_t)p[limb];
+    const uint32_t nv = (uint32_t)ninv[limb];
+    const uint32_t nv_sh = (uint32_t)ninv_sh[limb];
+    const int64_t* src = in + row * N;
+    int64_t* dst = out + row * N;
+    ntt_inv_split<LOGN>(
+        s, itwc + (int64_t)limb * N, pl,
+        [&](int i) { return (uint32_t)src[i]; },
+        [&](int i, uint32_t v) { dst[i] = shoup_mul(v, nv, nv_sh, pl); });
+}
+
+// z (groups, L, N) uint32 = n^-1 iNTT of in[g, rmap[d]], in (groups,
+// n_src, N) int64; cluster (g, d) in row-major order.
+SPLIT_KERNEL(drop_intt_rows)(uint32_t* z, const int64_t* in, int n_src,
+                             int L, const int64_t* rmap, const int64_t* p,
+                             const int64_t* itwc, const int64_t* ninv,
+                             const int64_t* ninv_sh) {
+    extern __shared__ uint32_t s[];
+    constexpr int N = 1 << LOGN;
+    const int64_t row = blockIdx.x / Split<LOGN>::C;
+    const int64_t g = row / L;
+    const int d = (int)(row % L);
+    const uint32_t pd = (uint32_t)p[d];
+    const uint32_t nv = (uint32_t)ninv[d];
+    const uint32_t nv_sh = (uint32_t)ninv_sh[d];
+    const int64_t* src = in + (g * n_src + rmap[d]) * N;
+    uint32_t* dst = z + row * N;
+    ntt_inv_split<LOGN>(
+        s, itwc + (int64_t)d * N, pd,
+        [&](int i) { return (uint32_t)src[i]; },
+        [&](int i, uint32_t v) { dst[i] = shoup_mul(v, nv, nv_sh, pd); });
+}
+
+// out (groups, l, N) = (acc[g, j] - NTT(fbc(z[g]) -> q_j)) * scale_j mod
+// q_j, acc (groups, n_src, N); z's L rows are the digit's source rows.
+SPLIT_KERNEL(drop_lift_ntt)(int64_t* out, const int64_t* acc,
+                            const uint32_t* z, int n_src, int l, int L,
+                            const int64_t* qi, const int64_t* qi_sh,
+                            const int64_t* srcp, const float* srcq,
+                            const int64_t* conv, const int64_t* conv_sh,
+                            const int64_t* dmod, const int64_t* dmod_sh,
+                            const int64_t* p, const int64_t* twc,
+                            const int64_t* scale, const int64_t* scale_sh) {
+    extern __shared__ uint32_t s[];
+    constexpr int N = 1 << LOGN;
+    const int64_t row = blockIdx.x / Split<LOGN>::C;
+    const int64_t g = row / l;
+    const int j = (int)(row % l);
+    const uint32_t pj = (uint32_t)p[j];
+    const uint32_t dm = (uint32_t)dmod[j];
+    const uint32_t dm_sh = (uint32_t)dmod_sh[j];
+    const uint32_t sc = (uint32_t)scale[j];
+    const uint32_t sc_sh = (uint32_t)scale_sh[j];
+    const uint32_t* zg = z + g * L * N;
+    const int64_t* a = acc + (g * n_src + j) * N;
+    int64_t* dst = out + row * N;
+    ntt_fwd_split<LOGN>(
+        s, twc + (int64_t)j * N, pj,
+        [&](int i) {
+            return fbc_one(zg + i, N, L, qi, qi_sh, srcp, srcq, conv + j,
+                           conv_sh + j, l, dm, dm_sh, pj);
+        },
+        [&](int i, uint32_t v) {
+            dst[i] = shoup_mul(sub_mod((uint32_t)a[i], v, pj), sc, sc_sh,
+                               pj);
+        });
+}
+
+// out (groups, l, N) = (c[g, j] - NTT(lift_j(z[g]))) * scale_j mod q_j,
+// c (groups, n_src, N), z (groups, 1, N) the last limb in coefficients;
+// lift_j(x) = x mod q_j - [x >= half] * (q_l mod q_j), the centered lift.
+SPLIT_KERNEL(rescale_lift_ntt)(int64_t* out, const int64_t* c,
+                               const uint32_t* z, int n_src, int l,
+                               int half, const int64_t* p,
+                               const int64_t* twc, const int64_t* qlast_mod,
+                               const int64_t* scale,
+                               const int64_t* scale_sh) {
+    extern __shared__ uint32_t s[];
+    constexpr int N = 1 << LOGN;
+    const int64_t row = blockIdx.x / Split<LOGN>::C;
+    const int64_t g = row / l;
+    const int j = (int)(row % l);
+    const uint32_t pj = (uint32_t)p[j];
+    const uint32_t qm = (uint32_t)qlast_mod[j];
+    const uint32_t sc = (uint32_t)scale[j];
+    const uint32_t sc_sh = (uint32_t)scale_sh[j];
+    const uint32_t* zg = z + g * N;
+    const int64_t* a = c + (g * n_src + j) * N;
+    int64_t* dst = out + row * N;
+    ntt_fwd_split<LOGN>(
+        s, twc + (int64_t)j * N, pj,
+        [&](int i) {
+            const uint32_t x = zg[i];
+            return sub_mod(x % pj, x >= (uint32_t)half ? qm : 0u, pj);
+        },
+        [&](int i, uint32_t v) {
+            dst[i] = shoup_mul(sub_mod((uint32_t)a[i], v, pj), sc, sc_sh,
+                               pj);
+        });
+}
+
+extern "C" int orion_ntt_cluster_size(int logn) {
+    int c = -1;
+    with_logn(logn, [&](auto k) {
+        c = Split<decltype(k)::value>::C;
+        return cudaSuccess;
+    });
+    return c;
+}
+
 extern "C" int orion_ntt_fwd(int64_t* out, const int64_t* in, int rows,
                              int L, int logn, const int64_t* p,
-                             const int64_t* twp, void* stream) {
-    return (int)with_logn(logn, [&](auto c) {
-        constexpr int LOGN = decltype(c)::value;
-        using RG = Ring<LOGN>;
-        cudaError_t e = allow_smem(ntt_fwd_rows<LOGN>, RG::SMEM);
-        if (e != cudaSuccess) return e;
-        ntt_fwd_rows<LOGN><<<rows, RG::T, RG::SMEM, (cudaStream_t)stream>>>(
-            out, in, L, p, twp);
-        return cudaGetLastError();
+                             const int64_t* twc, void* stream) {
+    return (int)with_logn(logn, [&](auto k) {
+        constexpr int LOGN = decltype(k)::value;
+        return launch_split<LOGN>(ntt_fwd_cluster<LOGN>, rows,
+                                  Split<LOGN>::SMEM_FWD, (cudaStream_t)stream,
+                                  out, in, L, p, twc);
     });
 }
 
 extern "C" int orion_ntt_inv(int64_t* out, const int64_t* in, int rows,
                              int L, int logn, const int64_t* p,
-                             const int64_t* itwp, const int64_t* ninv,
+                             const int64_t* itwc, const int64_t* ninv,
                              const int64_t* ninv_sh, void* stream) {
-    return (int)with_logn(logn, [&](auto c) {
-        constexpr int LOGN = decltype(c)::value;
-        using RG = Ring<LOGN>;
-        cudaError_t e = allow_smem(ntt_inv_rows<LOGN>, RG::SMEM);
-        if (e != cudaSuccess) return e;
-        ntt_inv_rows<LOGN><<<rows, RG::T, RG::SMEM, (cudaStream_t)stream>>>(
-            out, in, L, p, itwp, ninv, ninv_sh);
-        return cudaGetLastError();
+    return (int)with_logn(logn, [&](auto k) {
+        constexpr int LOGN = decltype(k)::value;
+        return launch_split<LOGN>(ntt_inv_cluster<LOGN>, rows,
+                                  Split<LOGN>::SMEM_INV, (cudaStream_t)stream,
+                                  out, in, L, p, itwc, ninv, ninv_sh);
+    });
+}
+
+extern "C" int orion_drop_intt(uint32_t* z, const int64_t* in, int groups,
+                               int n_src, int L, int logn,
+                               const int64_t* rmap, const int64_t* p,
+                               const int64_t* itwc, const int64_t* ninv,
+                               const int64_t* ninv_sh, void* stream) {
+    return (int)with_logn(logn, [&](auto k) {
+        constexpr int LOGN = decltype(k)::value;
+        return launch_split<LOGN>(drop_intt_rows<LOGN>, (int64_t)groups * L,
+                                  Split<LOGN>::SMEM_INV, (cudaStream_t)stream,
+                                  z, in, n_src, L, rmap, p, itwc, ninv,
+                                  ninv_sh);
+    });
+}
+
+extern "C" int orion_drop_ntt(
+        int64_t* out, const int64_t* acc, const uint32_t* z, int groups,
+        int n_src, int l, int L, int logn, const int64_t* qi,
+        const int64_t* qi_sh, const int64_t* srcp, const float* srcq,
+        const int64_t* conv, const int64_t* conv_sh, const int64_t* dmod,
+        const int64_t* dmod_sh, const int64_t* p, const int64_t* twc,
+        const int64_t* scale, const int64_t* scale_sh, void* stream) {
+    return (int)with_logn(logn, [&](auto k) {
+        constexpr int LOGN = decltype(k)::value;
+        return launch_split<LOGN>(drop_lift_ntt<LOGN>, (int64_t)groups * l,
+                                  Split<LOGN>::SMEM_FWD, (cudaStream_t)stream,
+                                  out, acc, z, n_src, l, L, qi, qi_sh, srcp,
+                                  srcq, conv, conv_sh, dmod, dmod_sh, p, twc,
+                                  scale, scale_sh);
+    });
+}
+
+extern "C" int orion_rescale_ntt(int64_t* out, const int64_t* c,
+                                 const uint32_t* z, int groups, int n_src,
+                                 int l, int logn, int half, const int64_t* p,
+                                 const int64_t* twc, const int64_t* qlast_mod,
+                                 const int64_t* scale,
+                                 const int64_t* scale_sh, void* stream) {
+    return (int)with_logn(logn, [&](auto k) {
+        constexpr int LOGN = decltype(k)::value;
+        return launch_split<LOGN>(rescale_lift_ntt<LOGN>,
+                                  (int64_t)groups * l, Split<LOGN>::SMEM_FWD,
+                                  (cudaStream_t)stream, out, c, z, n_src, l,
+                                  half, p, twc, qlast_mod, scale, scale_sh);
     });
 }

@@ -3,14 +3,17 @@
 `ntt_fwd(a, rr)` / `ntt_inv(a, rr)` transform the last axis of
 (..., L, N) int64 residues whose limb axis matches the L rows of the
 table set `rr` (a `crypto.keyswitch.RingRows`).  On a CUDA tensor they
-launch the kernel or raise; on a CPU tensor they run the plain version
-below, the four-step torch transform of `crypto/ntt4.py`.
+launch the kernel, one thread-block cluster of `cluster_size(logn)` CTAs
+per row (`csrc/cluster_ntt.cuh`), or raise; on a CPU tensor they run the
+plain version below, the four-step torch transform of `crypto/ntt4.py`.
 
 The kernels read the twiddles packed (`pack_twiddles`): each with its
-Shoup companion in one 64-bit word, in the order the transform core of
-`csrc/modarith.cuh` reads them.  `packed_twiddles(rr)` builds them once per
-table set from its `tw`/`tw_shoup`/`itw`/`itw_shoup` and caches them in
-`rr.kernel_tables`.
+Shoup companion in one 64-bit word, in the order a transform reads them:
+the single-block core of `csrc/modarith.cuh` (the key-switch kernels) or
+the cluster split of `csrc/cluster_ntt.cuh` (this module's kernels and the
+rescale epilogues of `rescale.py`).  `packed_twiddles(rr)` and
+`cluster_twiddles(rr)` build both once per table set from its
+`tw`/`tw_shoup`/`itw`/`itw_shoup` and cache them in `rr.kernel_tables`.
 """
 
 from __future__ import annotations
@@ -31,6 +34,21 @@ NTT_INV = Kernel(
     "ntt_inv", "ntt.cu", "orion_ntt_inv", "ppiiipppp",
     "orion_tpu/crypto/ks_pallas.py:387 pallas_intt4 (_kintt :106); "
     "orion_tpu/crypto/ntt_pallas.py:251 PallasNTT.intt (_inv_kernel :126)")
+
+
+def split_logc(logn: int) -> int:
+    """log2 of the CTAs per row of the cluster transforms: `Split<LOGN>`
+    of csrc/cluster_ntt.cuh (1 CTA up to LogN 10, then sub-rows of 1024
+    residues, at most 8 CTAs)."""
+    return 0 if logn <= 10 else min(logn - 10, 3)
+
+
+def cluster_size(logn: int) -> int:
+    """CTAs per row that the built `ntt.cu` launches at this ring size (its
+    compiled `Split<LOGN>::C`)."""
+    from . import _build
+
+    return int(_build.load(NTT_FWD.source).orion_ntt_cluster_size(logn))
 
 
 def _passes(logn: int) -> list[tuple[int, int]]:
@@ -62,11 +80,30 @@ def _pack_order(logn: int) -> np.ndarray:
     return order
 
 
-def pack_twiddles(tw, tw_sh) -> torch.Tensor:
+@lru_cache(maxsize=None)
+def _split_order(logn: int, logc: int) -> np.ndarray:
+    """The read order of a row split over 2^logc CTAs: segment k of M =
+    N / 2^logc slots is sub-row k's local merged table twk[t] =
+    tw[2^(logc+u) + k*2^u + h] (t = 2^u + h) in the core's order at size
+    M, and its slot 0 holds the cross-stage twiddle tw[k]."""
+    if logc == 0:
+        return _pack_order(logn)
+    logm = logn - logc
+    loc = _pack_order(logm)
+    u = np.zeros_like(loc)
+    u[1:] = np.frexp(loc[1:])[1] - 1        # floor(log2 t), exact
+    k = np.arange(1 << logc)[:, None]
+    order = loc[None, :] + ((1 << logc) + k - 1) * (1 << u)[None, :]
+    order[:, 0] = k[:, 0]
+    return order.ravel()
+
+
+def pack_twiddles(tw, tw_sh, logc: int = 0) -> torch.Tensor:
     """(L, N) twiddles and Shoup companions -> (L, N) int64 words
-    w | w_sh << 32, in the core's read order."""
+    w | w_sh << 32, in the read order of a row split over 2^logc CTAs
+    (0: the single-block core)."""
     n = tw.shape[-1]
-    order = _pack_order(n.bit_length() - 1)
+    order = _split_order(n.bit_length() - 1, logc)
     w = tw.cpu().numpy().astype(np.uint64)[:, order]
     w_sh = tw_sh.cpu().numpy().astype(np.uint64)[:, order]
     packed = np.ascontiguousarray((w | (w_sh << np.uint64(32))).view(np.int64))
@@ -74,12 +111,28 @@ def pack_twiddles(tw, tw_sh) -> torch.Tensor:
 
 
 def packed_twiddles(rr) -> tuple[torch.Tensor, torch.Tensor]:
-    """(forward, inverse) packed tables of the table set `rr`, cached."""
+    """(forward, inverse) packed tables of the table set `rr` in the
+    single-block core's order (the key-switch kernels), cached."""
     kt = rr.kernel_tables
     if "twp" not in kt:
         kt["twp"] = pack_twiddles(rr.tw, rr.tw_shoup)
         kt["itwp"] = pack_twiddles(rr.itw, rr.itw_shoup)
     return kt["twp"], kt["itwp"]
+
+
+def cluster_twiddles(rr) -> tuple[torch.Tensor, torch.Tensor]:
+    """(forward, inverse) packed tables of `rr` in the cluster split's
+    order (this module's kernels and the rescale epilogues), cached; the
+    core's tables where a row is one CTA."""
+    kt = rr.kernel_tables
+    if "twc" not in kt:
+        logc = split_logc(rr.tw.shape[-1].bit_length() - 1)
+        if logc == 0:
+            kt["twc"], kt["itwc"] = packed_twiddles(rr)
+        else:
+            kt["twc"] = pack_twiddles(rr.tw, rr.tw_shoup, logc)
+            kt["itwc"] = pack_twiddles(rr.itw, rr.itw_shoup, logc)
+    return kt["twc"], kt["itwc"]
 
 
 def ntt_fwd_plain(a, rr):
@@ -88,8 +141,6 @@ def ntt_fwd_plain(a, rr):
 
 def ntt_inv_plain(a, rr):
     return intt4(a, rr.t4, rr.ninv, rr.p)
-
-
 
 
 def _rows(name, a, rr):
@@ -108,7 +159,7 @@ def ntt_fwd(a, rr):
     rows, L, logn = _rows(NTT_FWD.name, a, rr)
     out = torch.empty_like(a)
     NTT_FWD.launch(a.device, out, a, rows, L, logn,
-                   rr.p, packed_twiddles(rr)[0], items=rows)
+                   rr.p, cluster_twiddles(rr)[0], items=rows)
     return out
 
 
@@ -119,6 +170,6 @@ def ntt_inv(a, rr):
     rows, L, logn = _rows(NTT_INV.name, a, rr)
     out = torch.empty_like(a)
     NTT_INV.launch(a.device, out, a, rows, L, logn,
-                   rr.p, packed_twiddles(rr)[1], rr.ninv, rr.ninv_shoup,
+                   rr.p, cluster_twiddles(rr)[1], rr.ninv, rr.ninv_shoup,
                    items=rows)
     return out

@@ -24,6 +24,7 @@ from orion_tpu_torch.crypto.keyswitch import dev_level
 from orion_tpu_torch.crypto.ntt_pallas import PallasNTT
 from orion_tpu_torch.kernels import keyswitch as kks
 from orion_tpu_torch.kernels import ntt as kntt
+from orion_tpu_torch.kernels import rescale as krs
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "orion_tpu_torch"
@@ -100,6 +101,12 @@ def test_wrappers_refuse_other_devices():
                       device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kks.ks_finish(ext, dl, ext, None)
+    acc = torch.empty((2, dl.t.p.shape[0], ctx.n), dtype=torch.int64,
+                      device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        krs.mod_drop_rescale(acc, dl)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        krs.rescale_poly(acc[:, :2], dl)
 
 
 def test_chip_smoke_fails_without_a_gpu():

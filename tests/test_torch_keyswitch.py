@@ -21,7 +21,9 @@ with a full-chain key read through the level's key row map.
 The batched forms (a batch of polys through ks_decompose, a key pack or
 paired items through ks_finish and ks_finish_raw) must equal the stack of
 single calls, in the plain versions and through the wrappers on CPU
-tensors.
+tensors.  The rescale epilogues over a leading batch of 3 items must equal
+orion_tpu's per item, and the divisor rows their kernels read in place
+through a row map must be the rows orion_tpu concatenates.
 """
 
 import numpy as np
@@ -38,6 +40,7 @@ from orion_tpu_torch.crypto import KeyChest as TKeys
 from orion_tpu_torch.crypto import keyswitch as tks
 from orion_tpu_torch.crypto.context import CKKSContext as TContext
 from orion_tpu_torch.kernels import keyswitch as kks
+from orion_tpu_torch.kernels import rescale as krs
 
 CHAIN = dict(logn=8, logq=[29, 26, 26], logp=[29, 29], logscale=26, h=64,
              seed=3)
@@ -210,3 +213,40 @@ def test_batched_equals_stacked_singles(chain, lean, trimmed, paired):
         assert torch.equal(got, want)
         assert torch.equal(wrapper(ext, tdl, pack, pack_sh, trimmed,
                                    key_index), want)
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_rescale_epilogues_over_a_batch(chain, level):
+    """mod_drop_rescale over (3, 2, n_t, N) and rescale_poly over
+    (3, 2, l+1, N) equal orion_tpu's jitted functions item by item; the
+    kernels' row maps read the rows orion_tpu's epilogues concatenate."""
+    jctx, _, tctx, _ = chain
+    jdl, tdl = jks.dev_level(jctx, level), tks.dev_level(tctx, level)
+    acc = np.stack([np.stack([_poly(tctx, tdl.ksk_rows, seed=50 + 2 * b + q)
+                              for q in range(2)]) for b in range(3)])
+    ct = acc[:, :, :level + 1]
+    tacc, tct = torch.as_tensor(acc), torch.as_tensor(ct)
+
+    jdrop = jax.jit(lambda a: jks.mod_drop_rescale(a, jdl))
+    got = tks.mod_drop_rescale(tacc, tdl)
+    assert got.shape == (3, 2, level, tctx.n)
+    got_r = tks.rescale_poly(tct, tdl)
+    assert got_r.shape == (3, 2, level, tctx.n)
+    for b in range(3):
+        assert _same(jdrop(jnp.asarray(acc[b].astype(np.uint32))), got[b])
+        assert _same(jks.rescale_poly(jnp.asarray(ct[b].astype(np.uint32)),
+                                      jdl), got_r[b])
+
+    # the two launches' plain versions compose to the whole epilogue
+    z = krs.divisor_intt(tacc, tdl, drop=True)
+    assert torch.equal(krs.drop_lift_ntt(tacc, z, tdl), got)
+    z = krs.divisor_intt(tct, tdl, drop=False)
+    assert torch.equal(krs.rescale_lift_ntt(tct, z, tdl), got_r)
+
+    drop_map = krs.divisor_row_map(tdl, drop=True)
+    cat = torch.cat([tacc[..., level + 1:, :], tacc[..., level:level + 1, :]],
+                    dim=-2)
+    assert torch.equal(tacc.index_select(-2, drop_map), cat)
+    last_map = krs.divisor_row_map(tdl, drop=False)
+    assert torch.equal(tct.index_select(-2, last_map),
+                       tct[..., level:level + 1, :])

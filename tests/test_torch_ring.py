@@ -24,9 +24,11 @@ from orion_tpu_torch.crypto import modops as tmod
 from orion_tpu_torch.crypto.context import CKKSContext as TContext
 from orion_tpu_torch.crypto.keyswitch import dev_level as tdev_level
 from orion_tpu_torch.crypto.keyswitch import ring_intt, ring_ntt
-from orion_tpu_torch.crypto.ntt4 import intt4, ntt4
+from orion_tpu_torch.crypto.ntt4 import build_t4_tables, intt4, ntt4
+from orion_tpu_torch.crypto.primes import generate_primes, primitive_root_2n
+from orion_tpu_torch.crypto.ref import PrimeRing
 from orion_tpu_torch.kernels import launch_counts
-from orion_tpu_torch.kernels.ntt import _passes, pack_twiddles
+from orion_tpu_torch.kernels.ntt import _passes, pack_twiddles, split_logc
 
 LOGQ = [29, 26, 26, 26, 26, 26]   # configs/mlp.yml
 LOGP = [29, 29]
@@ -199,26 +201,91 @@ def _core_model(x, packed, p, logn, inverse):
     return x
 
 
+def _cluster_model(x, packed, p, logn, logc, inverse):
+    """The cluster transform (kernels/csrc/cluster_ntt.cuh) in numpy: the
+    row as 2^logc sub-rows of M; the forward runs the first logc stages on
+    the columns (values i + k*M) with the cross twiddles at slots k*M, then
+    each sub-row k through the core model with its segment of the packed
+    table; the inverse runs the sub-rows first, then the columns."""
+    if logc == 0:
+        return _core_model(x, packed, p, logn, inverse)
+    c, m = 1 << logc, 1 << (logn - logc)
+    w_all = packed & 0xFFFFFFFF
+    x = x.copy().reshape(c, m)
+
+    def cross(stages):
+        for st in stages:
+            hs = c >> (st + 1)
+            for k in range(c):
+                if k & hs:
+                    continue
+                w = w_all[((1 << st) + (k >> (logc - st))) * m]
+                a, b = x[k].copy(), x[k + hs].copy()
+                if inverse:
+                    x[k], x[k + hs] = (a + b) % p, (a - b) % p * w % p
+                else:
+                    v = b * w % p
+                    x[k], x[k + hs] = (a + v) % p, (a - v) % p
+
+    if not inverse:
+        cross(range(logc))
+    for k in range(c):
+        x[k] = _core_model(x[k], packed[k * m:(k + 1) * m], p, logn - logc,
+                           inverse)
+    if inverse:
+        cross(range(logc - 1, -1, -1))
+    return x.reshape(-1)
+
+
+def _check_packed(tw, tw_sh, itw, itw_sh, ninv, primes, t4, logn, logcs):
+    """Each split's packed tables, walked in the cluster's order, give
+    ntt4's forward and inverse residue for residue."""
+    rng = np.random.default_rng(4 + logn)
+    a = _residues(rng, (len(primes), 1 << logn), primes)
+    want = ntt4(_t(a), t4, _t(primes)).numpy()
+    for logc in logcs:
+        twp = pack_twiddles(tw, tw_sh, logc).numpy()
+        itwp = pack_twiddles(itw, itw_sh, logc).numpy()
+        for r, p in enumerate(primes):
+            got = _cluster_model(a[r], twp[r], p, logn, logc, inverse=False)
+            assert np.array_equal(got, want[r]), logc
+            back = _cluster_model(got, itwp[r], p, logn, logc, inverse=True)
+            assert np.array_equal(back * int(ninv[r]) % p, a[r]), logc
+
+
 def test_packed_twiddles_drive_the_core_model(ctxs):
     """The packed tables the kernels read, walked in the CUDA core's pass
     order, give ntt4's forward and inverse transforms residue for residue
-    (before the inverse's n^-1 scale)."""
+    (before the inverse's n^-1 scale); so do the tables of a row split
+    over 2, 4 and 8 CTAs, walked in the cluster's order."""
     _, tctx = ctxs
     d = tctx.dev
     rows = [0, tctx.n_all - 1]
-    twp = pack_twiddles(d["tw"][rows], d["tw_shoup"][rows]).numpy()
-    itwp = pack_twiddles(d["itw"][rows], d["itw_shoup"][rows]).numpy()
-    rng = np.random.default_rng(4)
     t4 = {k[3:]: d[k][rows] for k in tctx.t4_keys}
-    primes = [tctx.primes[i] for i in rows]
-    a = _residues(rng, (2, tctx.n), primes)
-    want = ntt4(_t(a), t4, d["p"][rows]).numpy()
-    for r, p in enumerate(primes):
-        got = _core_model(a[r], twp[r], p, tctx.logn, inverse=False)
-        assert np.array_equal(got, want[r])
-        back = _core_model(got, itwp[r], p, tctx.logn, inverse=True)
-        ninv = int(d["ninv"][rows[r]])
-        assert np.array_equal(back * ninv % p, a[r])
+    _check_packed(d["tw"][rows], d["tw_shoup"][rows], d["itw"][rows],
+                  d["itw_shoup"][rows], d["ninv"][rows].numpy(),
+                  [tctx.primes[i] for i in rows], t4, tctx.logn,
+                  (0, 1, 2, 3))
+
+
+@pytest.mark.parametrize("logn", [8, 9, 13, 14])
+def test_cluster_twiddles_drive_the_cluster_model(logn):
+    """At the ring sizes of the tests and of the card (LogN 13, 14: 8 CTAs
+    per row), the tables packed for the kernels' own split, walked in the
+    cluster's order, give ntt4's transforms for two primes."""
+    n = 1 << logn
+    primes = generate_primes([29, 26], 2 * n)
+    rings = [PrimeRing(p, n, primitive_root_2n(p, 2 * n)) for p in primes]
+    tw = np.stack([r.tw for r in rings]).astype(np.uint32)
+    itw = np.stack([r.itw for r in rings]).astype(np.uint32)
+    t4 = {k: _t(v) for k, v in build_t4_tables(
+        tw, itw, [r.psi for r in rings], primes, logn).items()}
+    p = np.asarray(primes, np.int64)[:, None]
+    tw64, itw64 = tw.astype(np.int64), itw.astype(np.int64)
+    logcs = (split_logc(logn),) if logn > 10 else (0, 1, 2, 3)
+    _check_packed(_t(tw64), _t((tw64 << 32) // p), _t(itw64),
+                  _t((itw64 << 32) // p), [r.ninv for r in rings], primes,
+                  t4, logn, logcs)
 
 
 def test_host_ntt_native_matches_numpy(monkeypatch):
