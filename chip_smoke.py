@@ -10,9 +10,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      the cluster transforms at each ring size (more than one at LogN 13
      and 14, or the run fails);
   2. each hand-written kernel against its plain PyTorch version on the
-     card (N = 8192) at every level of configs/mlp.yml (0-5) and of
-     configs/lenet.yml (0-7, 4 digits at levels 6-7), one key-switch per
-     call: the transforms also batched over two polys as rescale_poly
+     card (N = 8192) at every level of configs/mlp.yml (0-5), of
+     configs/lenet.yml (0-7, 4 digits at levels 6-7) and at levels 1-43
+     of configs/resnet.yml (44 Q primes, 6 special primes: 50 extended
+     rows and 8 digits at the top), one key-switch per call: the transforms also batched over two polys as rescale_poly
      gives them, ks_finish with full-chain and trimmed keys, Shoup and
      lean, ks_finish_raw (no ModDown), the rescale epilogues at every
      level >= 1 (mod_drop_rescale and rescale_poly over one ciphertext and
@@ -38,20 +39,34 @@ Phases, each printing its own lines; any failure exits non-zero:
   4. the full-width LeNet on configs/lenet.yml the same way, with the
      host seconds of fit and compile, the rotation keys made and the peak
      device memory;
-  5. the key-switch kernels batched as the forwards of phases 3-4 batch
-     them: at every level, ks_decompose over B polys, ks_finish and
-     ks_finish_raw over a pack of K keys (shared ext) and over K paired
-     items, B and K the largest batch of that level in that config's
-     forward (4 where it has none), bit-exact against the plain versions,
-     with ms per launch, per key-switch and the bound per launch; then
-     every kernel once at LogN 14 (configs/mlp.yml's chain on a ring of
-     2^14), the instantiation that needs more than 48 KB of shared memory;
-  6. one JSON line per path, one JSON line describing each kernel, the
+  5. one bootstrap on configs/resnet.yml (full slots, lean key packs)
+     from one seed on `cuda` and with device="cpu" (plain path): equal
+     output ciphertexts, the decrypted error against the input, the
+     key-switches per bootstrap and its time on the card;
+  6. ResNet-20 at full width on configs/resnet.yml through the user entry
+     points on `cuda` (weights from the seeded generator the port shares
+     with orion_tpu, synthetic CIFAR-10 images): fit, compile (host
+     seconds of fit, compile and key generation, rotation keys, key packs
+     and their bytes, the bootstraps placed), a first and a steady
+     forward, MAE vs cleartext < 0.005, device memory after compile and
+     peak, and a profiled forward (device time by kernel, busy share,
+     the port's kernels recorded against those the wrappers launched);
+  7. the key-switch kernels batched as the forwards of phases 3, 4 and 6
+     batch them: ks_decompose over B polys, ks_finish and ks_finish_raw
+     over a pack of K keys (shared ext) and over K paired items, B and K
+     the largest batch of that level in that config's forward (4 where it
+     has none; for ResNet-20 only the levels its forward batches), bit-
+     exact against the plain versions, with ms per launch, per key-switch
+     and the bound per launch; then every kernel once at LogN 14
+     (configs/mlp.yml's chain on a ring of 2^14), the instantiation that
+     needs more than 48 KB of shared memory;
+  8. one JSON line per path, one JSON line describing each kernel, the
      card's line, then the result line.
 
 Imports only torch, numpy, yaml and orion_tpu_torch.
 """
 
+import gc
 import json
 import subprocess
 import sys
@@ -64,7 +79,8 @@ import yaml
 
 ROOT = Path(__file__).resolve().parent
 CONFIGS = {"mlp": ROOT / "configs" / "mlp.yml",
-           "lenet": ROOT / "configs" / "lenet.yml"}
+           "lenet": ROOT / "configs" / "lenet.yml",
+           "resnet": ROOT / "configs" / "resnet.yml"}
 MEM_RATE = 3.35e12     # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 # 32-bit integer multiplies (IMAD, IMAD.HI) per second: 64 per clock per SM
 # on compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
@@ -260,8 +276,9 @@ def make_context(cfg, logn=None):
 class Cases:
     """Runs and records kernel-vs-plain cases of one context."""
 
-    def __init__(self, ctx, tag, stats, seed=7):
+    def __init__(self, ctx, tag, stats, seed=7, iters=50, plain_iters=3):
         self.ctx, self.tag, self.stats = ctx, tag, stats
+        self.iters, self.plain_iters = iters, plain_iters
         self.rng = np.random.default_rng(seed)
         self.gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -277,10 +294,13 @@ class Cases:
                           device="cuda")
         return x % rr_p[:, None]
 
-    def case(self, name, level, label, kernel_fn, plain_fn, work, iters=50,
-             items=1, plain_iters=3):
+    def case(self, name, level, label, kernel_fn, plain_fn, work, iters=None,
+             items=1, plain_iters=None):
         """Bit-exactness and ms per launch; with plain_iters=0 the plain
         version runs once, for the comparison only."""
+        iters = self.iters if iters is None else iters
+        plain_iters = (self.plain_iters if plain_iters is None
+                       else plain_iters)
         want = plain_fn()
         poison_free_memory()
         got = kernel_fn()
@@ -308,10 +328,11 @@ class Cases:
                  f"plain version (max abs err {err})")
 
 
-def check_kernels(cfg, tag, stats, logn=None, levels=None):
+def check_kernels(cfg, tag, stats, logn=None, levels=None, iters=50,
+                  plain_iters=3):
     """Every kernel, one key-switch per call, at every level of one config
-    (or at `levels` on a ring of 2^logn); records go to `stats` (kernel ->
-    list of per-case records)."""
+    (or at `levels`, on a ring of 2^logn when given); records go to
+    `stats` (kernel -> list of per-case records)."""
     from orion_tpu_torch.crypto import KeyChest
     from orion_tpu_torch.crypto.keyswitch import RingRows, dev_level
     from orion_tpu_torch.crypto.ntt_pallas import PallasNTT
@@ -321,10 +342,10 @@ def check_kernels(cfg, tag, stats, logn=None, levels=None):
 
     ctx = make_context(cfg, logn)
     rk = KeyChest(ctx).relin_key
-    cs = Cases(ctx, tag, stats)
+    cs = Cases(ctx, tag, stats, iters=iters, plain_iters=plain_iters)
     n = ctx.n
     levels = range(ctx.max_level + 1) if levels is None else levels
-    print(f"phase {2 if logn is None else 5}: kernels vs plain PyTorch on "
+    print(f"phase {2 if logn is None else 7}: kernels vs plain PyTorch on "
           f"the card, configs/{tag}.yml (N={n}, levels "
           f"{', '.join(map(str, levels))})", flush=True)
     for level in levels:
@@ -384,7 +405,7 @@ def check_kernels(cfg, tag, stats, logn=None, levels=None):
                 lambda: kks.ks_finish_raw(ext, dl, rk.data, rk.shoup),
                 lambda: kks.ks_inner(ext, dl, rk.data, rk.shoup),
                 finish_work(nl, n_t, dnum, n, False, moddown=False))
-    if logn is not None:
+    if logn is not None or tag == "resnet":
         return ctx
     profile_epilogues(dev_level(ctx, ctx.max_level), tag, krs)
 
@@ -479,19 +500,22 @@ def profile_epilogues(dl, tag, krs):
                  f"{want}")
 
 
-def check_batched(ctx, tag, stats, sizes, levels=None, default=4):
-    """The key-switch kernels over batches (phase 5).  sizes: {kernel:
+def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
+                  lean=False):
+    """The key-switch kernels over batches (phase 7).  sizes: {kernel:
     {level: {items per launch: launches}}} from a forward; B and K are the
     largest batch of the level, `default` where the forward has none.
-    Keys are a random trimmed pack (K, dnum, 2, n_t, N) made on the card:
-    the kernels' arithmetic does not depend on the key being a real one."""
+    Keys are a random trimmed pack (K, dnum, 2, n_t, N) made on the card,
+    with Shoup companions or, with `lean`, without (the Montgomery path
+    bootstrapped configs take): the kernels' arithmetic does not depend on
+    the key being a real one."""
     from orion_tpu_torch.crypto.keyswitch import dev_level
     from orion_tpu_torch.kernels import keyswitch as kks
 
     cs = Cases(ctx, tag, stats, seed=11)
     n = ctx.n
     levels = range(ctx.max_level + 1) if levels is None else levels
-    print(f"phase 5: batched key-switch kernels vs plain PyTorch, "
+    print(f"phase 7: batched key-switch kernels vs plain PyTorch, "
           f"configs/{tag}.yml (N={n})", flush=True)
 
     def largest(kernel, level):
@@ -513,7 +537,8 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4):
         del c
         k = largest("ks_finish", level)
         pack = cs.device_residues((k, dnum, 2, n_t, n), dl.t.p)
-        pack_sh = (pack << 32) // dl.t.p[:, None]
+        pack_sh = None if lean else (pack << 32) // dl.t.p[:, None]
+        keys = "lean" if lean else "Shoup"
         ext1 = cs.device_residues((dnum, n_t, n), dl.t.p)
         extk = cs.device_residues((k, dnum, n_t, n), dl.t.p)
         # key slots out of order, as a transform's giants may have them
@@ -523,10 +548,10 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4):
                                    (kks.ks_finish_raw, kks.ks_inner,
                                     "raw ")):
                 cs.case("ks_finish", level,
-                        f"{raw}pack K={k} {how} trimmed Shoup",
+                        f"{raw}pack K={k} {how} trimmed {keys}",
                         lambda: fn(ext, dl, pack, pack_sh, True, idx),
                         lambda: plain(ext, dl, pack, pack_sh, True, idx),
-                        finish_work(nl, n_t, dnum, n, False, items=k,
+                        finish_work(nl, n_t, dnum, n, lean, items=k,
                                     paired=how == "paired",
                                     moddown=not raw),
                         iters=20, items=k, plain_iters=0)
@@ -563,55 +588,6 @@ def launched_grids():
             "drop_intt_rows": k.DROP_INTT.grids,
             "drop_lift_ntt": k.DROP_NTT.grids,
             "rescale_lift_ntt": k.RESCALE_NTT.grids}
-
-
-def profile_forward(net, ct):
-    """Device time of one steady forward by kernel (torch.profiler), the
-    share spent in the port's kernels, and the device's busy share; with
-    the port's kernels the profile recorded, by name, beside those their
-    wrappers launched in that forward.  A first forward warms the profiler
-    up and is not recorded: a profile started cold lost one kernel record
-    of LeNet's forward."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    from orion_tpu_torch import kernels
-
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts,
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):     # warm-up, then the recorded forward
-            kernels.reset_launches()
-            t0 = time.perf_counter()
-            net(ct)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-            launched = launched_grids()
-            prof.step()
-    by_name, seen = {}, dict.fromkeys(OUR_KERNELS, 0)
-    n_kernels = 0
-    for e in prof.events():
-        # the schedule's step annotation is mirrored on the device's
-        # timeline; it spans the forward and is no device work
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or e.name.startswith("ProfilerStep")):
-            continue
-        n_kernels += 1
-        by_name[e.name] = (by_name.get(e.name, 0.0)
-                           + e.time_range.elapsed_us() / 1e3)
-        for o in OUR_KERNELS:
-            seen[o] += o in e.name
-    dev_ms = sum(by_name.values())
-    ours_by = {o: sum(v for k, v in by_name.items() if o in k)
-               for o in OUR_KERNELS}
-    ours = sum(ours_by.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return dict(wall_ms=wall_ms, device_ms=dev_ms, our_kernels_ms=ours,
-                our_kernels_by_name=ours_by,
-                our_kernels_recorded=seen, our_kernels_launched=launched,
-                device_ops=n_kernels,
-                busy_share=dev_ms / wall_ms if wall_ms else None,
-                top=[(k[:60], v) for k, v in top])
 
 
 def run_model(cfg, model, device, params=None, steady=0):
@@ -663,7 +639,7 @@ def run_model(cfg, model, device, params=None, steady=0):
         net(ct)
         sync()
         steady_s.append(time.perf_counter() - t0)
-    prof = profile_forward(net, ct) if cuda else None
+    prof = profile_device(lambda: net(ct)) if cuda else None
     out_fhe = out.decrypt().decode().reshape(-1)[: out_clear.size]
     err = mae(out_clear, out_fhe)
     state = {k: v.detach().cpu().numpy() for k, v in net.state_dict().items()}
@@ -759,6 +735,291 @@ def check_model(cfg, model, title):
             "cpu_forward_s": cpu["first_s"], "profile": gpu["prof"]}
 
 
+# ------------------------------------------------------------------ #
+#  Phase 5: one bootstrap on configs/resnet.yml, cuda against cpu    #
+# ------------------------------------------------------------------ #
+
+def run_bootstrap(cfg, device, repeats=0):
+    """A fresh scheme on `device`, its full-slot bootstrapper, and one
+    bootstrap of a message in [-1, 1] encrypted at the base level, all
+    from the config's seed.  Launch and item counts are those of the first
+    bootstrap (counts set to 0 just before it)."""
+    from orion_tpu_torch import kernels
+    from orion_tpu_torch.runtime.scheme import Scheme
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    sch = Scheme().init_scheme(cfg, device=device)
+    btp = sch.bootstrapper.generate_bootstrapper(sch.ctx.slots)
+    sync()
+    build_s = time.perf_counter() - t0
+    x = np.random.default_rng(17).uniform(-1, 1, sch.ctx.slots)
+    ct = sch.encryptor.encrypt(
+        sch.encoder.encode(x, level=sch.params.base_level)).cts[0]
+    mem_mib = torch.cuda.memory_allocated() / 2 ** 20 if cuda else None
+    sync()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = btp.bootstrap(ct)
+    sync()
+    first_s = time.perf_counter() - t0
+    counts, items = kernels.launch_counts(), kernels.item_counts()
+    steady_s = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        btp.bootstrap(ct)
+        sync()
+        steady_s.append(time.perf_counter() - t0)
+    prof = profile_device(lambda: btp.bootstrap(ct)) if cuda else None
+    raw = sch.keys.decrypt_rns(out.data.cpu().numpy())
+    err = float(np.max(np.abs(sch.enc.decode(raw, out.scale) - x)))
+    return dict(out=out, err=err, build_s=build_s, first_s=first_s,
+                steady_s=steady_s, prof=prof, counts=counts,
+                items=items, mem_mib=mem_mib, top=btp.top,
+                out_level=out.level,
+                rotations=len(sch.lt_evaluator.generated_rotations),
+                key_packs=len(sch.evaluator._key_packs))
+
+
+def check_bootstrap(cfg):
+    print("phase 5: one bootstrap on configs/resnet.yml, device cuda",
+          flush=True)
+    gpu = run_bootstrap(cfg, "cuda", repeats=2)
+    steady_ms = [t * 1e3 for t in gpu["steady_s"]]
+    print(f"  build {gpu['build_s']:.1f} s ({gpu['rotations']} rotation "
+          f"keys, {gpu['key_packs']} lean key packs, device memory "
+          f"{gpu['mem_mib']:.0f} MiB); level {gpu['top']} -> "
+          f"{gpu['out_level']}; max error vs the input {gpu['err']:.3e}",
+          flush=True)
+    pr = gpu["prof"]
+    print(f"  one bootstrap: first {gpu['first_s'] * 1e3:.1f} ms, steady "
+          f"{', '.join(f'{t:.1f}' for t in steady_ms)} ms; launches "
+          f"{gpu['counts']}; items (key-switches; rows for the NTTs) "
+          f"{gpu['items']}", flush=True)
+    print(f"  profiled bootstrap: wall {pr['wall_ms']:.1f} ms, device "
+          f"{pr['device_ms']:.1f} ms in {pr['device_ops']} device ops "
+          f"(busy share {pr['busy_share']:.3f}), port kernels "
+          f"{pr['our_kernels_ms']:.1f} ms; top: "
+          + "; ".join(f"{k} {v:.2f} ms" for k, v in pr["top"]), flush=True)
+    if pr["our_kernels_recorded"] != pr["our_kernels_launched"]:
+        fail("bootstrap: the profile lost port kernels")
+    idle = [k for k, v in gpu["counts"].items() if v == 0]
+    if idle:
+        fail(f"kernels not launched by the bootstrap: {idle}")
+    if not gpu["err"] < 0.05:
+        fail(f"bootstrap error {gpu['err']} against its input")
+    print("phase 5: the same bootstrap on device cpu (plain PyTorch path)",
+          flush=True)
+    t0 = time.perf_counter()
+    cpu = run_bootstrap(cfg, "cpu")
+    print(f"  cpu: build {cpu['build_s']:.1f} s, bootstrap "
+          f"{cpu['first_s']:.1f} s, whole {time.perf_counter() - t0:.1f} s;"
+          f" max error {cpu['err']:.3e}", flush=True)
+    a, b = gpu["out"], cpu["out"]
+    if not (a.level == b.level and a.scale == b.scale
+            and torch.equal(a.data.cpu(), b.data)):
+        fail("bootstrap: cuda and cpu output ciphertexts differ")
+    print("  cuda and cpu output ciphertexts are equal", flush=True)
+    return {"err": gpu["err"], "first_ms": gpu["first_s"] * 1e3,
+            "steady_ms": steady_ms, "profile": gpu["prof"],
+            "launches": gpu["counts"], "items": gpu["items"],
+            "keyswitches": gpu["items"]["ks_finish"],
+            "build_s": gpu["build_s"], "cpu_bootstrap_s": cpu["first_s"],
+            "rotation_keys": gpu["rotations"],
+            "key_packs": gpu["key_packs"]}
+
+
+# ------------------------------------------------------------------ #
+#  Phase 6: ResNet-20 on configs/resnet.yml                          #
+# ------------------------------------------------------------------ #
+
+def profile_device(fn):
+    """Device time of one call of fn by kernel from a CUDA-only profile (a
+    deep forward makes too many host events to keep), after a warm-up
+    call that is not recorded; the port's kernels recorded by name beside
+    those their wrappers launched in the recorded call.  (`device_ms`
+    cannot time a call of thousands of launches: they fill the launch
+    queue behind its sleep kernel.)"""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from orion_tpu_torch import kernels
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launched = launched_grids()
+            prof.step()
+    t0 = time.perf_counter()
+    by_name, seen = {}, dict.fromkeys(OUR_KERNELS, 0)
+    n_kernels = 0
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.name.startswith("ProfilerStep")):
+            continue
+        n_kernels += 1
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3)
+        for o in OUR_KERNELS:
+            seen[o] += o in e.name
+    dev_ms = sum(by_name.values())
+    ours_by = {o: sum(v for k, v in by_name.items() if o in k)
+               for o in OUR_KERNELS}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(wall_ms=wall_ms, device_ms=dev_ms,
+                our_kernels_ms=sum(ours_by.values()),
+                our_kernels_by_name=ours_by, our_kernels_recorded=seen,
+                our_kernels_launched=launched, device_ops=n_kernels,
+                busy_share=dev_ms / wall_ms if wall_ms else None,
+                top=[(k[:60], v) for k, v in top],
+                read_s=time.perf_counter() - t0)
+
+
+def check_resnet(cfg, blocks=(3, 3, 3)):
+    """ResNet-20 (or, with blocks (1, 1, 1), the same widths with one
+    block per stage) through the user entry points on cuda."""
+    import orion_tpu_torch as orion
+    from orion_tpu_torch import kernels
+    from orion_tpu_torch.models import resnet
+    from orion_tpu_torch.nn import linear
+    from orion_tpu_torch.utils import get_cifar_datasets, mae
+
+    name = "ResNet-20" if tuple(blocks) == (3, 3, 3) else f"ResNet{blocks}"
+    print(f"phase 6: {name} (widths 16/32/64) on configs/resnet.yml, "
+          f"device cuda", flush=True)
+    start_mib = torch.cuda.memory_allocated() / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    scheme = orion.init_scheme(cfg, device="cuda")
+    # the port draws initial weights from one seeded generator, as
+    # orion_tpu does: reset it so the net gets the weights a fresh
+    # process builds first (orion_tpu's examples/run_resnet.py)
+    linear._WEIGHT_RNG = np.random.default_rng(2024)
+    net = resnet._make("cifar10", resnet.BasicBlock, list(blocks),
+                       [16, 32, 64])
+    trainloader, testloader = get_cifar_datasets(batch_size=1)
+    inp, _ = next(iter(testloader))
+    net.eval()
+    out_clear = net(inp).numpy().reshape(-1)
+
+    keygen = {"s": 0.0, "n": 0}
+    make_key = scheme.keys.galois_key
+
+    def timed_key(k):
+        fresh = k % scheme.ctx.gal_mod not in scheme.keys.galois_keys
+        t0 = time.perf_counter()
+        key = make_key(k)
+        if fresh:
+            keygen["s"] += time.perf_counter() - t0
+            keygen["n"] += 1
+        return key
+
+    scheme.keys.galois_key = timed_key
+    t0 = time.perf_counter()
+    orion.fit(net, trainloader)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    input_level = orion.compile(net)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    placed = [n for n, m in net.named_modules()
+              if getattr(m, "post_bootstrap", None) is not None]
+    packs = scheme.evaluator._key_packs.values()
+    pack_mib = sum(p.ksk.numel() * 8 + p.perms.numel() * 8
+                   for p in packs) / 2 ** 20
+    lean = all(p.ksk_shoup is None for p in packs)
+    keys_left = len(scheme.keys.galois_keys)
+    dev_mib = torch.cuda.memory_allocated() / 2 ** 20
+    compile_peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"  host: fit {fit_s:.1f} s, compile {compile_s:.1f} s of which "
+          f"key generation {keygen['s']:.1f} s ({keygen['n']} rotation "
+          f"keys); input level {input_level}; bootstraps placed "
+          f"{len(placed)}: {placed}", flush=True)
+    print(f"  key packs {len(scheme.evaluator._key_packs)} (lean {lean}, "
+          f"{pack_mib:.0f} MiB), original keys kept {keys_left}; device "
+          f"memory before init {start_mib:.0f} MiB, after compile "
+          f"{dev_mib:.0f} MiB, peak during compile {compile_peak_mib:.0f} "
+          f"MiB", flush=True)
+    if not lean:
+        fail("resnet: key packs keep Shoup companions under boot_params")
+
+    boots = {"n": 0}
+    run_boot = scheme.bootstrapper.bootstrap
+
+    def counted(ct, slots):
+        boots["n"] += 1
+        return run_boot(ct, slots)
+
+    scheme.bootstrapper.bootstrap = counted
+    ct = orion.encrypt(orion.encode(inp, input_level))
+    net.he()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = net(ct)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    items = kernels.item_counts()
+    by_level = kernels.launch_counts_by_level()
+    batches = kernels.batch_sizes()
+    ct_boots = boots["n"]
+    out_fhe = out.decrypt().decode().reshape(-1)[: out_clear.size]
+    err = mae(out_clear, out_fhe)
+    print(f"  input {len(ct.cts)} ciphertext(s); MAE vs cleartext "
+          f"{err:.3e}; first forward {first_s:.2f} s with {ct_boots} "
+          f"ciphertext bootstraps; launches {counts}; items {items}",
+          flush=True)
+    t0 = time.perf_counter()
+    net(ct)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    pr = profile_device(lambda: net(ct))
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"  steady forward {steady_s:.2f} s; peak device memory over the "
+          f"forwards {peak_mib:.0f} MiB", flush=True)
+    print(f"  profiled forward: wall {pr['wall_ms']:.0f} ms, device "
+          f"{pr['device_ms']:.1f} ms in {pr['device_ops']} device ops "
+          f"(busy share {pr['busy_share']:.3f}), port kernels "
+          f"{pr['our_kernels_ms']:.1f} ms ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in
+                      pr["our_kernels_by_name"].items())
+          + "); top: "
+          + "; ".join(f"{k} {v:.1f} ms" for k, v in pr["top"])
+          + f" (profile read in {pr['read_s']:.1f} s)", flush=True)
+    print(f"  port kernels the profile recorded {pr['our_kernels_recorded']}"
+          f", launched {pr['our_kernels_launched']}", flush=True)
+    if not err < 0.005:
+        fail(f"{name}: MAE {err} >= 0.005")
+    idle = [k for k, v in counts.items() if v == 0]
+    if idle:
+        fail(f"kernels not launched by the {name} forward: {idle}")
+    if pr["our_kernels_recorded"] != pr["our_kernels_launched"]:
+        fail(f"{name}: the profile lost port kernels, so their device "
+             f"time is not measured")
+    rec = {"model": name, "blocks": list(blocks), "mae": err,
+           "first_s": first_s, "steady_s": steady_s,
+           "bootstraps_placed": len(placed), "ciphertext_bootstraps":
+           ct_boots, "input_cts": len(ct.cts), "fit_s": fit_s,
+           "compile_s": compile_s, "keygen_s": keygen["s"],
+           "rotation_keys": keygen["n"],
+           "key_packs": len(scheme.evaluator._key_packs),
+           "key_pack_mib": pack_mib, "device_mib_before": start_mib,
+           "device_mib_after_compile": dev_mib,
+           "compile_peak_mib": compile_peak_mib,
+           "forward_peak_mib": peak_mib, "launches": counts,
+           "items": items, "launches_by_level": by_level,
+           "batches": batches, "profile": pr}
+    orion.delete_scheme()
+    return rec
+
+
 def print_ptxas(libs):
     """Registers and spills of each kernel at LogN 13 and 14, from ptxas'
     report beside each library."""
@@ -819,8 +1080,19 @@ def main():
         with open(path) as f:
             cfgs[tag] = yaml.safe_load(f)
     stats = {}
-    for tag, cfg in cfgs.items():
-        check_kernels(cfg, tag, stats)
+    check_kernels(cfgs["mlp"], "mlp", stats)
+    check_kernels(cfgs["lenet"], "lenet", stats)
+    # every level that rescales: timed in full at four levels, with a few
+    # calls and the plain version once (for the comparison) at the others
+    timed = (1, 17, 42, 43)
+    check_kernels(cfgs["resnet"], "resnet", stats, levels=timed, iters=10,
+                  plain_iters=1)
+    check_kernels(cfgs["resnet"], "resnet", stats,
+                  levels=[lv for lv in range(1, 44) if lv not in timed],
+                  iters=3, plain_iters=0)
+    torch.cuda.empty_cache()
+    print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
     paths = {
         "mlp": check_model(cfgs["mlp"], "MLP",
@@ -828,9 +1100,29 @@ def main():
         "lenet": check_model(cfgs["lenet"], "LeNet",
                              "phase 4: LeNet on configs/lenet.yml"),
     }
+    print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    # a scheme's services and modules refer to each other: collect the
+    # finished phases' schemes before the next phase reads device memory
+    gc.collect()
+    bootstrap = check_bootstrap(cfgs["resnet"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    paths["resnet"] = check_resnet(cfgs["resnet"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 6 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
-    for tag, cfg in cfgs.items():
-        check_batched(make_context(cfg), tag, stats, paths[tag]["batches"])
+    for tag in ("mlp", "lenet"):
+        check_batched(make_context(cfgs[tag]), tag, stats,
+                      paths[tag]["batches"])
+    rb = paths["resnet"]["batches"]
+    check_batched(make_context(cfgs["resnet"]), "resnet", stats, rb,
+                  levels=sorted({lv for k in ("ks_decompose", "ks_finish")
+                                 for lv in rb.get(k, {})}), lean=True)
     # LogN 14: one key-switch per call, then a batch of 4, at the top level
     ctx14 = check_kernels(cfgs["mlp"], "mlp14", stats, logn=14, levels=[5])
     check_batched(ctx14, "mlp14", stats, {}, levels=[5])
@@ -862,6 +1154,15 @@ def main():
         })
         if k.source == "ntt.cu":
             line[-1]["cluster_ctas"] = ctas[13]
+        # the top level of configs/resnet.yml (44 Q rows, 50 extended
+        # rows, 8 digits), lean trimmed keys for ks_finish
+        res = [r for r in recs if r["config"] == "resnet"
+               and r["level"] == 43]
+        r = next((r for r in res if "trimmed lean" in r["label"]), res[0])
+        line[-1]["resnet_top"] = {
+            "shape": r["label"], "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"]}
         pair = {"drop_ntt": "drop_pair",
                 "rescale_ntt": "rescale_pair"}.get(k.name)
         if pair:
@@ -886,6 +1187,7 @@ def main():
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
     for p, rec in paths.items():
         print(json.dumps({p: rec}), flush=True)
+    print(json.dumps({"bootstrap": bootstrap}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -1,10 +1,14 @@
 """Module fusion.
 
-Counterpart of `orion_tpu/compiler/fuser.py` for the modules of this slice:
-Linear -> BatchNorm folds the BN statistics and affine into the linear
-layer's cloned `on_weight` / `on_bias` (the trained network is untouched)
-and the BN becomes the identity (depth 0).  The patterns that fold a
-Chebyshev activation's prescale arrive with those activations.
+Counterpart of `orion_tpu/compiler/fuser.py`: three patterns, each
+operating on the cloned `on_weight` / `on_bias` parameters so the trained
+network is untouched:
+
+  1. Linear/Conv -> BatchNorm: fold BN statistics and affine into the
+     linear transform's weights and bias; BN becomes the identity (depth 0).
+  2. Linear/Conv -> Chebyshev: fold the activation's [-1,1] prescale and
+     shift into the preceding linear layer (saves the affine level).
+  3. BatchNorm -> Chebyshev: the same fold when BN precedes the activation.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import numpy as np
 
 from ..nn.linear import LinearTransform
 from ..nn.normalization import BatchNormNd
+from ..nn.activation import Chebyshev
 
 
 class Fuser:
@@ -29,16 +34,29 @@ class Fuser:
         return child
 
     def fuse_modules(self):
-        for name in list(self.dag.topological_sort()):
-            module = self.dag.nodes[name]["module"]
-            if not isinstance(module, LinearTransform) or module.fused:
-                continue
-            child_name = self._single_parent_child(name)
-            if child_name is None:
-                continue
-            child = self.dag.nodes[child_name]["module"]
-            if isinstance(child, BatchNormNd) and not child.fused:
-                self._fuse_linear_bn(module, child)
+        """Three passes in orion_tpu's order: the activation affine first
+        folds into BN, then BN folds into the linear layer, so a
+        Linear->BN->Chebyshev chain lands entirely in the linear weights."""
+        patterns = [
+            (LinearTransform, Chebyshev, self._fuse_linear_cheb),
+            (BatchNormNd, Chebyshev, self._fuse_bn_cheb),
+            (LinearTransform, BatchNormNd, self._fuse_linear_bn),
+        ]
+        order = list(self.dag.topological_sort())
+        for parent_t, child_t, fn in patterns:
+            for name in order:
+                module = self.dag.nodes[name]["module"]
+                if not isinstance(module, parent_t) or \
+                        getattr(module, "fused", False):
+                    continue
+                child_name = self._single_parent_child(name)
+                if child_name is None:
+                    continue
+                child = self.dag.nodes[child_name]["module"]
+                if isinstance(child, child_t) and not child.fused:
+                    fn(module, child)
+
+    # -------------------------------------------------- #
 
     @staticmethod
     def _bn_terms(bn):
@@ -58,3 +76,27 @@ class Fuser:
                        ).astype(np.float32)
         bn.fused = True
         bn.set_depth(0)
+
+    def _fuse_linear_cheb(self, lin, cheb):
+        if cheb.prescale == 1 and cheb.constant == 0:
+            return
+        w = lin.on_weight.astype(np.float64)
+        lin.on_weight = (w * cheb.prescale).astype(np.float32)
+        lin.on_bias = (lin.on_bias.astype(np.float64) * cheb.prescale
+                       + cheb.constant).astype(np.float32)
+        cheb.fused = True
+        cheb.depth = int(np.ceil(np.log2(cheb.degree + 1)))
+
+    def _fuse_bn_cheb(self, bn, cheb):
+        if cheb.prescale == 1 and cheb.constant == 0:
+            return
+        # fold the activation's affine into BN's scale/shift
+        bn.on_running_var = bn.on_running_var / (cheb.prescale ** 2)
+        if bn.affine:
+            bn.on_bias = (bn.on_bias * cheb.prescale + cheb.constant
+                          ).astype(np.float32)
+        else:
+            raise NotImplementedError(
+                "BN->Chebyshev fusion requires affine BatchNorm")
+        cheb.fused = True
+        cheb.depth = int(np.ceil(np.log2(cheb.degree + 1)))

@@ -9,8 +9,9 @@ chains compose by (min,+) product and residual branches sum elementwise.
 Latency model (node weights): linear transforms cost alpha * n_diags *
 level; a bootstrap after a layer costs t_boot(l_eff) * n_cts.  The port
 uses the reference's CPU-fit constants until a fit measured on the GPU
-exists.  Bootstrapping itself is a later slice: the placer raises when the
-solver needs one.
+exists (orion_tpu reads its TPU fit, `latency_tpu.json`, when present).
+The placer attaches a `Bootstrap` module after each layer the solver
+flags.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..nn.linear import LinearTransform
+from ..nn.operations import Bootstrap
 
 INF = float("inf")
 
@@ -319,8 +321,7 @@ def _minplus(A: np.ndarray, B: np.ndarray) -> np.ndarray:
 
 
 class BootstrapPlacer:
-    """Attach Bootstrap modules after the flagged layers.  The port has no
-    bootstrapping yet: a network that needs one is refused here."""
+    """Attach Bootstrap modules after the flagged layers."""
 
     def __init__(self, net, dag, solver: BootstrapSolver):
         self.net = net
@@ -328,9 +329,10 @@ class BootstrapPlacer:
         self.solver = solver
 
     def place_bootstraps(self):
-        if self.solver.bootstraps:
-            names = [name for name, _ in self.solver.bootstraps]
-            raise NotImplementedError(
-                f"this network needs {len(names)} bootstrap(s) (after "
-                f"{names}); bootstrapping is not ported yet: lengthen the "
-                "LogQ chain so the network fits without one")
+        for name, level_in in self.solver.bootstraps:
+            module = self.dag.nodes[name]["module"]
+            stats = self.dag.nodes[name]["stats"]
+            btp = Bootstrap(stats.output_min, stats.output_max, level_in)
+            btp.fhe_input_shape = stats.fhe_output_shape
+            btp.fit()
+            module.post_bootstrap = btp

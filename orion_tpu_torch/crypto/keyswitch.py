@@ -230,10 +230,22 @@ def ring_intt(a, rr: RingRows):
 #  Key switching                                                     #
 # ------------------------------------------------------------------ #
 
-def keyswitch(c_ntt, dl: DevLevel, ksk_data, ksk_shoup):
-    """Switch poly c (level+1, N, NTT domain) with a hybrid KSK: the
-    ks_decompose and ks_finish kernels back to back on a CUDA tensor."""
-    return ks_finish(ks_decompose(c_ntt, dl), dl, ksk_data, ksk_shoup)
+def keyswitch(c_ntt, dl: DevLevel, ksk_data, ksk_shoup, raw=False):
+    """Switch poly c (level+1, N, NTT domain), or a batch (..., level+1,
+    N), with one hybrid KSK: the ks_decompose and ks_finish kernels back
+    to back on a CUDA tensor, one launch pair for the whole batch (the key
+    as a pack of one, read by every item).  With raw the inner product is
+    returned in the extended basis, before ModDown (ks_finish_raw)."""
+    finish = ks_finish_raw if raw else ks_finish
+    if c_ntt.dim() == 2:
+        return finish(ks_decompose(c_ntt, dl), dl, ksk_data, ksk_shoup)
+    lead = tuple(c_ntt.shape[:-2])
+    ext = ks_decompose(c_ntt.reshape((-1,) + tuple(c_ntt.shape[-2:])), dl)
+    idx = torch.zeros(ext.shape[0], dtype=torch.long, device=ext.device)
+    out = finish(ext, dl, ksk_data[None],
+                 None if ksk_shoup is None else ksk_shoup[None],
+                 key_index=idx)
+    return out.reshape(lead + tuple(out.shape[-3:]))
 
 
 def mod_drop_rescale(acc, dl: DevLevel):

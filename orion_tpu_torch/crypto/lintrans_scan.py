@@ -50,7 +50,7 @@ class KeyPack:
     amounts: tuple
     perms: torch.Tensor            # (n, N) long: forward permutation tau_b
     ksk: torch.Tensor              # (n, dnum, 2, rows, N), tau_b^-1-applied
-    ksk_shoup: torch.Tensor
+    ksk_shoup: torch.Tensor | None  # None: lean keys (Montgomery lift)
     level: int | None = None       # if set, ksk is trimmed to this level
     cache_key: tuple = None
     index: dict = field(default_factory=dict)  # device index tensors
@@ -77,8 +77,11 @@ def build_key_pack(ev: Evaluator, amounts, level: int | None = None) -> KeyPack:
 
     With `level` given, keys are TRIMMED to that level's digit count and
     prime rows: (dnum_l, 2, level+1+n_sp, N) instead of the full chain.
-    Keys keep their Shoup companions: the port runs no bootstrapped chain
-    yet, where orion_tpu drops them (lean keys).
+    With ev.lean_keys (bootstrapped configs) the Shoup companions are
+    dropped, as orion_tpu does: ks_finish lifts the keys through a
+    Montgomery product instead, half the pack's memory.  A trimmed pack is
+    read in place through the level's trimmed row map (row r of the pack
+    is extended row r), a full-chain one through the global prime rows.
     """
     amounts = tuple(sorted(set(int(a) % ev.ctx.slots for a in amounts)
                            - {0}))
@@ -87,6 +90,7 @@ def build_key_pack(ev: Evaluator, amounts, level: int | None = None) -> KeyPack:
         return ev._key_packs[key]
     ctx = ev.ctx
     dev = ctx.device
+    lean = ev.lean_keys
     if level is not None:
         dl = dev_level(ctx, level)
         dnum_l = len(dl.digits)
@@ -104,12 +108,13 @@ def build_key_pack(ev: Evaluator, amounts, level: int | None = None) -> KeyPack:
             kd = kd[:dnum_l][:, :, rows]
             ksd = ksd[:dnum_l][:, :, rows]
         ks.append(kd[..., inv_perm])
-        kss.append(ksd[..., inv_perm])
+        if not lean:
+            kss.append(ksd[..., inv_perm])
     pack = KeyPack(
         amounts=amounts,
         perms=placement.buffer(np.stack(perms), dev),
         ksk=torch.stack(ks),
-        ksk_shoup=torch.stack(kss),
+        ksk_shoup=None if lean else torch.stack(kss),
         level=level,
         cache_key=key,
     )

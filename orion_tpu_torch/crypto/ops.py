@@ -13,6 +13,12 @@ The port runs eagerly: each method is a sequence of torch ops and kernel
 launches on the ciphertext's device.  `mul_relin` takes orion_tpu's
 default fused ModDown+rescale epilogue, and its two-step branch where the
 fused tables do not exist (level 0) or no rescale is asked for.
+
+Batches: a ciphertext's data may carry leading batch axes, (..., 2, L, N):
+B ciphertexts that share a level and a scale go through every method as
+one, each key-switch kernel launched once over the batch.  orion_tpu maps
+its circuit over such ciphertexts one at a time (`lax.map`); modular
+arithmetic is exact, so the residues agree item for item.
 """
 
 from __future__ import annotations
@@ -23,8 +29,8 @@ import torch
 from .ciphertext import Ciphertext, Plaintext
 from .context import CKKSContext
 from .keys import KeyChest
-from .keyswitch import (DevLevel, dev_level, keyswitch, ks_decompose,
-                        ks_finish_raw, mod_drop_rescale, rescale_poly)
+from .keyswitch import (DevLevel, dev_level, keyswitch, mod_drop_rescale,
+                        rescale_poly)
 from .modops import add_mod, mont_mul, neg_mod, sub_mod, to_mont
 
 
@@ -33,6 +39,8 @@ class Evaluator:
         self.ctx = ctx
         self.keys = keys
         self._key_packs: dict = {}   # lintrans_scan.build_key_pack cache
+        # key packs without Shoup companions (bootstrapped configs)
+        self.lean_keys = False
 
     # ------------------------- helpers ------------------------- #
 
@@ -50,6 +58,11 @@ class Evaluator:
         if abs(s0 - s1) > 1e-6 * max(abs(s0), abs(s1)):
             raise ValueError(f"scale mismatch in add/sub: {s0} vs {s1}")
 
+    @staticmethod
+    def _polys(data):
+        """(c0, c1) of a ciphertext, batched or not."""
+        return data.select(-3, 0), data.select(-3, 1)
+
     def _const(self, vals) -> torch.Tensor:
         """Per-limb integer constants -> (L, 1) int64 column on device."""
         return self.ctx.to_device(np.asarray(vals, np.int64)[:, None])
@@ -61,7 +74,7 @@ class Evaluator:
             return ct
         if level > ct.level:
             raise ValueError(f"cannot mod-raise {ct.level} -> {level}")
-        return ct.with_(data=ct.data[:, : level + 1].contiguous(),
+        return ct.with_(data=ct.data[..., : level + 1, :].contiguous(),
                         level=level)
 
     def rescale(self, ct: Ciphertext) -> Ciphertext:
@@ -99,21 +112,23 @@ class Evaluator:
     def add_plain(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
         pt = self._pt_at(pt, ct.level)
         self._check_scales(ct.scale, pt.scale)
-        c0 = add_mod(ct.data[0], pt.data, self._qp(ct.level))
-        return ct.with_(data=torch.stack([c0, ct.data[1]]))
+        c0, c1 = self._polys(ct.data)
+        c0 = add_mod(c0, pt.data, self._qp(ct.level))
+        return ct.with_(data=torch.stack([c0, c1], dim=-3))
 
     def sub_plain(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
         pt = self._pt_at(pt, ct.level)
         self._check_scales(ct.scale, pt.scale)
-        c0 = sub_mod(ct.data[0], pt.data, self._qp(ct.level))
-        return ct.with_(data=torch.stack([c0, ct.data[1]]))
+        c0, c1 = self._polys(ct.data)
+        c0 = sub_mod(c0, pt.data, self._qp(ct.level))
+        return ct.with_(data=torch.stack([c0, c1], dim=-3))
 
     def mul_plain(self, ct: Ciphertext, pt: Plaintext,
                   rescale: bool = True) -> Ciphertext:
         # Shoup (pt.shoup present) and Montgomery products both give the
         # exact residue: one plain product serves both
         pt = self._pt_at(pt, ct.level)
-        data = ct.data * pt.data[None] % self._qp(ct.level)
+        data = ct.data * pt.data % self._qp(ct.level)
         out = Ciphertext(data, ct.level, ct.scale * pt.scale)
         return self.rescale(out) if rescale else out
 
@@ -126,8 +141,9 @@ class Evaluator:
 
     def add_scalar(self, ct: Ciphertext, scalar: float) -> Ciphertext:
         const = self._scalar_pt(scalar, ct.scale, ct.level)
-        c0 = add_mod(ct.data[0], const, self._qp(ct.level))
-        return ct.with_(data=torch.stack([c0, ct.data[1]]))
+        c0, c1 = self._polys(ct.data)
+        c0 = add_mod(c0, const, self._qp(ct.level))
+        return ct.with_(data=torch.stack([c0, c1], dim=-3))
 
     def sub_scalar(self, ct: Ciphertext, scalar: float) -> Ciphertext:
         return self.add_scalar(ct, -scalar)
@@ -145,6 +161,15 @@ class Evaluator:
         ql = self.ctx.q_primes[ct.level]
         data = self._mul_const(ct, int(round(scalar * ql)))
         return self.rescale(Ciphertext(data, ct.level, ct.scale * ql))
+
+    def mul_scalar_at(self, ct: Ciphertext, scalar: float, enc_scale: float,
+                      rescale: bool = True) -> Ciphertext:
+        """Multiply by a scalar encoded at an explicit scale (polyeval's
+        per-term scale targeting).  Result scale = ct.scale*enc_scale
+        [/q_l]."""
+        data = self._mul_const(ct, int(round(scalar * enc_scale)))
+        out = Ciphertext(data, ct.level, ct.scale * enc_scale)
+        return self.rescale(out) if rescale else out
 
     def set_scale(self, ct: Ciphertext, scale: float) -> Ciphertext:
         """Metadata-only scale override (reference Quad `out.set_scale`)."""
@@ -178,28 +203,31 @@ class Evaluator:
         qp = dl.q.p[:, None]
         pinv = dl.q_pinv[:, None]
         rm, rs = dl.q_rmod[:, None], dl.q_rshoup[:, None]
-        m10 = to_mont(ct1.data[0], rm, rs, qp)
-        m11 = to_mont(ct1.data[1], rm, rs, qp)
-        d0 = mont_mul(ct0.data[0], m10, qp, pinv)
-        d1 = add_mod(mont_mul(ct0.data[0], m11, qp, pinv),
-                     mont_mul(ct0.data[1], m10, qp, pinv), qp)
-        d2 = mont_mul(ct0.data[1], m11, qp, pinv)
+        a0, a1 = self._polys(ct0.data)
+        b0, b1 = self._polys(ct1.data)
+        m10 = to_mont(b0, rm, rs, qp)
+        m11 = to_mont(b1, rm, rs, qp)
+        d0 = mont_mul(a0, m10, qp, pinv)
+        d1 = add_mod(mont_mul(a0, m11, qp, pinv),
+                     mont_mul(a1, m10, qp, pinv), qp)
+        d2 = mont_mul(a1, m11, qp, pinv)
         rlk = self.keys.relin_key
         if rescale and dl.dropdown is not None:
             # fused epilogue: accumulate the relin inner product in the
             # extended basis, fold the ciphertext part in as P*d, divide
             # by P*q_l in ONE basis conversion (mod_drop_rescale)
-            ext = ks_decompose(d2, dl)
-            acc = ks_finish_raw(ext, dl, rlk.data, rlk.shoup)
-            pd = torch.stack([d0, d1]) * dl.p_mod_q % qp
-            accq = add_mod(acc[:, : lvl + 1], pd, qp)
-            acc = torch.cat([accq, acc[:, lvl + 1:]], dim=1)
+            acc = keyswitch(d2, dl, rlk.data, rlk.shoup, raw=True)
+            pd = torch.stack([d0, d1], dim=-3) * dl.p_mod_q % qp
+            accq = add_mod(acc[..., : lvl + 1, :], pd, qp)
+            acc = torch.cat([accq, acc[..., lvl + 1:, :]], dim=-2)
             data = mod_drop_rescale(acc, dl)
             return Ciphertext(data, lvl - 1,
                               ct0.scale * ct1.scale
                               / self.ctx.q_primes[lvl])
         ks = keyswitch(d2, dl, rlk.data, rlk.shoup)
-        data = torch.stack([add_mod(d0, ks[0], qp), add_mod(d1, ks[1], qp)])
+        k0, k1 = self._polys(ks)
+        data = torch.stack([add_mod(d0, k0, qp), add_mod(d1, k1, qp)],
+                           dim=-3)
         out = Ciphertext(data, lvl, ct0.scale * ct1.scale)
         return self.rescale(out) if rescale else out
 
@@ -213,11 +241,11 @@ class Evaluator:
                                dtype=torch.long, device=ct.data.device)
         dl = self._dl(ct.level)
         qp = dl.q.p[:, None]
-        c0p = ct.data[0][..., perm]
-        c1p = ct.data[1][..., perm]
+        c0, c1 = self._polys(ct.data)
+        c0p, c1p = c0[..., perm], c1[..., perm]
         gk = self.keys.galois_key(k)
-        ks = keyswitch(c1p, dl, gk.data, gk.shoup)
-        data = torch.stack([add_mod(c0p, ks[0], qp), ks[1]])
+        k0, k1 = self._polys(keyswitch(c1p, dl, gk.data, gk.shoup))
+        data = torch.stack([add_mod(c0p, k0, qp), k1], dim=-3)
         return ct.with_(data=data)
 
     def rotate(self, ct: Ciphertext, amount: int) -> Ciphertext:

@@ -4,8 +4,14 @@ import torch
 from .lenet import LeNet
 from .lola import LoLA
 from .mlp import MLP
+from .resnet import (ResNet, ResNet18, ResNet20, ResNet32, ResNet34,
+                     ResNet44, ResNet50, ResNet56, ResNet101, ResNet110,
+                     ResNet152, ResNet1202)
 
-__all__ = ["LeNet", "LoLA", "MLP", "load_jax_params"]
+__all__ = ["LeNet", "LoLA", "MLP", "ResNet", "ResNet18", "ResNet20",
+           "ResNet32", "ResNet34", "ResNet44", "ResNet50", "ResNet56",
+           "ResNet101", "ResNet110", "ResNet152", "ResNet1202",
+           "load_jax_params"]
 
 
 def load_jax_params(net: torch.nn.Module, params: dict) -> None:

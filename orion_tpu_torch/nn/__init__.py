@@ -1,10 +1,18 @@
-from .module import Module
+from .module import Module, Sequential, ModuleList
 from .linear import Conv2d, Linear, LinearTransform
-from .activation import Quad
+from .activation import (Activation, Quad, Chebyshev, ELU, Hardshrink, GELU,
+                         SiLU, Sigmoid, SELU, Softplus, Mish, ReLU, _Sign)
 from .normalization import BatchNormNd, BatchNorm1d, BatchNorm2d
-from .reshape import Flatten
+from .pooling import AvgPool2d, AdaptiveAvgPool2d
+from .operations import Add, Mult, Bootstrap
+from .reshape import Flatten, Identity
 
 __all__ = [
-    "Module", "Linear", "LinearTransform", "Conv2d",
-    "Quad", "BatchNormNd", "BatchNorm1d", "BatchNorm2d", "Flatten",
+    "Module", "Sequential", "ModuleList",
+    "Linear", "LinearTransform", "Conv2d",
+    "Activation", "Quad", "Chebyshev", "ELU", "Hardshrink", "GELU", "SiLU",
+    "Sigmoid", "SELU", "Softplus", "Mish", "ReLU",
+    "BatchNormNd", "BatchNorm1d", "BatchNorm2d",
+    "AvgPool2d", "AdaptiveAvgPool2d",
+    "Add", "Mult", "Bootstrap", "Flatten", "Identity",
 ]

@@ -8,9 +8,12 @@ and `load_state_dict` work as usual; `models.load_jax_params` fills them
 from a numpy dict.
 
 `__call__` is orion's, not torch's: under the compiler's tracer a leaf
-call becomes a DAG node, and in he mode ciphertext inputs are first
-dropped to the solver-assigned level.  `compile()` is the FHE compile of
-the module (it replaces torch.nn.Module.compile).
+call becomes a DAG node, in he mode ciphertext inputs are first dropped
+to the solver-assigned level, and a bootstrap the placer attached
+(`post_bootstrap`) runs after the module's forward.  `compile()` is the
+FHE compile of the module (it replaces torch.nn.Module.compile).
+`Sequential` and `ModuleList` are orion's containers (never leaves, so an
+empty `Sequential` is an identity shortcut of a residual block).
 """
 
 from __future__ import annotations
@@ -50,7 +53,11 @@ class Module(torch.nn.Module):
         self.name = None
 
     def is_leaf(self) -> bool:
-        return not self._modules
+        if isinstance(self, (Sequential, ModuleList)):
+            return False
+        # an auto-placed Bootstrap registers as a child but runs after the
+        # module, outside its forward: it does not demote its host
+        return not any(k != "post_bootstrap" for k in self._modules)
 
     # ----------------- scheme / modes ----------------- #
 
@@ -105,12 +112,62 @@ class Module(torch.nn.Module):
                                                                None))
                 and a.level() > self.level else a
                 for a in args)
-        return self.forward(*args)
+        out = self.forward(*args)
+        pb = self._modules.get("post_bootstrap")
+        if pb is not None and self.he_mode:
+            out = pb(out)
+        return out
 
     def __repr__(self):
         inner = ", ".join(self._modules)
         return (f"{type(self).__name__}(level={self.level}"
                 f"{', ' + inner if inner else ''})")
+
+
+class Sequential(Module):
+    """Container executing submodules in order."""
+
+    def __init__(self, *mods):
+        super().__init__()
+        for i, m in enumerate(mods):
+            self.add_module(str(i), m)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, idx):
+        return list(self._modules.values())[idx]
+
+    def forward(self, x):
+        for m in self._modules.values():
+            x = m(x)
+        return x
+
+
+class ModuleList(Module):
+    def __init__(self, mods=()):
+        super().__init__()
+        for i, m in enumerate(mods):
+            self.add_module(str(i), m)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, idx):
+        return list(self._modules.values())[idx]
+
+    def append(self, m):
+        self.add_module(str(len(self._modules)), m)
+        return self
+
+    def forward(self, *x):
+        raise RuntimeError("ModuleList is not callable")
 
 
 def timer(func):

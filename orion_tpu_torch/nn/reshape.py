@@ -1,5 +1,6 @@
 """Reshape modules.  Counterpart of `orion_tpu/nn/reshape.py`: Flatten is
-the identity under FHE because packing already flattens."""
+the identity under FHE because packing already flattens; Identity passes
+its input through (ResNet's optional pool slot)."""
 
 from __future__ import annotations
 
@@ -16,3 +17,12 @@ class Flatten(Module):
             return x
         x = to_tensor(x)
         return x.reshape(x.shape[0], -1)
+
+
+class Identity(Module):
+    def __init__(self):
+        super().__init__()
+        self.set_depth(0)
+
+    def forward(self, x):
+        return x

@@ -5,8 +5,15 @@ Counterpart of `orion_tpu/runtime/config.py`: the same YAML schema
 `configs/`, accepted unchanged (`backend: tpu` included: there is one
 backend per package).  Moduli wider than 30 bits are split into several
 <=30-bit primes; the extra limbs of a split q_0 become a `base_level` floor
-below which ciphertexts never rescale.  `boot_params` and the
-ConjugateInvariant ring are refused until their slices are ported.
+below which ciphertexts never rescale.  `boot_params` appends the
+bootstrap circuit's primes above the user chain and its `LogP` joins the
+special primes, as orion_tpu does.
+
+`io_mode`: `none` and `stream` are accepted.  orion_tpu's stream mode
+spills compiled buffers to host memory between modules (made for a 16 GiB
+TPU); the port keeps every buffer on the card in both modes and says so
+once at `init_scheme`.  The ConjugateInvariant ring and the key/diagonal
+I/O modes (`save`, `load`) are refused until their slices are ported.
 """
 
 from __future__ import annotations
@@ -34,6 +41,9 @@ class Params:
     logscale: int = 26
     h: int = 8192
     ring_type: str = "standard"
+    # boot params
+    boot_logp: list = field(default_factory=list)
+    boot: dict = field(default_factory=dict)  # circuit knobs (or {} = none)
     # orion params
     margin: float = 2.0
     embedding_method: str = "hybrid"
@@ -63,6 +73,10 @@ class Params:
     def max_level(self):
         return len(self.split_logq) - 1
 
+    @property
+    def default_scale(self):
+        return float(1 << self.logscale)
+
 
 def parse_config(config: dict) -> Params:
     ckks = config.get("ckks_params", {})
@@ -81,9 +95,28 @@ def parse_config(config: dict) -> Params:
             "RingType ConjugateInvariant is not ported yet; use Standard")
     if ring != "standard":
         raise ValueError(f"unknown RingType {ring!r}")
+    p.boot_logp = list(boot.get("LogP", []))
     if boot:
-        raise NotImplementedError(
-            "boot_params: bootstrapping is not ported yet")
+        from ..crypto.polyeval import hi_scale_depth
+        mod_degree = int(boot.get("ModDegree", 255))
+        # circuit primes are full-width 30-bit by default: EvalMod runs at
+        # W = 2^60, which keeps the key-switch noise amplified by the
+        # beta-folded coefficients (crypto/bootstrap.py) below the noise
+        # floor even for a wide (split) q0
+        circuit_logq = min(30, int(boot.get("CircuitLogQ", 30)))
+        # StC sheds the W -> Delta boost through its stage pt scales; cap
+        # the per-stage shed at ~9 bits (one more circuit prime each)
+        shed_bits = 2 * circuit_logq - p.logscale
+        min_stc = max(1, math.ceil(shed_bits / 9))
+        p.boot = {
+            "CtSLevels": int(boot.get("CtSLevels", 3)),
+            "StCLevels": max(int(boot.get("StCLevels", 3)), min_stc),
+            "ModDegree": mod_degree,
+            "K": int(boot.get("K", 16)),
+            "MsgRatio": int(boot.get("MsgRatio", 256)),
+            "ModDepth": hi_scale_depth(mod_degree),
+            "CircuitLogQ": circuit_logq,
+        }
 
     p.margin = float(orion_cfg.get("margin", p.margin))
     p.embedding_method = str(
@@ -92,7 +125,7 @@ def parse_config(config: dict) -> Params:
     p.fuse_modules = bool(orion_cfg.get("fuse_modules", True))
     p.debug = bool(orion_cfg.get("debug", False))
     p.io_mode = str(orion_cfg.get("io_mode", "none"))
-    if p.io_mode != "none":
+    if p.io_mode not in ("none", "stream"):
         raise NotImplementedError(
             f"io_mode {p.io_mode!r}: key/diagonal I/O is not ported yet")
     p.seed = int(orion_cfg.get("seed", 0))
@@ -111,8 +144,17 @@ def parse_config(config: dict) -> Params:
     p.split_logq = q0_parts + rest
     p.base_level = len(q0_parts) - 1
 
+    # bootstrap circuit primes live ABOVE the user chain so a bootstrap
+    # refreshes back to the top of LogQ
+    if p.boot:
+        n_circuit = (p.boot["CtSLevels"] + p.boot["StCLevels"]
+                     + p.boot["ModDepth"] + 2)
+        p.split_logq = p.split_logq + [p.boot["CircuitLogQ"]] * n_circuit
+
+    # `boot_params: LogP` extends the special primes (the hybrid
+    # key-switch basis), as in orion_tpu
     split_logp = []
-    for b in p.logp:
+    for b in p.logp + p.boot_logp:
         split_logp.extend(split_modulus(b))
     p.logp = split_logp
     return p

@@ -27,7 +27,9 @@ from ..compiler.dag import NetworkDAG
 from ..compiler.fuser import Fuser
 from ..compiler.level_dag import BootstrapSolver, BootstrapPlacer
 from .config import Params, parse_config
-from .services import EncoderService, EncryptorService, LTEvaluatorService
+from .services import (BootstrapperService, EncoderService,
+                       EncryptorService, LTEvaluatorService,
+                       PolyEvaluatorService)
 
 
 class Scheme:
@@ -54,11 +56,21 @@ class Scheme:
         self.enc = Encoder(self.ctx)
         self.keys = KeyChest(self.ctx)
         self.evaluator = Evaluator(self.ctx, self.keys)
+        # deep bootstrapped chains: halve the key packs' memory (Montgomery
+        # lift in the key inner product instead of stored Shoup companions)
+        self.evaluator.lean_keys = bool(p.boot)
         self.input_level_default = self.ctx.max_level
+        if p.io_mode == "stream":
+            print("[orion_tpu_torch] io_mode stream: every compiled buffer "
+                  f"(keys, diagonals, bootstrap circuits) stays on "
+                  f"{self.ctx.device}; nothing is spilled to host memory",
+                  flush=True)
 
         self.encoder = EncoderService(self)
         self.encryptor = EncryptorService(self)
         self.lt_evaluator = LTEvaluatorService(self)
+        self.poly_evaluator = PolyEvaluatorService(self)
+        self.bootstrapper = BootstrapperService(self)
         return self
 
     def delete_scheme(self):
@@ -148,6 +160,9 @@ class Scheme:
         for module in net.modules():
             if hasattr(module, "init_orion_params"):
                 module.init_orion_params()
+        for module in net.modules():
+            if hasattr(module, "update_params"):
+                module.update_params()
 
         if self.params.fuse_modules:
             Fuser(dag).fuse_modules()
@@ -173,9 +188,11 @@ class Scheme:
         solver = BootstrapSolver(net, dag, l_eff=self.params.l_eff,
                                  slots=self.ctx.slots,
                                  base_level=self.params.base_level)
-        input_level, num_btp, _ = solver.solve()
+        input_level, num_btp, btp_slots = solver.solve()
         print(f"done! [{time.time() - start:.3f} secs.]")
         print(f"network requires {num_btp} bootstrap operation(s)")
+        for slot_count in btp_slots:
+            self.bootstrapper.generate_bootstrapper(slot_count)
         BootstrapPlacer(net, dag, solver).place_bootstraps()
 
         print("\n{5} Compiling network layers...", flush=True)
@@ -186,6 +203,9 @@ class Scheme:
             if isinstance(module, Module):
                 print(f"|-- {node} @ level={module.level}", flush=True)
                 module.compile()
+                pb = getattr(module, "post_bootstrap", None)
+                if pb is not None:
+                    pb.compile()
 
         self._trim_key_memory(net)
         self.input_level = input_level

@@ -1,9 +1,8 @@
-"""Backend service layer: encoder, encryptor and LT evaluator.
+"""Backend service layer: encoder, encryptor, LT evaluator, polynomial
+evaluator and bootstrapper.
 
-Counterpart of `orion_tpu/runtime/services.py` for this slice (the poly
-evaluator and the bootstrapper arrive with their slices).  These wrap the
-crypto layer with multi-ciphertext semantics and compile-time key
-management.
+Counterpart of `orion_tpu/runtime/services.py`.  These wrap the crypto
+layer with multi-ciphertext semantics and compile-time key management.
 """
 
 from __future__ import annotations
@@ -12,8 +11,11 @@ import math
 
 import numpy as np
 
+import torch
+
 from ..crypto import lintrans_scan, placement
 from ..crypto.ciphertext import Ciphertext, Plaintext
+from ..crypto.polyeval import Polynomial, evaluate_polynomial
 from .tensors import CipherTensor, PlainTensor
 
 
@@ -145,3 +147,97 @@ class LTEvaluatorService:
             ev, layer.compiled, in_ctensor.cts, rows)
         return CipherTensor(self.scheme, outs, layer.output_shape,
                             layer.fhe_output_shape)
+
+
+class PolyEvaluatorService:
+    """Polynomial objects, their evaluation over a CipherTensor, and the
+    minimax sign coefficients."""
+
+    def __init__(self, scheme):
+        self.scheme = scheme
+        self._minimax_cache = {}
+
+    def generate_monomial(self, coeffs):
+        return Polynomial(list(coeffs), "monomial")
+
+    def generate_chebyshev(self, coeffs):
+        return Polynomial(list(coeffs), "chebyshev")
+
+    def evaluate_polynomial(self, ctensor: CipherTensor, poly: Polynomial,
+                            output_scale=None) -> CipherTensor:
+        """One circuit over every ciphertext of the tensor: members that
+        share (level, scale) are stacked on a batch axis, so each kernel
+        launch covers them all (orion_tpu maps its circuit over them one
+        at a time with `lax.map`); the results are equal item for item."""
+        ev = self.scheme.evaluator
+        cts = ctensor.cts
+        same_meta = len(cts) > 1 and all(
+            c.level == cts[0].level and c.scale == cts[0].scale
+            for c in cts[1:])
+        if same_meta:
+            stacked = cts[0].with_(data=torch.stack([c.data for c in cts]))
+            out = evaluate_polynomial(ev, stacked, poly, output_scale)
+            outs = [out.with_(data=d) for d in out.data.unbind(0)]
+        else:
+            outs = [evaluate_polynomial(ev, ct, poly, output_scale)
+                    for ct in cts]
+        return CipherTensor(self.scheme, outs, ctensor.shape,
+                            ctensor.on_shape)
+
+    def generate_minimax_sign_coeffs(self, degrees, prec=128, logalpha=6,
+                                     logerr=12):
+        from ..crypto.minimax import generate_minimax_sign_coeffs
+        key = (tuple(degrees), prec, logalpha, logerr)
+        if key not in self._minimax_cache:
+            self._minimax_cache[key] = generate_minimax_sign_coeffs(
+                list(degrees), prec, logalpha, logerr)
+        return self._minimax_cache[key]
+
+
+class BootstrapperService:
+    """Per-slot-count bootstrappers: tensors occupying s < slots get an
+    s-point circuit whose CtS/StC stages are cheaper (sparse
+    bootstrapping)."""
+
+    def __init__(self, scheme):
+        self.scheme = scheme
+        self._by_slots: dict[int, object] = {}
+
+    def _slot_key(self, slot_count) -> int:
+        ctx = self.scheme.ctx
+        p = self.scheme.params
+        if not slot_count:
+            return ctx.slots
+        s = min(int(slot_count), ctx.slots)
+        if p.boot:
+            # the circuit needs >= one butterfly stage per grouped level
+            s = max(s, 1 << max(p.boot["CtSLevels"], p.boot["StCLevels"]))
+        return s
+
+    def _build(self, s: int):
+        from ..crypto.bootstrap import Bootstrapper
+        p = self.scheme.params
+        if not p.boot:
+            raise ValueError(
+                "this network needs bootstrapping: add a `boot_params:` "
+                "section to the config so circuit primes are provisioned")
+        return Bootstrapper(
+            self.scheme,
+            slots=s,
+            cts_levels=p.boot["CtSLevels"],
+            stc_levels=p.boot["StCLevels"],
+            mod_degree=p.boot["ModDegree"],
+            K=p.boot["K"])
+
+    def generate_bootstrapper(self, slot_count):
+        return self.get_for_slots(slot_count)
+
+    def get_for_slots(self, slot_count):
+        """The bootstrapper instance serving a given sparse slot count."""
+        s = self._slot_key(slot_count)
+        if s not in self._by_slots:
+            self._by_slots[s] = self._build(s)
+        return self._by_slots[s]
+
+    def bootstrap(self, ct, slots):
+        return self.get_for_slots(slots).bootstrap(ct, slots)

@@ -2,11 +2,13 @@
 
 Counterpart of `orion_tpu/runtime/tensors.py`: a tensor larger than the
 slot count is a list of ciphertexts; operators map elementwise over the
-list and dispatch on operand type; `roll` rotates every ciphertext.
-Metadata (clear shape, FHE/multiplexed shape) lives on the tensor.
+list and dispatch on operand type; `roll` rotates every ciphertext;
+`bootstrap()` picks the sparse slot count from the FHE shape.  Metadata (clear shape, FHE/multiplexed shape) lives on the tensor.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -126,3 +128,10 @@ class CipherTensor:
 
     def decrypt(self) -> PlainTensor:
         return self.scheme.encryptor.decrypt(self)
+
+    def bootstrap(self):
+        numel = int(np.prod(self.on_shape[1:])) if len(self.on_shape) > 1 \
+            else int(np.prod(self.on_shape))
+        slots = 2 ** math.ceil(math.log2(max(numel, 1)))
+        return self._like([
+            self.scheme.bootstrapper.bootstrap(ct, slots) for ct in self.cts])

@@ -2,7 +2,8 @@
 
 Counterpart of `orion_tpu/utils.py`.  Without network access the MNIST
 loader falls back to deterministic synthetic data with the right shapes
-when no cached dataset is available: statistics fitting and the
+when no cached dataset is available, and the CIFAR loader always gives
+the same synthetic images as orion_tpu's: statistics fitting and the
 FHE-vs-cleartext oracle only need representative ranges, not real labels.
 """
 
@@ -68,5 +69,12 @@ def get_mnist_datasets(data_dir="./data", batch_size=1, n_synth=512):
     else:
         xtr, ytr = _synthetic_images(n_synth, (1, 28, 28), seed=0)
         xte, yte = _synthetic_images(64, (1, 28, 28), seed=1)
+    return (ArrayLoader(xtr, ytr, batch_size),
+            ArrayLoader(xte, yte, batch_size))
+
+
+def get_cifar_datasets(data_dir="./data", batch_size=1, n_synth=512):
+    xtr, ytr = _synthetic_images(n_synth, (3, 32, 32), seed=0)
+    xte, yte = _synthetic_images(64, (3, 32, 32), seed=1)
     return (ArrayLoader(xtr, ytr, batch_size),
             ArrayLoader(xte, yte, batch_size))

@@ -1,0 +1,193 @@
+"""Bootstrapping: the port's homomorphic DFT tables, ModRaise and circuit
+against orion_tpu's.
+
+* `homdft`'s CtS and StC stage matrices and their generalised diagonals
+  (3 groups, n = 128) equal orion_tpu's exactly.
+* `mod_raise` is bit-exact against orion_tpu's, jitted.
+* A full bootstrap with the full-band split-q0 parameters of
+  tests/crypto/test_bootstrap.py (LogN 9, LogQ [55, 26], MsgRatio 512,
+  ModDegree 255) on the port's CPU path decrypts within that test's 1e-4.
+* The bootstrapped ciphertext equals orion_tpu's bit for bit, phase by
+  phase: orion_tpu's whole jitted bootstrap costs more than 60 s to
+  compile on the CPU, so each phase (ModRaise, the CtS chain and the u/v
+  extraction; EvalMod and the recombination; the StC chain) runs as
+  orion_tpu's own jitted phase program (`runtime/jit.PhaseRunner`) on the
+  port's input to that phase, and must give the port's output.  These
+  cases use the same parameters at LogN 8 with ModDegree 15 (EvalMod of
+  depth 8 in hi-scale mode, where 255 would take 17 levels): the
+  bootstrap is then too coarse to decrypt well, but every step of the
+  circuit runs, and the chunked hi-scale evaluation of degree >= 32 is
+  held against orion_tpu in tests/test_torch_polyeval.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import orion_tpu.crypto.homdft as jhomdft
+import orion_tpu_torch.crypto.homdft as thomdft
+from orion_tpu.crypto.ciphertext import Ciphertext as JCt
+from orion_tpu.runtime.jit import enable_module_jit
+from orion_tpu.runtime.scheme import Scheme as JScheme
+from orion_tpu_torch.runtime.scheme import Scheme as TScheme
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's plain path at these sizes is many small torch ops: one
+    intra-op thread runs them as fast alone and does not spin against the
+    other test workers' threads (eight threads each made these tests up
+    to 25x slower in a 3-worker run)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _config(logn, mod_degree):
+    return {
+        "ckks_params": {"LogN": logn, "LogQ": [55, 26], "LogP": [30, 30],
+                        "LogScale": 26, "H": 64, "RingType": "Standard"},
+        "boot_params": {"CtSLevels": 3, "StCLevels": 3,
+                        "ModDegree": mod_degree, "K": 15, "MsgRatio": 512},
+        "orion": {"margin": 2, "backend": "tpu", "fuse_modules": True},
+    }
+
+
+@pytest.mark.parametrize("which", ["cts", "stc"])
+def test_homdft_tables_equal(which):
+    scale = 0.5 if which == "cts" else 1.0
+    want = getattr(jhomdft, f"{which}_matrices")(128, 3, scale)
+    got = getattr(thomdft, f"{which}_matrices")(128, 3, scale)
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        assert np.array_equal(a.toarray(), b.toarray())
+        da, db = thomdft.matrix_diagonals(a), jhomdft.matrix_diagonals(b)
+        assert sorted(da) == sorted(db)
+        for d in da:
+            assert np.array_equal(da[d], db[d])
+
+
+def _to_jax(ct):
+    return JCt(jnp.asarray(ct.data.numpy().astype(np.uint32)), ct.level,
+               ct.scale)
+
+
+def _equal(jct, tct):
+    return ((jct.level, jct.scale) == (tct.level, tct.scale)
+            and np.array_equal(np.asarray(jct.data).astype(np.int64),
+                               tct.data.numpy()))
+
+
+@pytest.fixture(scope="module")
+def phases():
+    """Both packages' bootstrapper on one config and seed, the port's run
+    of one bootstrap recorded phase by phase, and orion_tpu's jitted phase
+    runner."""
+    cfg = _config(8, 15)
+    jsch = JScheme().init_scheme(cfg)
+    tsch = TScheme().init_scheme(cfg, device="cpu")
+    jbtp = jsch.bootstrapper.generate_bootstrapper(jsch.ctx.slots)
+    tbtp = tsch.bootstrapper.generate_bootstrapper(tsch.ctx.slots)
+    enable_module_jit(jsch)
+    x = np.random.default_rng(5).uniform(-1, 1, tsch.ctx.slots)
+    cts = []
+    for sch in (jsch, tsch):
+        pt = sch.encoder.encode(x, level=sch.params.base_level)
+        cts.append(sch.encryptor.encrypt(pt).cts[0])
+    assert np.array_equal(np.asarray(cts[0].data).astype(np.int64),
+                          cts[1].data.numpy())
+    rec = {"in": cts[1]}
+    t = rec["pre"] = tbtp._pre(cts[1])
+    rec["cts"] = []
+    for tr in tbtp.cts_transforms:
+        t = tbtp._one_chain(t, tr)
+        rec["cts"].append(t)
+    rec["u"], rec["v"] = tbtp._extract(t)
+    rec["evalmod"] = []
+    for c in (rec["u"], rec["v"]):
+        rec["evalmod"].append(tbtp._evalmod(c))
+    a0 = rec["recombine"] = tbtp._recombine(*rec["evalmod"])
+    rec["stc"] = []
+    for tr in tbtp.stc_transforms:
+        a0 = tbtp._one_chain(a0, tr)
+        rec["stc"].append(a0)
+    out = tbtp.bootstrap(cts[1])
+    assert torch.equal(out.data, rec["stc"][-1].data)
+    prev = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield jsch, jbtp, tbtp, rec
+    jax.config.update("jax_disable_most_optimizations", prev)
+
+
+def _run(jsch, jbtp, name, fn, *cts):
+    tag = ("btp", jbtp.slots, name)
+    return jsch.phase_runner.run(tag, jbtp._phase_swaps(), fn,
+                                 *[_to_jax(c) for c in cts])
+
+
+def test_mod_raise_equals_orion_tpu(phases):
+    jsch, jbtp, tbtp, rec = phases
+    got = tbtp.mod_raise(rec["in"])
+    want = _run(jsch, jbtp, "raise", jbtp.mod_raise, rec["in"])
+    assert got.level == tbtp.top
+    assert _equal(want, got)
+
+
+def test_fullband_bootstrap_error():
+    """tests/crypto/test_bootstrap.py::test_fullband_bootstrap on the
+    port's CPU path: x in [-1, 1], max error below 1e-4 at the top of the
+    user chain."""
+    sch = TScheme().init_scheme(_config(9, 255), device="cpu")
+    btp = sch.bootstrapper.generate_bootstrapper(sch.ctx.slots)
+    x = np.random.default_rng(23).uniform(-1.0, 1.0, sch.ctx.slots)
+    ct = sch.encryptor.encrypt(
+        sch.encoder.encode(x, level=sch.params.base_level)).cts[0]
+    out = btp.bootstrap(ct)
+    assert out.level == sch.params.base_level + sch.params.l_eff
+    raw = sch.keys.decrypt_rns(out.data.numpy())
+    err = float(np.max(np.abs(sch.enc.decode(raw, out.scale) - x)))
+    assert err < 1e-4, err
+
+
+@pytest.mark.parametrize("phase", ["raise_cts_extract", "evalmod", "stc"])
+def test_bootstrap_phases_equal_orion_tpu(phases, phase):
+    jsch, jbtp, tbtp, rec = phases
+    if phase == "raise_cts_extract":
+        assert _equal(_run(jsch, jbtp, "pre", jbtp._pre, rec["in"]),
+                      rec["pre"])
+        src = [rec["pre"]] + rec["cts"][:-1]
+        for i, (tr, c, want) in enumerate(zip(jbtp.cts_transforms, src,
+                                              rec["cts"])):
+            got = _run(jsch, jbtp, ("cts", i),
+                       lambda c, _tr=tr: jbtp._one_chain(c, _tr), c)
+            assert _equal(got, want), f"CtS stage {i}"
+        u, v = _run(jsch, jbtp, "extract", jbtp._extract, rec["cts"][-1])
+        assert _equal(u, rec["u"]) and _equal(v, rec["v"])
+    elif phase == "evalmod":
+        for c, want in zip((rec["u"], rec["v"]), rec["evalmod"]):
+            assert _equal(_run(jsch, jbtp, "evalmod", jbtp._evalmod, c),
+                          want)
+        got = _run(jsch, jbtp, "recombine", jbtp._recombine,
+                   *rec["evalmod"])
+        assert _equal(got, rec["recombine"])
+    else:
+        src = [rec["recombine"]] + rec["stc"][:-1]
+        for i, (tr, c, want) in enumerate(zip(jbtp.stc_transforms, src,
+                                              rec["stc"])):
+            got = _run(jsch, jbtp, ("stc", i),
+                       lambda c, _tr=tr: jbtp._one_chain(c, _tr), c)
+            assert _equal(got, want), f"StC stage {i}"
+
+
+def test_evalmod_pair_equals_single_calls(phases):
+    """The port's bootstrap evaluates EvalMod once over u and v stacked on
+    a batch axis: item for item the single calls."""
+    _, _, tbtp, rec = phases
+    u, v = rec["u"], rec["v"]
+    pair = tbtp._evalmod(u.with_(data=torch.stack([u.data, v.data])))
+    for i, want in enumerate(rec["evalmod"]):
+        assert (pair.level, pair.scale) == (want.level, want.scale)
+        assert torch.equal(pair.data[i], want.data)

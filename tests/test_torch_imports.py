@@ -20,7 +20,7 @@ import yaml
 
 import orion_tpu_torch
 from orion_tpu_torch.crypto import CKKSContext
-from orion_tpu_torch.crypto.keyswitch import dev_level
+from orion_tpu_torch.crypto.keyswitch import dev_level, keyswitch
 from orion_tpu_torch.crypto.ntt_pallas import PallasNTT
 from orion_tpu_torch.kernels import keyswitch as kks
 from orion_tpu_torch.kernels import ntt as kntt
@@ -107,6 +107,49 @@ def test_wrappers_refuse_other_devices():
         krs.mod_drop_rescale(acc, dl)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         krs.rescale_poly(acc[:, :2], dl)
+
+
+def test_new_paths_refuse_other_devices(monkeypatch):
+    """A bootstrapped config, like the others, runs on `cuda` unless the
+    CPU is asked for.  The batched evaluator (polynomial evaluation over
+    stacked ciphertexts: its key-switch and rescale) and the bootstrap's
+    ModRaise reach the same wrappers: a tensor that is not on the CPU
+    must launch a kernel, here raise."""
+    from orion_tpu_torch.crypto import Evaluator, KeyChest
+    from orion_tpu_torch.crypto.bootstrap import Bootstrapper
+    from orion_tpu_torch.crypto.ciphertext import Ciphertext
+
+    with open(ROOT / "configs" / "resnet.yml") as f:
+        cfg = yaml.safe_load(f)
+    cfg["ckks_params"].update(LogN=8, H=64)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            orion_tpu_torch.init_scheme(cfg)
+    scheme = orion_tpu_torch.init_scheme(cfg, device="cpu")
+    assert scheme.evaluator.lean_keys and scheme.params.boot
+
+    ctx = CKKSContext(logn=8, logq=[29, 26], logp=[29], logscale=26, h=64,
+                      device="cpu")
+    ev = Evaluator(ctx, KeyChest(ctx))
+    meta = torch.empty((3, 2, 2, ctx.n), dtype=torch.int64, device="meta")
+    ct = Ciphertext(meta, 1, ctx.default_scale)
+    rlk = ev.keys.relin_key
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        keyswitch(meta[:, 1], dev_level(ctx, 1), rlk.data, rlk.shoup)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ev.rescale(ct)
+
+    class _Raise:
+        """Only the state mod_raise reads."""
+        scheme = type("S", (), {"params": type("P", (), {
+            "base_level": 0})()})()
+
+    btp = _Raise()
+    btp.ctx, btp.top = ctx, 1
+    btp._raise_digit = None
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        Bootstrapper.mod_raise(btp, Ciphertext(meta[0], 0, 1.0))
 
 
 def test_chip_smoke_fails_without_a_gpu():
