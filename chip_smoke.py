@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printing its own lines; any failure exits non-zero:
+Phases, each printing its own lines; a failure says why on stdout and
+stderr and exits 1:
   1. the card's name and power limit, the kernel build time (every CUDA
      source of the port is compiled here, in parallel), ptxas' registers
      and spills of each kernel at LogN 13 and 14, and the CTAs per row of
@@ -13,9 +14,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      card (N = 8192) at every level of configs/mlp.yml (0-5), of
      configs/lenet.yml (0-7, 4 digits at levels 6-7) and at levels 1-43
      of configs/resnet.yml (44 Q primes, 6 special primes: 50 extended
-     rows and 8 digits at the top), one key-switch per call: the transforms also batched over two polys as rescale_poly
-     gives them, ks_finish with full-chain and trimmed keys, Shoup and
-     lean, ks_finish_raw (no ModDown), the rescale epilogues at every
+     rows and 8 digits at the top), one key-switch per call: the
+     transforms also batched over two polys as rescale_poly gives them,
+     ks_finish with full-chain and trimmed keys, Shoup and lean,
+     ks_finish_raw (no ModDown), the rescale epilogues at every
      level >= 1 (mod_drop_rescale and rescale_poly over one ciphertext and
      over a batch of 2: each of their two launches and the pair), and the
      PallasNTT counterpart (crypto/ntt_pallas.py) over chosen limb rows;
@@ -90,7 +92,10 @@ OP_RATE = 64 * 132 * 1.98e9
 
 
 def fail(msg):
+    """Say why on both streams (a caller that keeps only the end of one
+    still sees it) and exit 1."""
     print(f"chip_smoke: FAILED: {msg}", flush=True)
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -464,16 +469,9 @@ def check_epilogues(cs, dl, krs):
 def device_kernels(fn):
     """Names of the device kernels one call of fn ran, from torch.profiler
     (a first call warms the profiler up and is not recorded)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts,
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
+    prof = profiled(fn, [ProfilerActivity.CPU, ProfilerActivity.CUDA])[0]
     return [e.name for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not e.name.startswith("ProfilerStep")]
@@ -695,8 +693,7 @@ def check_model(cfg, model, title):
                       pr["our_kernels_by_name"].items())
           + "); top: "
           + "; ".join(f"{k} {v:.2f} ms" for k, v in pr["top"]), flush=True)
-    print(f"  port kernels the profile recorded {pr['our_kernels_recorded']}"
-          f", launched {pr['our_kernels_launched']}", flush=True)
+    report_profile(pr)
     if not gpu["mae"] < 0.005:
         fail(f"{model}: MAE {gpu['mae']} >= 0.005")
     idle = [k for k, v in gpu["counts"].items()
@@ -802,6 +799,7 @@ def check_bootstrap(cfg):
           f"(busy share {pr['busy_share']:.3f}), port kernels "
           f"{pr['our_kernels_ms']:.1f} ms; top: "
           + "; ".join(f"{k} {v:.2f} ms" for k, v in pr["top"]), flush=True)
+    report_profile(pr)
     if pr["our_kernels_recorded"] != pr["our_kernels_launched"]:
         fail("bootstrap: the profile lost port kernels")
     idle = [k for k, v in gpu["counts"].items() if v == 0]
@@ -834,40 +832,86 @@ def check_bootstrap(cfg):
 #  Phase 6: ResNet-20 on configs/resnet.yml                          #
 # ------------------------------------------------------------------ #
 
-def profile_device(fn):
-    """Device time of one call of fn by kernel from a CUDA-only profile (a
-    deep forward makes too many host events to keep), after a warm-up
-    call that is not recorded; the port's kernels recorded by name beside
-    those their wrappers launched in the recorded call.  (`device_ms`
-    cannot time a call of thousands of launches: they fill the launch
-    queue behind its sleep kernel.)"""
-    from torch.profiler import ProfilerActivity, profile, schedule
+# the host idles this long on each side of a profiled call: the profiler
+# keeps only the device records that fall inside its window, whose edges
+# it takes on the host's clock, so a kernel that ends just before the
+# window closes could fall outside it once its device timestamp is
+# converted to that clock
+PROFILE_PAD_S = 0.05
+# profiles taken of one call at most, while they lose records
+PROFILE_ATTEMPTS = 2
+
+
+def profiled(fn, activities):
+    """A warm-up call of fn, then one call recorded by torch.profiler with
+    the host idle PROFILE_PAD_S before and after it.  Returns the profile,
+    the recorded call's wall ms (host clock, pads left out), the port's
+    device kernels its wrappers launched, and the host's clock (epoch ns)
+    just after the recording began and just before it ended."""
+    from torch.profiler import profile, schedule
 
     from orion_tpu_torch import kernels
 
-    with profile(activities=[ProfilerActivity.CUDA],
+    with profile(activities=activities,
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
-        for _ in range(2):
+        for step in range(2):
+            if step:
+                opened = time.time_ns()
+                time.sleep(PROFILE_PAD_S)
             kernels.reset_launches()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             launched = launched_grids()
+            if step:
+                time.sleep(PROFILE_PAD_S)
+                closed = time.time_ns()
             prof.step()
-    t0 = time.perf_counter()
-    by_name, seen = {}, dict.fromkeys(OUR_KERNELS, 0)
-    n_kernels = 0
-    for e in prof.events():
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or e.name.startswith("ProfilerStep")):
-            continue
-        n_kernels += 1
-        by_name[e.name] = (by_name.get(e.name, 0.0)
-                           + e.time_range.elapsed_us() / 1e3)
-        for o in OUR_KERNELS:
-            seen[o] += o in e.name
+    return prof, wall_ms, launched, (opened, closed)
+
+
+def profile_device(fn):
+    """Device time of one call of fn by kernel from a CUDA-only profile (a
+    deep forward makes too many host events to keep), after a warm-up
+    call that is not recorded; the port's kernels recorded by name beside
+    those their wrappers launched in the recorded call.  A profile that
+    lost records of the port's kernels is said so and taken again, up to
+    PROFILE_ATTEMPTS profiles; the caller fails unless the last one
+    recorded every launch.  (`device_ms` cannot time a call of thousands of
+    launches: they fill the launch queue behind its sleep kernel.)"""
+    from torch.profiler import ProfilerActivity
+
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        prof, wall_ms, launched, window = profiled(
+            fn, [ProfilerActivity.CUDA])
+        t0 = time.perf_counter()
+        by_name, seen = {}, dict.fromkeys(OUR_KERNELS, 0)
+        n_kernels, span = 0, []
+        for e in prof.events():
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or e.name.startswith("ProfilerStep")):
+                continue
+            n_kernels += 1
+            span.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+            for o in OUR_KERNELS:
+                seen[o] += o in e.name
+        if seen == launched:
+            break
+        print(f"  profile {attempt} of {PROFILE_ATTEMPTS} lost records of "
+              f"the port's kernels: recorded {seen}, launched {launched}",
+              flush=True)
+    # how far the first and last device records (device timestamps as the
+    # profiler converted them, us from its trace start) lie inside the
+    # host's clock readings around the recorded call
+    margin_us = None
+    if span:
+        base_us = prof.profiler.kineto_results.trace_start_ns() / 1e3
+        margin_us = [base_us + min(a for a, _ in span) - window[0] / 1e3,
+                     window[1] / 1e3 - base_us - max(b for _, b in span)]
     dev_ms = sum(by_name.values())
     ours_by = {o: sum(v for k, v in by_name.items() if o in k)
                for o in OUR_KERNELS}
@@ -877,8 +921,19 @@ def profile_device(fn):
                 our_kernels_by_name=ours_by, our_kernels_recorded=seen,
                 our_kernels_launched=launched, device_ops=n_kernels,
                 busy_share=dev_ms / wall_ms if wall_ms else None,
-                top=[(k[:60], v) for k, v in top],
+                top=[(k[:60], v) for k, v in top], profiles=attempt,
+                window_margin_us=margin_us,
                 read_s=time.perf_counter() - t0)
+
+
+def report_profile(pr):
+    m = pr["window_margin_us"]
+    print(f"  port kernels the profile recorded {pr['our_kernels_recorded']}"
+          f", launched {pr['our_kernels_launched']} (profile "
+          f"{pr['profiles']}; "
+          + (f"its first and last device records lie {m[0]:.0f} and "
+             f"{m[1]:.0f} us inside the host's clock around the recorded "
+             f"call)" if m else "no device record)"), flush=True)
 
 
 def check_resnet(cfg, blocks=(3, 3, 3)):
@@ -993,8 +1048,7 @@ def check_resnet(cfg, blocks=(3, 3, 3)):
           + "); top: "
           + "; ".join(f"{k} {v:.1f} ms" for k, v in pr["top"])
           + f" (profile read in {pr['read_s']:.1f} s)", flush=True)
-    print(f"  port kernels the profile recorded {pr['our_kernels_recorded']}"
-          f", launched {pr['our_kernels_launched']}", flush=True)
+    report_profile(pr)
     if not err < 0.005:
         fail(f"{name}: MAE {err} >= 0.005")
     idle = [k for k, v in counts.items() if v == 0]
