@@ -45,23 +45,33 @@ stderr and exits 1:
      from one seed on `cuda` and with device="cpu" (plain path): equal
      output ciphertexts, the decrypted error against the input, the
      key-switches per bootstrap and its time on the card;
-  6. ResNet-20 at full width on configs/resnet.yml through the user entry
-     points on `cuda` (weights from the seeded generator the port shares
-     with orion_tpu, synthetic CIFAR-10 images): fit, compile (host
-     seconds of fit, compile and key generation, rotation keys, key packs
-     and their bytes, the bootstraps placed), a first and a steady
-     forward, MAE vs cleartext < 0.005, device memory after compile and
-     peak, and a profiled forward (device time by kernel, busy share,
-     the port's kernels recorded against those the wrappers launched);
-  7. the key-switch kernels batched as the forwards of phases 3, 4 and 6
-     batch them: ks_decompose over B polys, ks_finish and ks_finish_raw
-     over a pack of K keys (shared ext) and over K paired items, B and K
-     the largest batch of that level in that config's forward (4 where it
-     has none; for ResNet-20 only the levels its forward batches), bit-
-     exact against the plain versions, with ms per launch, per key-switch
-     and the bound per launch; then every kernel once at LogN 14
-     (configs/mlp.yml's chain on a ring of 2^14), the instantiation that
-     needs more than 48 KB of shared memory;
+  6. ResNet-20's widths (16/32/64) at one BasicBlock per stage on
+     configs/resnet.yml through the user entry points on `cuda` (weights
+     from the seeded generator the port shares with orion_tpu, synthetic
+     CIFAR-10 images): fit, compile (host seconds of fit, compile and key
+     generation, rotation keys, key packs and their bytes, the bootstraps
+     placed), the ciphertext bootstraps of a forward by circuit slot
+     count, a first and a steady forward, MAE vs cleartext < 0.005,
+     device memory after compile, at the compile peak and at the forward
+     peak, and a profiled forward (device time by kernel, busy share, the
+     port's kernels recorded against those the wrappers launched);
+     `check_resnet(cfg)` runs the full ResNet-20, which the run's time
+     leaves out;
+  6b. AlexNet at full width on configs/alexnet.yml the same way; a
+     12-ciphertext tensor must be bootstrapped;
+  6c. VGG-11 at full width on configs/vgg.yml the same way, without the
+     profiled forward (the run's time); a bootstrap on the 2048-slot
+     circuit must run;
+  7. the key-switch kernels batched as the forwards of phases 3, 4, 6, 6b
+     and 6c batch them: ks_decompose over B polys, ks_finish and
+     ks_finish_raw over a pack of K keys (shared ext) and over K paired
+     items, B and K the largest batch of that level in that config's
+     forward (4 where it has none; for the bootstrapped nets only the
+     levels their forwards batch, a shape run for one of them not run
+     again), bit-exact against the plain versions, with ms per launch,
+     per key-switch and the bound per launch; then every kernel once at
+     LogN 14 (configs/mlp.yml's chain on a ring of 2^14), the
+     instantiation that needs more than 48 KB of shared memory;
   8. one JSON line per path, one JSON line describing each kernel, the
      card's line, then the result line.
 
@@ -80,9 +90,15 @@ import torch
 import yaml
 
 ROOT = Path(__file__).resolve().parent
-CONFIGS = {"mlp": ROOT / "configs" / "mlp.yml",
-           "lenet": ROOT / "configs" / "lenet.yml",
-           "resnet": ROOT / "configs" / "resnet.yml"}
+CONFIGS = {tag: ROOT / "configs" / f"{tag}.yml"
+           for tag in ("mlp", "lenet", "resnet", "alexnet", "vgg")}
+# the bootstrapped paths: their configs share resnet.yml's ckks and boot
+# parameters, so phase 2's resnet cases hold every kernel at their levels
+BOOTSTRAPPED = ("resnet", "alexnet", "vgg")
+# device memory reckoned on the host before any run on the card
+# (tools/memory_reckon.py, GiB): compile peak, after compile
+RECKONED_GIB = {"ResNet-20": (22.4, 13.8), "AlexNet": (35.9, 23.7),
+                "VGG-11": (40.9, 26.5)}
 MEM_RATE = 3.35e12     # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 # 32-bit integer multiplies (IMAD, IMAD.HI) per second: 64 per clock per SM
 # on compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
@@ -499,14 +515,16 @@ def profile_epilogues(dl, tag, krs):
 
 
 def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
-                  lean=False):
+                  lean=False, done=None):
     """The key-switch kernels over batches (phase 7).  sizes: {kernel:
     {level: {items per launch: launches}}} from a forward; B and K are the
     largest batch of the level, `default` where the forward has none.
     Keys are a random trimmed pack (K, dnum, 2, n_t, N) made on the card,
     with Shoup companions or, with `lean`, without (the Montgomery path
     bootstrapped configs take): the kernels' arithmetic does not depend on
-    the key being a real one."""
+    the key being a real one.  `done`, shared by configs with one chain
+    (the bootstrapped ones), holds the (kernel, level, batch) cases run
+    already: the same shapes are not run twice."""
     from orion_tpu_torch.crypto.keyswitch import dev_level
     from orion_tpu_torch.kernels import keyswitch as kks
 
@@ -519,6 +537,15 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
     def largest(kernel, level):
         return max(sizes.get(kernel, {}).get(level, {default: 0}))
 
+    # the plain versions are timed once, at the config's largest batch
+    timed = {k: max(largest(k, lv) for lv in levels)
+             for k in ("ks_decompose", "ks_finish")}
+
+    def plain_once(kernel, size):
+        if timed.get(kernel) == size:
+            del timed[kernel]
+            return 1
+        return 0
     for level in levels:
         dl = dev_level(ctx, level)
         nl = level + 1
@@ -526,14 +553,26 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
         dnum = len(dl.digits)
         alpha = max(dg.src_hi - dg.src_lo for dg in dl.digits)
         b = largest("ks_decompose", level)
-        c = cs.device_residues((b, nl, n), dl.q.p)
-        cs.case("ks_decompose", level, f"batch B={b} ({b}, {nl}, {n})",
-                lambda: kks.ks_decompose(c, dl),
-                lambda: kks.ks_decompose_plain(c, dl),
-                decompose_batch_work(nl, n_t, dnum, alpha, n, b),
-                iters=20, items=b, plain_iters=0)
-        del c
         k = largest("ks_finish", level)
+        seen = [c for c in (("ks_decompose", level, b),
+                            ("ks_finish", level, k))
+                if done is not None and c in done]
+        if seen:
+            print(f"  {tag:5s} level {level}: {seen} run above, not again",
+                  flush=True)
+        if done is not None:
+            done |= {("ks_decompose", level, b), ("ks_finish", level, k)}
+        if ("ks_decompose", level, b) not in seen:
+            c = cs.device_residues((b, nl, n), dl.q.p)
+            cs.case("ks_decompose", level, f"batch B={b} ({b}, {nl}, {n})",
+                    lambda: kks.ks_decompose(c, dl),
+                    lambda: kks.ks_decompose_plain(c, dl),
+                    decompose_batch_work(nl, n_t, dnum, alpha, n, b),
+                    iters=20, items=b,
+                    plain_iters=plain_once("ks_decompose", b))
+            del c
+        if ("ks_finish", level, k) in seen:
+            continue
         pack = cs.device_residues((k, dnum, 2, n_t, n), dl.t.p)
         pack_sh = None if lean else (pack << 32) // dl.t.p[:, None]
         keys = "lean" if lean else "Shoup"
@@ -541,6 +580,7 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
         extk = cs.device_residues((k, dnum, n_t, n), dl.t.p)
         # key slots out of order, as a transform's giants may have them
         idx = torch.randperm(k, generator=cs.gen, device="cuda")
+        plain_iters = plain_once("ks_finish", k)
         for ext, how in ((ext1, "shared"), (extk, "paired")):
             for fn, plain, raw in ((kks.ks_finish, kks.ks_finish_plain, ""),
                                    (kks.ks_finish_raw, kks.ks_inner,
@@ -552,7 +592,7 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
                         finish_work(nl, n_t, dnum, n, lean, items=k,
                                     paired=how == "paired",
                                     moddown=not raw),
-                        iters=20, items=k, plain_iters=0)
+                        iters=20, items=k, plain_iters=plain_iters)
         del pack, pack_sh, ext1, extk
 
 
@@ -782,7 +822,7 @@ def run_bootstrap(cfg, device, repeats=0):
 def check_bootstrap(cfg):
     print("phase 5: one bootstrap on configs/resnet.yml, device cuda",
           flush=True)
-    gpu = run_bootstrap(cfg, "cuda", repeats=2)
+    gpu = run_bootstrap(cfg, "cuda", repeats=1)
     steady_ms = [t * 1e3 for t in gpu["steady_s"]]
     print(f"  build {gpu['build_s']:.1f} s ({gpu['rotations']} rotation "
           f"keys, {gpu['key_packs']} lean key packs, device memory "
@@ -887,11 +927,29 @@ def profile_device(fn):
         prof, wall_ms, launched, window = profiled(
             fn, [ProfilerActivity.CUDA])
         t0 = time.perf_counter()
+        # device timestamps as the profiler converted them, us from its
+        # trace start, and the host's clock around the recorded call
+        base_us = prof.profiler.kineto_results.trace_start_ns() / 1e3
+        opened_us, closed_us = window[0] / 1e3, window[1] / 1e3
+        half_pad_us = PROFILE_PAD_S * 1e6 / 2
         by_name, seen = {}, dict.fromkeys(OUR_KERNELS, 0)
-        n_kernels, span = 0, []
+        n_kernels, span, outside = 0, [], 0
         for e in prof.events():
             if (e.device_type != torch.autograd.DeviceType.CUDA
                     or e.name.startswith("ProfilerStep")):
+                continue
+            # the recorded call runs PROFILE_PAD_S inside the window, and
+            # the warm-up call ends just before it opens.  Profiles of an
+            # AlexNet forward kept records of the warm-up's last kernels
+            # (once converted to 70 us before the window opened; once 18
+            # key-switches too many inside it), and the converted times of
+            # the recorded call's first kernels lie up to 10 ms early.
+            # Records that start in the first half of the pad or end in
+            # the last half are not the recorded call's.
+            if not (opened_us + half_pad_us <= base_us + e.time_range.start
+                    and base_us + e.time_range.end
+                    <= closed_us - half_pad_us):
+                outside += 1
                 continue
             n_kernels += 1
             span.append((e.time_range.start, e.time_range.end))
@@ -904,14 +962,12 @@ def profile_device(fn):
         print(f"  profile {attempt} of {PROFILE_ATTEMPTS} lost records of "
               f"the port's kernels: recorded {seen}, launched {launched}",
               flush=True)
-    # how far the first and last device records (device timestamps as the
-    # profiler converted them, us from its trace start) lie inside the
-    # host's clock readings around the recorded call
+    # how far the first and last device records lie inside the host's
+    # clock readings around the recorded call
     margin_us = None
     if span:
-        base_us = prof.profiler.kineto_results.trace_start_ns() / 1e3
-        margin_us = [base_us + min(a for a, _ in span) - window[0] / 1e3,
-                     window[1] / 1e3 - base_us - max(b for _, b in span)]
+        margin_us = [base_us + min(a for a, _ in span) - opened_us,
+                     closed_us - base_us - max(b for _, b in span)]
     dev_ms = sum(by_name.values())
     ours_by = {o: sum(v for k, v in by_name.items() if o in k)
                for o in OUR_KERNELS}
@@ -922,7 +978,7 @@ def profile_device(fn):
                 our_kernels_launched=launched, device_ops=n_kernels,
                 busy_share=dev_ms / wall_ms if wall_ms else None,
                 top=[(k[:60], v) for k, v in top], profiles=attempt,
-                window_margin_us=margin_us,
+                window_margin_us=margin_us, records_outside=outside,
                 read_s=time.perf_counter() - t0)
 
 
@@ -933,30 +989,38 @@ def report_profile(pr):
           f"{pr['profiles']}; "
           + (f"its first and last device records lie {m[0]:.0f} and "
              f"{m[1]:.0f} us inside the host's clock around the recorded "
-             f"call)" if m else "no device record)"), flush=True)
+             f"call" if m else "no device record")
+          + f"; {pr['records_outside']} records outside it left out)",
+          flush=True)
 
 
-def check_resnet(cfg, blocks=(3, 3, 3)):
-    """ResNet-20 (or, with blocks (1, 1, 1), the same widths with one
-    block per stage) through the user entry points on cuda."""
+def check_net(cfg, name, title, build, profile=True):
+    """One bootstrapped net through the user entry points on cuda, from a
+    fresh scheme: `build()` makes the net after the weight generator is
+    reset to the seed orion_tpu's examples start from, one synthetic
+    CIFAR-10 image goes through it.  Prints and returns the path's record:
+    host seconds of fit, compile and key generation, rotation keys, key
+    packs and their bytes, the bootstraps placed, the ciphertext
+    bootstraps of one forward by circuit slot count and by tensor, a first
+    and one steady forward, MAE vs cleartext (< 0.005 or the run fails),
+    device memory after compile and the peaks of compile and the forwards,
+    and (with `profile`) a profiled forward that must record every port
+    kernel the wrappers launched."""
     import orion_tpu_torch as orion
     from orion_tpu_torch import kernels
-    from orion_tpu_torch.models import resnet
     from orion_tpu_torch.nn import linear
+    from orion_tpu_torch.runtime.tensors import CipherTensor
     from orion_tpu_torch.utils import get_cifar_datasets, mae
 
-    name = "ResNet-20" if tuple(blocks) == (3, 3, 3) else f"ResNet{blocks}"
-    print(f"phase 6: {name} (widths 16/32/64) on configs/resnet.yml, "
-          f"device cuda", flush=True)
+    print(f"{title}, device cuda", flush=True)
     start_mib = torch.cuda.memory_allocated() / 2 ** 20
     torch.cuda.reset_peak_memory_stats()
     scheme = orion.init_scheme(cfg, device="cuda")
     # the port draws initial weights from one seeded generator, as
     # orion_tpu does: reset it so the net gets the weights a fresh
-    # process builds first (orion_tpu's examples/run_resnet.py)
+    # process builds first (orion_tpu's examples/run_*.py)
     linear._WEIGHT_RNG = np.random.default_rng(2024)
-    net = resnet._make("cifar10", resnet.BasicBlock, list(blocks),
-                       [16, 32, 64])
+    net = build()
     trainloader, testloader = get_cifar_datasets(batch_size=1)
     inp, _ = next(iter(testloader))
     net.eval()
@@ -995,72 +1059,96 @@ def check_resnet(cfg, blocks=(3, 3, 3)):
           f"key generation {keygen['s']:.1f} s ({keygen['n']} rotation "
           f"keys); input level {input_level}; bootstraps placed "
           f"{len(placed)}: {placed}", flush=True)
+    reckoned = (" (reckoned {:.1f} and {:.1f} GiB)".format(*RECKONED_GIB[
+        name]) if name in RECKONED_GIB else "")
     print(f"  key packs {len(scheme.evaluator._key_packs)} (lean {lean}, "
           f"{pack_mib:.0f} MiB), original keys kept {keys_left}; device "
-          f"memory before init {start_mib:.0f} MiB, after compile "
-          f"{dev_mib:.0f} MiB, peak during compile {compile_peak_mib:.0f} "
-          f"MiB", flush=True)
+          f"memory before init {start_mib:.0f} MiB, peak during compile "
+          f"{compile_peak_mib / 1024:.1f} GiB and after compile "
+          f"{dev_mib / 1024:.1f} GiB{reckoned}", flush=True)
     if not lean:
-        fail("resnet: key packs keep Shoup companions under boot_params")
+        fail(f"{name}: key packs keep Shoup companions under boot_params")
 
-    boots = {"n": 0}
-    run_boot = scheme.bootstrapper.bootstrap
+    # ciphertext bootstraps of a forward, by circuit slot count, and the
+    # ciphertexts of each tensor bootstrapped
+    boots = {"slots": {}, "tensors": []}
+    service = scheme.bootstrapper
+    run_boot, tensor_boot = service.bootstrap, CipherTensor.bootstrap
 
     def counted(ct, slots):
-        boots["n"] += 1
+        s = service.get_for_slots(slots).slots
+        boots["slots"][s] = boots["slots"].get(s, 0) + 1
         return run_boot(ct, slots)
 
-    scheme.bootstrapper.bootstrap = counted
-    ct = orion.encrypt(orion.encode(inp, input_level))
-    net.he()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    out = net(ct)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    items = kernels.item_counts()
-    by_level = kernels.launch_counts_by_level()
-    batches = kernels.batch_sizes()
-    ct_boots = boots["n"]
+    def counted_tensor(self):
+        boots["tensors"].append(len(self.cts))
+        return tensor_boot(self)
+
+    service.bootstrap = counted
+    CipherTensor.bootstrap = counted_tensor
+    try:
+        ct = orion.encrypt(orion.encode(inp, input_level))
+        net.he()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = net(ct)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        items = kernels.item_counts()
+        by_level = kernels.launch_counts_by_level()
+        batches = kernels.batch_sizes()
+        ct_boots = dict(sorted(boots["slots"].items()))
+        tensor_boots = list(boots["tensors"])
+    finally:
+        CipherTensor.bootstrap = tensor_boot
     out_fhe = out.decrypt().decode().reshape(-1)[: out_clear.size]
     err = mae(out_clear, out_fhe)
     print(f"  input {len(ct.cts)} ciphertext(s); MAE vs cleartext "
-          f"{err:.3e}; first forward {first_s:.2f} s with {ct_boots} "
-          f"ciphertext bootstraps; launches {counts}; items {items}",
-          flush=True)
+          f"{err:.3e}; first forward {first_s:.2f} s with "
+          f"{sum(ct_boots.values())} ciphertext bootstraps (by circuit "
+          f"slots {ct_boots}; ciphertexts per bootstrapped tensor "
+          f"{tensor_boots}); launches {counts}; items {items}", flush=True)
     t0 = time.perf_counter()
     net(ct)
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t0
-    pr = profile_device(lambda: net(ct))
+    pr = profile_device(lambda: net(ct)) if profile else None
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     print(f"  steady forward {steady_s:.2f} s; peak device memory over the "
           f"forwards {peak_mib:.0f} MiB", flush=True)
-    print(f"  profiled forward: wall {pr['wall_ms']:.0f} ms, device "
-          f"{pr['device_ms']:.1f} ms in {pr['device_ops']} device ops "
-          f"(busy share {pr['busy_share']:.3f}), port kernels "
-          f"{pr['our_kernels_ms']:.1f} ms ("
-          + ", ".join(f"{k} {v:.1f}" for k, v in
-                      pr["our_kernels_by_name"].items())
-          + "); top: "
-          + "; ".join(f"{k} {v:.1f} ms" for k, v in pr["top"])
-          + f" (profile read in {pr['read_s']:.1f} s)", flush=True)
-    report_profile(pr)
+    if pr is None:
+        print("  profiled forward: not taken (the run's time budget)",
+              flush=True)
+    else:
+        print(f"  profiled forward: wall {pr['wall_ms']:.0f} ms, device "
+              f"{pr['device_ms']:.1f} ms in {pr['device_ops']} device ops "
+              f"(busy share {pr['busy_share']:.3f}), port kernels "
+              f"{pr['our_kernels_ms']:.1f} ms ("
+              + ", ".join(f"{k} {v:.1f}" for k, v in
+                          pr["our_kernels_by_name"].items())
+              + "); top: "
+              + "; ".join(f"{k} {v:.1f} ms" for k, v in pr["top"])
+              + f" (profile read in {pr['read_s']:.1f} s)", flush=True)
+        report_profile(pr)
     if not err < 0.005:
         fail(f"{name}: MAE {err} >= 0.005")
     idle = [k for k, v in counts.items() if v == 0]
     if idle:
         fail(f"kernels not launched by the {name} forward: {idle}")
-    if pr["our_kernels_recorded"] != pr["our_kernels_launched"]:
+    if pr is not None and pr["our_kernels_recorded"] != \
+            pr["our_kernels_launched"]:
         fail(f"{name}: the profile lost port kernels, so their device "
              f"time is not measured")
-    rec = {"model": name, "blocks": list(blocks), "mae": err,
+    rec = {"model": name, "mae": err, "input_level": input_level,
            "first_s": first_s, "steady_s": steady_s,
-           "bootstraps_placed": len(placed), "ciphertext_bootstraps":
-           ct_boots, "input_cts": len(ct.cts), "fit_s": fit_s,
+           "bootstraps_placed": len(placed), "placed": placed,
+           "ciphertext_bootstraps": sum(ct_boots.values()),
+           "ciphertext_bootstraps_by_slots": ct_boots,
+           "bootstrapped_tensor_cts": tensor_boots,
+           "input_cts": len(ct.cts), "fit_s": fit_s,
            "compile_s": compile_s, "keygen_s": keygen["s"],
            "rotation_keys": keygen["n"],
            "key_packs": len(scheme.evaluator._key_packs),
@@ -1071,6 +1159,47 @@ def check_resnet(cfg, blocks=(3, 3, 3)):
            "items": items, "launches_by_level": by_level,
            "batches": batches, "profile": pr}
     orion.delete_scheme()
+    return rec
+
+
+def check_resnet(cfg, blocks=(3, 3, 3)):
+    """ResNet-20 (or, with blocks (1, 1, 1), the same widths with one
+    block per stage)."""
+    from orion_tpu_torch.models import resnet
+
+    name = "ResNet-20" if tuple(blocks) == (3, 3, 3) else f"ResNet{blocks}"
+    rec = check_net(
+        cfg, name, f"phase 6: {name} (widths 16/32/64) on configs/resnet.yml",
+        lambda: resnet._make("cifar10", resnet.BasicBlock, list(blocks),
+                             [16, 32, 64]))
+    rec["blocks"] = list(blocks)
+    return rec
+
+
+def check_alexnet(cfg):
+    """AlexNet at full width: its 192-channel 16x16 tensors span 12
+    ciphertexts, and one of them must be bootstrapped."""
+    from orion_tpu_torch.models import AlexNet
+
+    rec = check_net(cfg, "AlexNet", "phase 6b: AlexNet (SiLU(127), "
+                    "1024-4096-4096-10) on configs/alexnet.yml", AlexNet)
+    if 12 not in rec["bootstrapped_tensor_cts"]:
+        fail(f"AlexNet: no 12-ciphertext tensor was bootstrapped "
+             f"({rec['bootstrapped_tensor_cts']})")
+    return rec
+
+
+def check_vgg(cfg, profile):
+    """VGG-11 at full width: its last stage fills half the slots, so a
+    2048-slot bootstrap circuit must run."""
+    from orion_tpu_torch.models import VGG11
+
+    rec = check_net(cfg, "VGG-11", "phase 6c: VGG-11 (minimax ReLU "
+                    "(15, 15, 27)) on configs/vgg.yml", VGG11,
+                    profile=profile)
+    if not rec["ciphertext_bootstraps_by_slots"].get(2048):
+        fail(f"VGG-11: no 2048-slot bootstrap ran "
+             f"({rec['ciphertext_bootstraps_by_slots']})")
     return rec
 
 
@@ -1164,19 +1293,28 @@ def main():
     torch.cuda.empty_cache()
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    paths["resnet"] = check_resnet(cfgs["resnet"])
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"phase 6 done at {time.perf_counter() - t_start:.1f} s",
-          flush=True)
+    # to keep the run within its time: ResNet-20's widths at one block per
+    # stage (phase 2 holds its kernels at every level of resnet.yml), and
+    # no profiled VGG-11 forward
+    for tag, check in (("resnet", lambda cfg: check_resnet(cfg, (1, 1, 1))),
+                       ("alexnet", check_alexnet),
+                       ("vgg", lambda cfg: check_vgg(cfg, profile=False))):
+        paths[tag] = check(cfgs[tag])
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{tag} phase done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
 
     for tag in ("mlp", "lenet"):
         check_batched(make_context(cfgs[tag]), tag, stats,
                       paths[tag]["batches"])
-    rb = paths["resnet"]["batches"]
-    check_batched(make_context(cfgs["resnet"]), "resnet", stats, rb,
-                  levels=sorted({lv for k in ("ks_decompose", "ks_finish")
-                                 for lv in rb.get(k, {})}), lean=True)
+    ctx, done = make_context(cfgs["resnet"]), set()
+    for tag in BOOTSTRAPPED:
+        b = paths[tag]["batches"]
+        check_batched(ctx, tag, stats, b, lean=True, done=done,
+                      levels=sorted({lv for k in ("ks_decompose", "ks_finish")
+                                     for lv in b.get(k, {})}))
+    del ctx
     # LogN 14: one key-switch per call, then a batch of 4, at the top level
     ctx14 = check_kernels(cfgs["mlp"], "mlp14", stats, logn=14, levels=[5])
     check_batched(ctx14, "mlp14", stats, {}, levels=[5])
@@ -1228,17 +1366,22 @@ def main():
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "max_abs_err": max(x["err"] for x in stats[pair]),
                 "bit_exact": all(x["ok"] for x in stats[pair])}
-        # conv2's batch (lenet level 5): the largest launch of the forward
-        batched = [r for r in recs if r["config"] == "lenet"
-                   and r["level"] == 5 and r["items"] > 1]
-        if batched:
-            r = batched[0]
-            line[-1]["batched"] = {
-                "shape": r["label"], "items": r["items"], "ms": r["ms"],
-                "device_ms": r["device_ms"],
-                "ms_per_item": r["ms"] / r["items"],
-                "device_ms_per_item": r["device_ms"] / r["items"],
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+        # conv2's batch (lenet level 5): the largest launch of LeNet's
+        # forward; and the largest of the bootstrapped nets' forwards
+        lenet = [r for r in recs if r["config"] == "lenet"
+                 and r["level"] == 5 and r["items"] > 1]
+        deep = sorted((r for r in recs if r["config"] in BOOTSTRAPPED
+                       and r["items"] > 1), key=lambda r: -r["items"])
+        for key, batched in (("batched", lenet),
+                             ("batched_bootstrapped", deep)):
+            if batched:
+                r = batched[0]
+                line[-1][key] = {
+                    "shape": r["label"], "items": r["items"], "ms": r["ms"],
+                    "device_ms": r["device_ms"],
+                    "ms_per_item": r["ms"] / r["items"],
+                    "device_ms_per_item": r["device_ms"] / r["items"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
     for p, rec in paths.items():
         print(json.dumps({p: rec}), flush=True)
     print(json.dumps({"bootstrap": bootstrap}), flush=True)

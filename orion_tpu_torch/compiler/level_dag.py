@@ -7,11 +7,18 @@ network is decomposed into a series-parallel structure and each unit
 chains compose by (min,+) product and residual branches sum elementwise.
 
 Latency model (node weights): linear transforms cost alpha * n_diags *
-level; a bootstrap after a layer costs t_boot(l_eff) * n_cts.  The port
-uses the reference's CPU-fit constants until a fit measured on the GPU
-exists (orion_tpu reads its TPU fit, `latency_tpu.json`, when present).
-The placer attaches a `Bootstrap` module after each layer the solver
-flags.
+level; a bootstrap after a layer costs t_boot(l_eff) * n_cts.  Only the
+ratio of the two costs moves the plan.  The constants are the fit
+orion_tpu ships and reads (`orion_tpu/compiler/latency_tpu.json`), so
+both packages place the same bootstraps on every bootstrapped config; the
+reference's CPU/Lattigo fit (LT_ALPHA 0.001; 3.41, 0.18, 4.81) gives the
+same plan on ResNet-20 but one bootstrap fewer on AlexNet and VGG-11.  A
+fit measured on the GPU is still to come.  Under this fit a bootstrap is
+cheap enough to pay for itself on LeNet, whose config (lenet.yml)
+provisions none: the solver places bootstraps only where the config has
+`boot_params` (orion_tpu's places one there, which its compile cannot
+build).  The placer attaches a `Bootstrap` module after each layer the
+solver flags.
 """
 
 from __future__ import annotations
@@ -26,9 +33,10 @@ from ..nn.operations import Bootstrap
 
 INF = float("inf")
 
-# the reference's CPU/Lattigo fit
-LT_ALPHA = 0.001
-BOOT_A, BOOT_B, BOOT_C = 3.41, 0.18, 4.81
+# orion_tpu's shipped fit (seconds; used here as a cost ratio only)
+LT_ALPHA = 1.8511309916250306e-05
+BOOT_A, BOOT_B, BOOT_C = (0.006572176342591775, 0.1723636102288953,
+                          0.04123568534851074)
 
 
 def boot_latency(l_eff: int, num_cts: int) -> float:
@@ -53,10 +61,14 @@ class Block:
 class BootstrapSolver:
     """Assigns every module its input level and decides bootstrap points."""
 
-    def __init__(self, net, dag, l_eff: int, slots: int, base_level: int = 0):
+    def __init__(self, net, dag, l_eff: int, slots: int, base_level: int = 0,
+                 bootstrap: bool = True):
         self.net = net
         self.dag = dag
         self.l_eff = l_eff
+        # whether the config provisions bootstrapping (boot_params): without
+        # it no plan may place one, however cheap the fit makes it
+        self.bootstrap = bootstrap
         self.slots = slots
         self.base = base_level      # floor: composite q0 occupies extra limbs
         self.n_levels = l_eff + 1   # usable levels: base..base+l_eff
@@ -148,7 +160,7 @@ class BootstrapSolver:
             # bootstrap after the unit: refresh to the top level.  The
             # Bootstrap module's prescale multiply consumes one level
             # before the refresh, so one spare level is required.
-            if lo_nat >= self.base + 1:
+            if self.bootstrap and lo_nat >= self.base + 1:
                 bw = w + boot_latency(self.l_eff, unit.num_cts)
                 if bw < U[li - self.base, top - self.base]:
                     U[li - self.base, top - self.base] = bw
@@ -222,6 +234,11 @@ class BootstrapSolver:
             li = fixed_in
         if not math.isfinite(float(np.min(M[li - self.base]))):
             deep = self._deepest_unit(chain)
+            if not self.bootstrap:
+                raise ValueError(
+                    "this network needs bootstrapping: add a `boot_params:` "
+                    "section to the config so circuit primes are "
+                    "provisioned")
             raise ValueError(
                 "no feasible level assignment: network cannot run even with "
                 "bootstrapping.  Deepest single unit is "

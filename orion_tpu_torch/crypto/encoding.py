@@ -16,9 +16,16 @@ reference's MAE < 0.005 bound, `tests/models/test_mlp.py:47`).
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 
 from .context import CKKSContext
+
+# encode_batch: vectors per thread's group, and threads
+_ENCODE_GROUP = 16
+_ENCODE_THREADS = min(8, os.cpu_count() or 1)
 
 
 class Encoder:
@@ -131,6 +138,26 @@ class Encoder:
         if scale is None:
             scale = ctx.default_scale
         vecs = np.asarray(vecs)
+        # groups of vectors encode on threads: they share nothing, and
+        # numpy's loops and the native NTT release the GIL (the same bits
+        # as one thread).  The first group runs alone: it builds the
+        # lazily made host tables.
+        groups = [vecs[lo: lo + _ENCODE_GROUP]
+                  for lo in range(0, vecs.shape[0], _ENCODE_GROUP)]
+        parts = [self._encode_group(groups[0], level, scale, with_shoup)]
+        if len(groups) > 1:
+            with ThreadPoolExecutor(_ENCODE_THREADS) as pool:
+                parts += pool.map(
+                    lambda g: self._encode_group(g, level, scale,
+                                                 with_shoup), groups[1:])
+        rns_ntt = np.concatenate([d for d, _ in parts])
+        if not with_shoup:
+            return rns_ntt, float(scale)
+        return rns_ntt, np.concatenate([sh for _, sh in parts]), float(scale)
+
+    def _encode_group(self, vecs, level, scale, with_shoup):
+        """encode_batch of one group: (rns_ntt, shoup or None)."""
+        ctx = self.ctx
         b = vecs.shape[0]
         m, two_m = self.emb_n, 2 * self.emb_n
         # chunked: small batches amortise numpy stage overhead while the
@@ -164,10 +191,8 @@ class Encoder:
                     sh[:, i] = ((rns_ntt[:, i].astype(np.uint64)
                                  << np.uint64(32)) // p).astype(np.uint32)
                 shoups.append(sh)
-        rns_ntt = np.concatenate(datas)
-        if not with_shoup:
-            return rns_ntt, float(scale)
-        return rns_ntt, np.concatenate(shoups), float(scale)
+        return (np.concatenate(datas),
+                np.concatenate(shoups) if with_shoup else None)
 
     def decode(self, rns_ntt: np.ndarray, scale: float,
                num_values: int | None = None) -> np.ndarray:

@@ -1,10 +1,12 @@
-"""Key generation, encryption, decryption (host-side, exact numpy).
+"""Key generation, encryption, decryption (exact integer arithmetic).
 
 Counterpart of `orion_tpu/crypto/keys.py`: the same sampling from the same
 seeded `np.random.Generator` in the same order, so keys and ciphertexts
-equal orion_tpu's bit for bit.  Keys are generated on host with exact int64
-arithmetic and uploaded to the context's device as int64 tensors with
-Shoup companions.
+equal orion_tpu's bit for bit.  Sampling, the error's NTT, encryption and
+decryption run on the host in exact numpy int64; a key-switching key's
+per-prime arithmetic (b = e - a*s, the gadget term, the Shoup companions)
+runs in exact int64 torch ops on the context's device, where the key is
+kept as int64 tensors.
 
 Hybrid key-switching keys use the CRT-indicator gadget (see context.py): the
 key for digit j satisfies  ksk0 + ksk1*s = g_j*s' + e  with
@@ -21,22 +23,19 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from .context import CKKSContext
 
 
 class KeySwitchKey:
-    """Device-resident hybrid KSK: (dnum, 2, n_all, N) int64 + Shoup."""
+    """Device-resident hybrid KSK: (dnum, 2, n_all, N) int64 residues and
+    their Shoup companions floor(v * 2^32 / p), int64 too."""
 
-    def __init__(self, data: np.ndarray, ctx: CKKSContext):
-        from . import placement
-        shoup = np.empty_like(data, dtype=np.uint32)
-        for i, p in enumerate(ctx.primes):
-            p64 = np.uint64(p)
-            v = data[:, :, i, :].astype(np.uint64)
-            shoup[:, :, i, :] = ((v << np.uint64(32)) // p64).astype(np.uint32)
-        self.data = placement.buffer(data, ctx.device)
-        self.shoup = placement.buffer(shoup, ctx.device)
+    def __init__(self, data: torch.Tensor, p: torch.Tensor):
+        self.data = data
+        # v < p < 2^31, so v << 32 fits in int64 and the quotient in 32 bits
+        self.shoup = (data << 32) // p
 
 
 class KeyChest:
@@ -46,6 +45,7 @@ class KeyChest:
         self.rng = np.random.default_rng(
             ctx.seed if seed is None else seed)
         self.sigma = 3.2
+        self._dev = None  # primes, s and P mod q on the device, made once
 
         n, n_all = ctx.n, ctx.n_all
         if secret is not None:
@@ -100,21 +100,27 @@ class KeyChest:
 
     def _gen_ksk(self, s_prime_ntt: np.ndarray) -> KeySwitchKey:
         ctx = self.ctx
-        n_all, n = ctx.n_all, ctx.n
+        n_all = ctx.n_all
         dnum = math.ceil(ctx.n_q / ctx.alpha)
-        out = np.zeros((dnum, 2, n_all, n), dtype=np.int64)
+        a, e = [], []
+        for _ in range(dnum):
+            a.append(self._uniform_ntt(n_all))
+            e.append(ctx.host.ntt(self._lift(self._gauss(), n_all)))
+        dev = ctx.device
+        if self._dev is None:
+            p = torch.as_tensor(ctx.primes[:n_all], device=dev)[:, None]
+            self._dev = (p, torch.as_tensor(self.s_ntt, device=dev),
+                         torch.as_tensor([ctx.P % q for q in ctx.primes],
+                                         device=dev)[:, None])
+        p, s, p_mod = self._dev
+        a = torch.as_tensor(np.stack(a), device=dev)
+        # residues < 2^31: every product below fits in int64
+        b = (torch.as_tensor(np.stack(e), device=dev) - a * s) % p
+        s_prime = torch.as_tensor(s_prime_ntt[:ctx.n_q], device=dev)
         for j in range(dnum):
-            a = self._uniform_ntt(n_all)
-            e = ctx.host.ntt(self._lift(self._gauss(), n_all))
-            digit = range(j * ctx.alpha, min((j + 1) * ctx.alpha, ctx.n_q))
-            for i in range(n_all):
-                p = ctx.primes[i]
-                b = (e[i] - a[i] * self.s_ntt[i]) % p
-                if i in digit:
-                    b = (b + (ctx.P % p) * s_prime_ntt[i]) % p
-                out[j, 0, i] = b
-                out[j, 1, i] = a[i]
-        return KeySwitchKey(out, ctx)
+            d = slice(j * ctx.alpha, min((j + 1) * ctx.alpha, ctx.n_q))
+            b[j, d] = (b[j, d] + p_mod[d] * s_prime[d]) % p[d]
+        return KeySwitchKey(torch.stack([b, a], dim=1), p)
 
     def galois_key(self, k: int) -> KeySwitchKey:
         """KSK from tau_k(s) to s, cached per Galois element."""

@@ -157,6 +157,21 @@ class ScanTransform:
     giant_rows: torch.Tensor  # (n_nonzero,) long: rows of nonzero giants
 
 
+def bsgs_steps(diag_indices, slots, bsgs_ratio=2.0):
+    """The baby-step count n1 of a block and the (giant, baby) step of
+    each of its diagonals idx = g*n1 + b."""
+    n1 = choose_n1(len(diag_indices), slots, bsgs_ratio)
+    return n1, [divmod(int(idx) % slots, n1) for idx in diag_indices]
+
+
+def bsgs_rotations(diag_indices, slots, bsgs_ratio=2.0) -> set:
+    """The rotation amounts a block's BSGS evaluation asks keys for (the
+    transform's nonzero `babies` and `giants`), known before any diagonal
+    is encoded."""
+    n1, steps = bsgs_steps(diag_indices, slots, bsgs_ratio)
+    return {b for _, b in steps if b} | {g * n1 for g, _ in steps if g}
+
+
 def compile_transform_scan(encoder, diagonals, level, slots,
                            bsgs_ratio=2.0, pt_scale=None) -> ScanTransform:
     """Encode the diagonals (pre-rotated for BSGS) at scale q_level, or at
@@ -164,11 +179,10 @@ def compile_transform_scan(encoder, diagonals, level, slots,
     ctx = encoder.ctx
     ql = float(pt_scale) if pt_scale is not None else float(
         ctx.q_primes[level])
-    n1 = choose_n1(len(diagonals), slots, bsgs_ratio)
+    n1, steps = bsgs_steps(diagonals, slots, bsgs_ratio)
 
     entries = []
-    for idx, vec in diagonals.items():
-        g, b = divmod(int(idx) % slots, n1)
+    for (g, b), vec in zip(steps, diagonals.values()):
         v = np.asarray(vec)
         dtype = np.complex128 if np.iscomplexobj(v) else np.float64
         v = v.astype(dtype)

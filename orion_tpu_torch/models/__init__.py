@@ -1,17 +1,21 @@
 import numpy as np
 import torch
 
+from .alexnet import AlexNet
 from .lenet import LeNet
 from .lola import LoLA
 from .mlp import MLP
 from .resnet import (ResNet, ResNet18, ResNet20, ResNet32, ResNet34,
                      ResNet44, ResNet50, ResNet56, ResNet101, ResNet110,
                      ResNet152, ResNet1202)
+from .vgg import VGG, VGG11, VGG13, VGG16, VGG19
+from .yolo import YOLOv1, YOLOv1_ResNet34
 
-__all__ = ["LeNet", "LoLA", "MLP", "ResNet", "ResNet18", "ResNet20",
-           "ResNet32", "ResNet34", "ResNet44", "ResNet50", "ResNet56",
-           "ResNet101", "ResNet110", "ResNet152", "ResNet1202",
-           "load_jax_params"]
+__all__ = ["AlexNet", "LeNet", "LoLA", "MLP", "ResNet", "ResNet18",
+           "ResNet20", "ResNet32", "ResNet34", "ResNet44", "ResNet50",
+           "ResNet56", "ResNet101", "ResNet110", "ResNet152", "ResNet1202",
+           "VGG", "VGG11", "VGG13", "VGG16", "VGG19", "YOLOv1",
+           "YOLOv1_ResNet34", "load_jax_params"]
 
 
 def load_jax_params(net: torch.nn.Module, params: dict) -> None:

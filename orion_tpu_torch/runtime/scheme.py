@@ -74,7 +74,11 @@ class Scheme:
         return self
 
     def delete_scheme(self):
-        self.ctx = None
+        """Drop everything the scheme holds (context, keys, key packs,
+        services and the traced network, whose modules keep their encoded
+        diagonals), so that its device memory can be released."""
+        self.__dict__.clear()
+        Scheme.__init__(self)
 
     # ----------------- user data path ----------------- #
 
@@ -187,12 +191,26 @@ class Scheme:
         start = time.time()
         solver = BootstrapSolver(net, dag, l_eff=self.params.l_eff,
                                  slots=self.ctx.slots,
-                                 base_level=self.params.base_level)
+                                 base_level=self.params.base_level,
+                                 bootstrap=bool(self.params.boot))
         input_level, num_btp, btp_slots = solver.solve()
         print(f"done! [{time.time() - start:.3f} secs.]")
         print(f"network requires {num_btp} bootstrap operation(s)")
+        # the galois elements each linear module will ask keys for, so
+        # that a key is freed as soon as the last module that needs it has
+        # built its packs (not all at the end: the keys of a deep net
+        # would otherwise all sit on the card together)
+        pending = {}
+        for node in topo:
+            module = dag.nodes[node]["module"]
+            if isinstance(module, LinearTransform):
+                pending[node] = {
+                    self.ctx.galois_element(r)
+                    for r in self.lt_evaluator.layer_rotations(module)}
+        keep = self._kept_keys(net)
         for slot_count in btp_slots:
             self.bootstrapper.generate_bootstrapper(slot_count)
+        freed = self._free_packed_keys(keep, pending)
         BootstrapPlacer(net, dag, solver).place_bootstraps()
 
         print("\n{5} Compiling network layers...", flush=True)
@@ -206,32 +224,38 @@ class Scheme:
                 pb = getattr(module, "post_bootstrap", None)
                 if pb is not None:
                     pb.compile()
-
-        self._trim_key_memory(net)
+            pending.pop(node, None)
+            freed += self._free_packed_keys(keep, pending)
+        if freed:
+            print(f"|-- freed {freed} original rotation keys "
+                  "(retained in pre-permuted packs)", flush=True)
         self.input_level = input_level
         return input_level
 
-    def _trim_key_memory(self, net):
-        """Free original galois keys whose rotations live on inside
-        pre-permuted KeyPacks.  Kept in original form: conjugation and the
-        hybrid embedding's output rotations (CipherTensor.roll path); any
-        other rotation asked for later is regenerated lazily."""
+    def _kept_keys(self, net):
+        """Galois elements whose keys stay in original form: conjugation
+        and the hybrid embedding's output rotations (CipherTensor.roll
+        path); any other rotation asked for after compile is regenerated
+        lazily."""
         keep = {self.ctx.galois_element_conj()}
         for module in net.modules():
             for i in range(1, getattr(module, "output_rotations", 0) + 1):
                 keep.add(self.ctx.galois_element(self.ctx.slots // (2 ** i)))
-        packed = set()
-        for pack in self.evaluator._key_packs.values():
-            for a in pack.amounts:
-                packed.add(self.ctx.galois_element(a))
-        dropped = 0
-        for k in list(self.keys.galois_keys):
-            if k in packed and k not in keep:
-                del self.keys.galois_keys[k]
-                dropped += 1
-        if dropped:
-            print(f"|-- freed {dropped} original rotation keys "
-                  "(retained in pre-permuted packs)", flush=True)
+        return keep
+
+    def _free_packed_keys(self, keep, pending):
+        """Free the original galois keys whose rotations live on inside
+        pre-permuted KeyPacks, unless kept or still asked for by a module
+        in `pending` (node -> galois elements).  Returns how many."""
+        needed = keep.union(*pending.values())
+        packed = {self.ctx.galois_element(a)
+                  for pack in self.evaluator._key_packs.values()
+                  for a in pack.amounts}
+        drop = [k for k in self.keys.galois_keys
+                if k in packed and k not in needed]
+        for k in drop:
+            del self.keys.galois_keys[k]
+        return len(drop)
 
     def _check_init(self):
         if self.ctx is None:

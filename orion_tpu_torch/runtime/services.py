@@ -98,20 +98,26 @@ class LTEvaluatorService:
         self.scheme = scheme
         self.generated_rotations: set[int] = set()
 
+    def layer_rotations(self, layer) -> set:
+        """The rotation amounts `generate_transforms` makes keys for:
+        every block's BSGS steps and the hybrid output rotations."""
+        slots = self.scheme.ctx.slots
+        rotations = set()
+        for diags in layer.diagonals.values():
+            rotations |= lintrans_scan.bsgs_rotations(diags, slots,
+                                                      layer.bsgs_ratio)
+        for i in range(1, layer.output_rotations + 1):
+            rotations.add(slots // (2 ** i))
+        return rotations
+
     def generate_transforms(self, layer):
         ctx = self.scheme.ctx
-        level = layer.level
-        compiled = {}
-        rotations = set()
-        for (row, col), diags in layer.diagonals.items():
-            tr = lintrans_scan.compile_transform_scan(
-                self.scheme.enc, diags, level, ctx.slots, layer.bsgs_ratio)
-            compiled[(row, col)] = tr
-            rotations |= set(tr.babies) | set(a for a in tr.giants if a)
-        # hybrid output rotations
-        for i in range(1, layer.output_rotations + 1):
-            rotations.add(ctx.slots // (2 ** i))
-        self.generate_rotation_keys(rotations)
+        compiled = {
+            block: lintrans_scan.compile_transform_scan(
+                self.scheme.enc, diags, layer.level, ctx.slots,
+                layer.bsgs_ratio)
+            for block, diags in layer.diagonals.items()}
+        self.generate_rotation_keys(self.layer_rotations(layer))
         layer.compiled = compiled
         self._prewarm_key_packs(compiled)
         return compiled

@@ -8,7 +8,8 @@ against orion_tpu's.
   tests/crypto/test_bootstrap.py (LogN 9, LogQ [55, 26], MsgRatio 512,
   ModDegree 255) on the port's CPU path decrypts within that test's 1e-4.
 * The bootstrapped ciphertext equals orion_tpu's bit for bit, phase by
-  phase: orion_tpu's whole jitted bootstrap costs more than 60 s to
+  phase, for the full-slot circuit and the sparse one over half the
+  slots: orion_tpu's whole jitted bootstrap costs more than 60 s to
   compile on the CPU, so each phase (ModRaise, the CtS chain and the u/v
   extraction; EvalMod and the recombination; the StC chain) runs as
   orion_tpu's own jitted phase program (`runtime/jit.PhaseRunner`) on the
@@ -81,18 +82,20 @@ def _equal(jct, tct):
                                tct.data.numpy()))
 
 
-@pytest.fixture(scope="module")
-def phases():
-    """Both packages' bootstrapper on one config and seed, the port's run
-    of one bootstrap recorded phase by phase, and orion_tpu's jitted phase
-    runner."""
+def _phases(slots_div):
+    """Both packages' bootstrapper for ctx.slots // slots_div slots on one
+    config and seed, the port's run of one bootstrap recorded phase by
+    phase, and orion_tpu's jitted phase runner."""
     cfg = _config(8, 15)
     jsch = JScheme().init_scheme(cfg)
     tsch = TScheme().init_scheme(cfg, device="cpu")
-    jbtp = jsch.bootstrapper.generate_bootstrapper(jsch.ctx.slots)
-    tbtp = tsch.bootstrapper.generate_bootstrapper(tsch.ctx.slots)
+    slots = tsch.ctx.slots // slots_div
+    jbtp = jsch.bootstrapper.generate_bootstrapper(slots)
+    tbtp = tsch.bootstrapper.generate_bootstrapper(slots)
+    assert tbtp.slots == jbtp.slots == slots
     enable_module_jit(jsch)
-    x = np.random.default_rng(5).uniform(-1, 1, tsch.ctx.slots)
+    x = np.zeros(tsch.ctx.slots)
+    x[:slots] = np.random.default_rng(5).uniform(-1, 1, slots)
     cts = []
     for sch in (jsch, tsch):
         pt = sch.encoder.encode(x, level=sch.params.base_level)
@@ -120,6 +123,20 @@ def phases():
     jax.config.update("jax_disable_most_optimizations", True)
     yield jsch, jbtp, tbtp, rec
     jax.config.update("jax_disable_most_optimizations", prev)
+
+
+@pytest.fixture(scope="module")
+def phases():
+    """The full-slot circuit's phases (see `_phases`)."""
+    yield from _phases(1)
+
+
+@pytest.fixture(scope="module")
+def half_phases():
+    """The sparse circuit over half the slots (VGG-11's last stage on
+    configs/vgg.yml): a subring trace after ModRaise, half-size CtS and
+    StC, the output replicated twice."""
+    yield from _phases(2)
 
 
 def _run(jsch, jbtp, name, fn, *cts):
@@ -152,9 +169,14 @@ def test_fullband_bootstrap_error():
     assert err < 1e-4, err
 
 
-@pytest.mark.parametrize("phase", ["raise_cts_extract", "evalmod", "stc"])
-def test_bootstrap_phases_equal_orion_tpu(phases, phase):
-    jsch, jbtp, tbtp, rec = phases
+@pytest.mark.parametrize("phase,slots", [
+    pytest.param(phase, slots,
+                 id=phase if slots == "full" else f"{phase}-half_slots")
+    for slots in ("full", "half")
+    for phase in ("raise_cts_extract", "evalmod", "stc")])
+def test_bootstrap_phases_equal_orion_tpu(request, phase, slots):
+    jsch, jbtp, tbtp, rec = request.getfixturevalue(
+        "phases" if slots == "full" else "half_phases")
     if phase == "raise_cts_extract":
         assert _equal(_run(jsch, jbtp, "pre", jbtp._pre, rec["in"]),
                       rec["pre"])
@@ -191,3 +213,107 @@ def test_evalmod_pair_equals_single_calls(phases):
     for i, want in enumerate(rec["evalmod"]):
         assert (pair.level, pair.scale) == (want.level, want.scale)
         assert torch.equal(pair.data[i], want.data)
+
+
+def _flow(cfg, net, data):
+    """fit -> compile -> encrypt -> forward -> decrypt on the port's CPU
+    path; returns the net's cleartext and decrypted outputs."""
+    import orion_tpu_torch as torion
+    from orion_tpu_torch.utils import ArrayLoader
+
+    scheme = torion.init_scheme(cfg, device="cpu")
+    inp = data[:1]
+    net.eval()
+    clear = net(inp).numpy().reshape(-1)
+    torion.fit(net, ArrayLoader(data, np.zeros(len(data)), batch_size=1))
+    level = torion.compile(net)
+    net.he()
+    out = net(torion.encrypt(torion.encode(inp, level)))
+    return scheme, clear, out.decrypt().decode().reshape(-1)[: clear.size]
+
+
+def test_non_pow2_multict_bootstrap():
+    """tests/models/test_multict_bootstrap.py on the port: a hidden width
+    of 3 * slots makes a 3-ciphertext tensor, whose bootstrap's plaintext
+    grid spans exactly 3 * slots (AlexNet's 12-ciphertext tensors on
+    configs/alexnet.yml take the same path); MAE < 0.005."""
+    import orion_tpu_torch.nn as on
+    from orion_tpu_torch.utils import mae
+
+    cfg = {
+        "ckks_params": {"LogN": 9, "LogQ": [29, 26, 26, 26],
+                        "LogP": [29, 29], "LogScale": 26, "H": 64,
+                        "RingType": "Standard"},
+        "boot_params": {"CtSLevels": 3, "StCLevels": 3, "ModDegree": 255,
+                        "K": 15},
+        "orion": {"margin": 2, "backend": "tpu", "fuse_modules": True,
+                  "io_mode": "stream"},
+    }
+
+    class WideDeep(on.Module):
+        def __init__(self):
+            super().__init__()
+            self.flatten = on.Flatten()
+            self.fc1 = on.Linear(16, 768)
+            self.act1 = on.Quad()
+            self.fc2 = on.Linear(768, 8)
+            self.act2 = on.Quad()
+            self.fc3 = on.Linear(8, 4)
+
+        def forward(self, x):
+            x = self.act1(self.fc1(self.flatten(x)))
+            x = self.act2(self.fc2(x))
+            return self.fc3(x)
+
+    net = WideDeep()
+    data = np.random.default_rng(2).uniform(-1, 1, (16, 16)).astype(
+        np.float32)
+    scheme, clear, fhe = _flow(cfg, net, data)
+    slots = scheme.ctx.slots
+    multict = [m.post_bootstrap for m in net.modules()
+               if getattr(m, "post_bootstrap", None) is not None
+               and int(np.prod(m.post_bootstrap.fhe_input_shape)) > slots]
+    assert multict, "expected a bootstrap on a multi-ciphertext tensor"
+    n_cts = -(-int(np.prod(multict[0].fhe_input_shape)) // slots)
+    assert n_cts == 3
+    assert multict[0].slot_count == n_cts * slots
+    assert mae(clear, fhe) < 0.005
+
+
+def test_post_bootstrap_scale_alignment():
+    """tests/models/test_post_bootstrap_scale.py on the port: a ReLU whose
+    minimax sign chain is deeper than the modulus chain (l_eff 8) gets a
+    bootstrap inside the sign chain, and the refreshed ciphertext runs
+    above the planned levels of the modules after it.  No scale mismatch,
+    MAE < 0.005."""
+    import orion_tpu_torch.nn as on
+    from orion_tpu_torch.utils import mae
+
+    cfg = {
+        "ckks_params": {"LogN": 9, "LogQ": [29] + [26] * 8,
+                        "LogP": [29, 29], "LogScale": 26, "H": 64,
+                        "RingType": "Standard"},
+        "boot_params": {"CtSLevels": 3, "StCLevels": 3, "ModDegree": 255,
+                        "K": 15},
+        "orion": {"margin": 2, "backend": "tpu", "fuse_modules": True,
+                  "io_mode": "stream"},
+    }
+
+    class TinyReLUNet(on.Module):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = on.Linear(16, 16)
+            self.act = on.ReLU()
+            self.fc2 = on.Linear(16, 4)
+
+        def forward(self, x):
+            return self.fc2(self.act(self.fc1(x)))
+
+    net = TinyReLUNet()
+    data = np.random.default_rng(0).uniform(-1, 1, (64, 16)).astype(
+        np.float32)
+    _, clear, fhe = _flow(cfg, net, data)
+    placed = [name for name, m in net.named_modules()
+              if getattr(m, "post_bootstrap", None) is not None]
+    assert any("sign.acts" in name for name in placed), placed
+    assert mae(clear, fhe) < 0.005

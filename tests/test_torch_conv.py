@@ -124,11 +124,15 @@ def test_cleartext_forwards_agree(groups):
                                rtol=0)
 
 
-@pytest.mark.parametrize("name", ["LeNet", "LoLA"])
-def test_models_cleartext_agree(name):
-    """The port's LeNet and LoLA carry orion_tpu's weights (OIHW convs,
-    BatchNorm2d statistics) through load_jax_params and give its
-    cleartext outputs."""
+@pytest.mark.parametrize("name,shape", [
+    pytest.param(name, shape, id=name) for name, shape in (
+        ("LeNet", (1, 28, 28)), ("LoLA", (1, 28, 28)),
+        ("VGG11", (3, 32, 32)), ("AlexNet", (3, 32, 32)))])
+def test_models_cleartext_agree(name, shape):
+    """The port's nets carry orion_tpu's weights (OIHW convs, BatchNorm
+    statistics, under orion_tpu's module paths such as
+    `features.0.conv.0.weight` and `classifier.0.linear.1.running_mean`)
+    through load_jax_params and give its cleartext outputs."""
     import orion_tpu.models as jmodels
     import orion_tpu_torch.models as tmodels
 
@@ -150,7 +154,60 @@ def test_models_cleartext_agree(name):
     tmodels.load_jax_params(tnet, params)
     jnet.eval()
     tnet.eval()
-    x = rng.uniform(0, 1, (2, 1, 28, 28)).astype(np.float32)
+    x = rng.uniform(0, 1, (2,) + shape).astype(np.float32)
     want = np.asarray(jnet(x))
     assert want.shape == (2, 10)
     np.testing.assert_allclose(tnet(x).numpy(), want, atol=1e-5, rtol=0)
+
+
+def test_linear_matrix_from_spatial():
+    """The conv -> linear seam (tests/compiler/test_packing.py): a Linear
+    after a multiplexed 4 x 8 x 8 tensor at gap 2 reads it through the
+    same sparse matrix in both packages, and that matrix applied to the
+    multiplexed vector is W @ x."""
+    from tests.compiler.test_packing import mux_oracle
+
+    rng = np.random.default_rng(3)
+    ci, h, gap, out_f = 4, 8, 2, 10
+    grid = (1, h * gap, h * gap)
+    layer = SimpleNamespace(
+        on_weight=rng.standard_normal((out_f, ci * h * h)),
+        input_shape=(1, ci, h, h), input_gap=gap,
+        fhe_input_shape=(1,) + grid)
+    tmat, jmat = tpack.linear_matrix(layer), jpack.linear_matrix(layer)
+    assert tmat.shape == jmat.shape and (tmat != jmat).nnz == 0
+    x = rng.standard_normal((ci, h, h))
+    np.testing.assert_allclose(tmat @ mux_oracle(x, gap, grid),
+                               layer.on_weight @ x.reshape(-1), atol=1e-10)
+
+
+@pytest.mark.parametrize("shape,slots,method,last", [
+    ((13, 64), 64, "hybrid", False),   # hybrid: short single block row
+    ((13, 64), 64, "hybrid", True),    # last layer: square
+    ((13, 64), 64, "square", False),
+    ((130, 64), 64, "hybrid", False),  # multiple block rows: square
+    ((40, 150), 64, "hybrid", False),  # multiple block cols
+    ((64, 64), 64, "hybrid", False),   # exact fit
+])
+def test_diagonal_reconstruction(shape, slots, method, last):
+    """extract_diagonals (tests/compiler/test_packing.py) gives orion_tpu's
+    blocks, diagonals and output rotations, and they rebuild the matrix
+    product as the encrypted path evaluates it."""
+    import scipy.sparse as sp
+    from tests.compiler.test_packing import _reconstruct
+
+    rng = np.random.default_rng(shape[0] * 1000 + shape[1])
+    dense = rng.standard_normal(shape) * (rng.random(shape) < 0.3)
+    tblocks, trots = tpack.extract_diagonals(sp.csr_matrix(dense), slots,
+                                             method, last)
+    jblocks, jrots = jpack.extract_diagonals(sp.csr_matrix(dense), slots,
+                                             method, last)
+    assert trots == jrots
+    assert sorted(tblocks) == sorted(jblocks)
+    for key, diags in jblocks.items():
+        assert sorted(tblocks[key]) == sorted(diags)
+        for d, vec in diags.items():
+            assert np.array_equal(tblocks[key][d], vec)
+    x = rng.standard_normal(shape[1])
+    got = _reconstruct(tblocks, trots, slots, x, shape[0])
+    np.testing.assert_allclose(got, dense @ x, atol=1e-9)

@@ -4,7 +4,8 @@
   `chip_smoke.py`: none imports `jax` or `orion_tpu` (the interpreter may
   import jax at startup, so `sys.modules` cannot show this).
 * `init_scheme` and `CKKSContext` without a device raise when no CUDA
-  device is present.
+  device is present, on a bootstrapped config too; asked for the CPU, a
+  net's fit and compile keep every buffer there.
 * A tensor on another device reaches neither a kernel nor a plain version.
 * `chip_smoke.py` exits non-zero and prints no result without a GPU.
 """
@@ -150,6 +151,51 @@ def test_new_paths_refuse_other_devices(monkeypatch):
     btp._raise_digit = None
     with pytest.raises(ValueError, match="CUDA or CPU"):
         Bootstrapper.mod_raise(btp, Ciphertext(meta[0], 0, 1.0))
+
+
+def test_bootstrapped_net_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    """A net of VGG-11's layers (conv, BatchNorm2d, minimax ReLU (15, 15,
+    27), pooling, linear) on configs/vgg.yml, at LogN 8: without a card the
+    scheme it compiles on cannot be made unless the CPU is asked for; on
+    the CPU, fit and compile leave every key and compiled buffer there."""
+    import numpy as np
+
+    import orion_tpu_torch.nn as on
+    from orion_tpu_torch.utils import ArrayLoader
+
+    with open(ROOT / "configs" / "vgg.yml") as f:
+        cfg = yaml.safe_load(f)
+    cfg["ckks_params"].update(LogN=8, H=64)
+
+    class TinyVGG(on.Module):
+        def __init__(self):
+            super().__init__()
+            self.features = on.Sequential(
+                on.Conv2d(3, 4, kernel_size=3, padding=1),
+                on.BatchNorm2d(4), on.ReLU(degrees=[15, 15, 27]),
+                on.AvgPool2d(kernel_size=2, stride=2))
+            self.flatten = on.Flatten()
+            self.classifier = on.Linear(16, 10)
+
+        def forward(self, x):
+            return self.classifier(self.flatten(self.features(x)))
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            orion_tpu_torch.init_scheme(cfg)
+    scheme = orion_tpu_torch.init_scheme(cfg, device="cpu")
+    net = TinyVGG()
+    data = np.random.default_rng(1).uniform(0, 1, (8, 3, 4, 4)).astype(
+        np.float32)
+    orion_tpu_torch.fit(net, ArrayLoader(data, np.zeros(8), batch_size=1))
+    orion_tpu_torch.compile(net)
+    buffers = [p.ksk for p in scheme.evaluator._key_packs.values()]
+    buffers += [k.data for k in scheme.keys.galois_keys.values()]
+    buffers += [tr.pts for m in net.modules()
+                for tr in getattr(m, "compiled", {}).values()]
+    assert buffers
+    assert all(b.device.type == "cpu" for b in buffers)
 
 
 def test_chip_smoke_fails_without_a_gpu():

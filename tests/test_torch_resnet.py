@@ -6,10 +6,11 @@ and an encrypted residual forward on the port's CPU path.
   (7, 7), LogN 10, l_eff 6) is built in both packages with the same
   weights (`load_jax_params`) and compiled.  Both solvers assign every
   leaf the same level and place the same bootstraps after the same
-  modules at the same levels.  orion_tpu's solver reads its TPU latency
-  fit (`compiler/latency_tpu.json`) and the port keeps the CPU fit, so
-  the comparison is made with the port's solver given orion_tpu's
-  constants, and again with the port's own.
+  modules at the same levels.  orion_tpu's solver reads the latency fit
+  it ships (`compiler/latency_tpu.json`) and the port carries the same
+  constants; the comparison is made with them, and again with the port's
+  solver given the reference's CPU fit, under which the plan is the
+  same.
 * configs/resnet.yml parses to the same split moduli, circuit primes,
   special primes and bootstrap knobs in both packages, and the contexts
   built from it (LogN 13, 44 + 6 primes) have equal primes and equal
@@ -150,10 +151,11 @@ def mini_plans():
     plans = {"orion_tpu": (j_in, _plan(jnet))}
     fits = {"tpu_fit": (jlevel_dag.LT_ALPHA, jlevel_dag.BOOT_A,
                         jlevel_dag.BOOT_B, jlevel_dag.BOOT_C),
-            "cpu_fit": (tlevel_dag.LT_ALPHA, tlevel_dag.BOOT_A,
-                        tlevel_dag.BOOT_B, tlevel_dag.BOOT_C)}
+            # the reference's CPU/Lattigo fit
+            "cpu_fit": (0.001, 3.41, 0.18, 4.81)}
+    saved = (tlevel_dag.LT_ALPHA, tlevel_dag.BOOT_A, tlevel_dag.BOOT_B,
+             tlevel_dag.BOOT_C)
     for tag, consts in fits.items():
-        saved = fits["cpu_fit"]
         (tlevel_dag.LT_ALPHA, tlevel_dag.BOOT_A, tlevel_dag.BOOT_B,
          tlevel_dag.BOOT_C) = consts
         try:
@@ -223,3 +225,47 @@ def test_resnet_config_split_equals_orion_tpu():
                   "p_mod_q"):
             assert np.array_equal(np.asarray(getattr(a, f)),
                                   np.asarray(getattr(b, f))), (level, f)
+
+
+def test_early_key_freeing_changes_no_bit(monkeypatch):
+    """Compile frees each packed rotation key as soon as no module still
+    to compile asks for it (not all at the end of compile).  Against a
+    compile that frees them only at its end: the same keys made, the same
+    key packs and kept keys, the same encrypted input, bit for bit, and
+    fewer keys held at once."""
+    from orion_tpu_torch.crypto.keys import KeyChest
+    from orion_tpu_torch.runtime.scheme import Scheme
+
+    real_key, real_free = KeyChest.galois_key, Scheme._free_packed_keys
+    data = np.random.default_rng(1).uniform(0, 1, (8, 1, 8, 8)).astype(
+        np.float32)
+    runs = []
+    for at_end in (False, True):
+        held = []
+
+        def galois_key(self, k):
+            out = real_key(self, k)
+            held.append(len(self.galois_keys))
+            return out
+
+        def free(self, keep, pending):
+            return 0 if at_end and pending else real_free(self, keep,
+                                                          pending)
+
+        with monkeypatch.context() as m:
+            m.setattr(KeyChest, "galois_key", galois_key)
+            m.setattr(Scheme, "_free_packed_keys", free)
+            scheme = torion.init_scheme(TINY_CONFIG, device="cpu")
+            net = tiny_resnet2(ton)
+            torion.fit(net, ArrayLoader(data, np.zeros(8), batch_size=1))
+            level = torion.compile(net)
+        ct = torion.encrypt(torion.encode(data[:1], level))
+        packs = {k: p.ksk for k, p in scheme.evaluator._key_packs.items()}
+        kept = {k: v.data for k, v in scheme.keys.galois_keys.items()}
+        runs.append((max(held), packs, kept, ct.cts[0].data))
+    (early, packs, kept, ct), (late, packs2, kept2, ct2) = runs
+    assert early < late
+    assert packs.keys() == packs2.keys() and kept.keys() == kept2.keys()
+    assert all(torch.equal(packs[k], packs2[k]) for k in packs)
+    assert all(torch.equal(kept[k], kept2[k]) for k in kept)
+    assert torch.equal(ct, ct2)
