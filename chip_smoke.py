@@ -45,23 +45,20 @@ stderr and exits 1:
      from one seed on `cuda` and with device="cpu" (plain path): equal
      output ciphertexts, the decrypted error against the input, the
      key-switches per bootstrap and its time on the card;
-  6. ResNet-20's widths (16/32/64) at one BasicBlock per stage on
-     configs/resnet.yml through the user entry points on `cuda` (weights
-     from the seeded generator the port shares with orion_tpu, synthetic
-     CIFAR-10 images): fit, compile (host seconds of fit, compile and key
-     generation, rotation keys, key packs and their bytes, the bootstraps
-     placed), the ciphertext bootstraps of a forward by circuit slot
-     count, a first and a steady forward, MAE vs cleartext < 0.005,
-     device memory after compile, at the compile peak and at the forward
-     peak, and a profiled forward (device time by kernel, busy share, the
-     port's kernels recorded against those the wrappers launched);
-     `check_resnet(cfg)` runs the full ResNet-20, which the run's time
-     leaves out;
+  6. ResNet-20 on configs/resnet.yml through the user entry points on
+     `cuda` (weights from the seeded generator the port shares with
+     orion_tpu, synthetic CIFAR-10 images): fit, compile (host seconds of
+     fit, compile and key generation, rotation keys, key packs and their
+     bytes, the bootstraps placed), the ciphertext bootstraps of a forward
+     by circuit slot count, a first and a steady forward, MAE vs cleartext
+     < 0.005, device memory after compile, at the compile peak and at the
+     forward peak, and a profiled forward (device time by kernel, busy
+     share, the port's kernels recorded against those the wrappers
+     launched);
   6b. AlexNet at full width on configs/alexnet.yml the same way; a
      12-ciphertext tensor must be bootstrapped;
-  6c. VGG-11 at full width on configs/vgg.yml the same way, without the
-     profiled forward (the run's time); a bootstrap on the 2048-slot
-     circuit must run;
+  6c. VGG-11 at full width on configs/vgg.yml the same way; a bootstrap
+     on the 2048-slot circuit must run;
   7. the key-switch kernels batched as the forwards of phases 3, 4, 6, 6b
      and 6c batch them: ks_decompose over B polys, ks_finish and
      ks_finish_raw over a pack of K keys (shared ext) and over K paired
@@ -95,10 +92,6 @@ CONFIGS = {tag: ROOT / "configs" / f"{tag}.yml"
 # the bootstrapped paths: their configs share resnet.yml's ckks and boot
 # parameters, so phase 2's resnet cases hold every kernel at their levels
 BOOTSTRAPPED = ("resnet", "alexnet", "vgg")
-# device memory reckoned on the host before any run on the card
-# (tools/memory_reckon.py, GiB): compile peak, after compile
-RECKONED_GIB = {"ResNet-20": (22.4, 13.8), "AlexNet": (35.9, 23.7),
-                "VGG-11": (40.9, 26.5)}
 MEM_RATE = 3.35e12     # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 # 32-bit integer multiplies (IMAD, IMAD.HI) per second: 64 per clock per SM
 # on compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
@@ -733,7 +726,7 @@ def check_model(cfg, model, title):
                       pr["our_kernels_by_name"].items())
           + "); top: "
           + "; ".join(f"{k} {v:.2f} ms" for k, v in pr["top"]), flush=True)
-    report_profile(pr)
+    report_profile(pr, model)
     if not gpu["mae"] < 0.005:
         fail(f"{model}: MAE {gpu['mae']} >= 0.005")
     idle = [k for k, v in gpu["counts"].items()
@@ -743,9 +736,6 @@ def check_model(cfg, model, title):
     c = gpu["counts"]
     if c["drop_intt"] != c["drop_ntt"] + c["rescale_ntt"]:
         fail(f"{model}: rescale launches do not come in pairs: {c}")
-    if pr["our_kernels_recorded"] != pr["our_kernels_launched"]:
-        fail(f"{model}: the profile lost port kernels, so their device "
-             f"time is not measured")
 
     print(f"{title}, the same flow on device cpu (plain PyTorch path)",
           flush=True)
@@ -839,9 +829,7 @@ def check_bootstrap(cfg):
           f"(busy share {pr['busy_share']:.3f}), port kernels "
           f"{pr['our_kernels_ms']:.1f} ms; top: "
           + "; ".join(f"{k} {v:.2f} ms" for k, v in pr["top"]), flush=True)
-    report_profile(pr)
-    if pr["our_kernels_recorded"] != pr["our_kernels_launched"]:
-        fail("bootstrap: the profile lost port kernels")
+    report_profile(pr, "bootstrap")
     idle = [k for k, v in gpu["counts"].items() if v == 0]
     if idle:
         fail(f"kernels not launched by the bootstrap: {idle}")
@@ -872,22 +860,22 @@ def check_bootstrap(cfg):
 #  Phase 6: ResNet-20 on configs/resnet.yml                          #
 # ------------------------------------------------------------------ #
 
-# the host idles this long on each side of a profiled call: the profiler
-# keeps only the device records that fall inside its window, whose edges
-# it takes on the host's clock, so a kernel that ends just before the
-# window closes could fall outside it once its device timestamp is
-# converted to that clock
+# the host idles this long on each side of a profiled call, so the
+# warm-up call's last kernels end well before the recorded call's first
 PROFILE_PAD_S = 0.05
+# a sleep kernel this many cycles long marks each end of the recorded call
+# on the stream: the call's device records are those between the two
+MARK_CYCLES = 1000
 # profiles taken of one call at most, while they lose records
 PROFILE_ATTEMPTS = 2
 
 
 def profiled(fn, activities):
     """A warm-up call of fn, then one call recorded by torch.profiler with
-    the host idle PROFILE_PAD_S before and after it.  Returns the profile,
-    the recorded call's wall ms (host clock, pads left out), the port's
-    device kernels its wrappers launched, and the host's clock (epoch ns)
-    just after the recording began and just before it ended."""
+    the host idle PROFILE_PAD_S before and after it and a marker sleep
+    kernel queued just before and just after it.  Returns the profile,
+    the recorded call's wall ms (host clock, pads left out) and the
+    port's device kernels its wrappers launched in that call."""
     from torch.profiler import profile, schedule
 
     from orion_tpu_torch import kernels
@@ -897,77 +885,96 @@ def profiled(fn, activities):
                                    repeat=1)) as prof:
         for step in range(2):
             if step:
-                opened = time.time_ns()
                 time.sleep(PROFILE_PAD_S)
+                torch.cuda._sleep(MARK_CYCLES)
             kernels.reset_launches()
             t0 = time.perf_counter()
             fn()
+            if step:
+                torch.cuda._sleep(MARK_CYCLES)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             launched = launched_grids()
             if step:
                 time.sleep(PROFILE_PAD_S)
-                closed = time.time_ns()
             prof.step()
-    return prof, wall_ms, launched, (opened, closed)
+    return prof, wall_ms, launched
+
+
+def call_records(prof):
+    """The recorded call's device records: those that run between the two
+    marker sleep kernels (the port runs on one stream, so its records of
+    the call lie between them and those of the warm-up call before the
+    first).  Returns them with the records left out, counted as the
+    port's kernels or other, and as overlapping the call's span (a record
+    of another stream, or one the profiler misplaced); None if the
+    markers were not both recorded."""
+    recs = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep")]
+    marks = sorted((e for e in recs if "spin_kernel" in e.name),
+                   key=lambda e: e.time_range.start)
+    if len(marks) != 2:
+        return None
+    lo, hi = marks[0].time_range.end, marks[1].time_range.start
+    kept, left = [], {"port": 0, "other": 0, "overlapping": 0}
+    for e in recs:
+        start, end = e.time_range.start, e.time_range.end
+        if any(e is m for m in marks):
+            continue
+        if lo <= start and end <= hi:
+            kept.append(e)
+            continue
+        left["port" if any(o in e.name for o in OUR_KERNELS)
+             else "other"] += 1
+        left["overlapping"] += start < hi and end > lo
+    return kept, left
+
+
+def device_kernels(fn):
+    """Names of the device kernels one call of fn ran, from torch.profiler
+    (a first call warms the profiler up and is not recorded)."""
+    from torch.profiler import ProfilerActivity
+
+    prof = profiled(fn, [ProfilerActivity.CPU, ProfilerActivity.CUDA])[0]
+    got = call_records(prof)
+    if got is None:
+        fail("the profiler did not record the two marker kernels around a "
+             "call: " + ", ".join(e.name[:40] for e in prof.events()
+                                  if e.device_type
+                                  == torch.autograd.DeviceType.CUDA))
+    return [e.name for e in got[0]]
 
 
 def profile_device(fn):
     """Device time of one call of fn by kernel from a CUDA-only profile (a
     deep forward makes too many host events to keep), after a warm-up
     call that is not recorded; the port's kernels recorded by name beside
-    those their wrappers launched in the recorded call.  A profile that
-    lost records of the port's kernels is said so and taken again, up to
-    PROFILE_ATTEMPTS profiles; the caller fails unless the last one
-    recorded every launch.  (`device_ms` cannot time a call of thousands of
+    those their wrappers launched in the recorded call.  A profile whose
+    markers are missing, that lost records of the port's kernels or that
+    left out a record overlapping the call is said so and taken again, up
+    to PROFILE_ATTEMPTS profiles; `report_profile` fails unless the last
+    one is whole.  (`device_ms` cannot time a call of thousands of
     launches: they fill the launch queue behind its sleep kernel.)"""
     from torch.profiler import ProfilerActivity
 
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        prof, wall_ms, launched, window = profiled(
-            fn, [ProfilerActivity.CUDA])
+        prof, wall_ms, launched = profiled(fn, [ProfilerActivity.CUDA])
         t0 = time.perf_counter()
-        # device timestamps as the profiler converted them, us from its
-        # trace start, and the host's clock around the recorded call
-        base_us = prof.profiler.kineto_results.trace_start_ns() / 1e3
-        opened_us, closed_us = window[0] / 1e3, window[1] / 1e3
-        half_pad_us = PROFILE_PAD_S * 1e6 / 2
+        got = call_records(prof)
+        kept, left = got if got else ([], None)
         by_name, seen = {}, dict.fromkeys(OUR_KERNELS, 0)
-        n_kernels, span, outside = 0, [], 0
-        for e in prof.events():
-            if (e.device_type != torch.autograd.DeviceType.CUDA
-                    or e.name.startswith("ProfilerStep")):
-                continue
-            # the recorded call runs PROFILE_PAD_S inside the window, and
-            # the warm-up call ends just before it opens.  Profiles of an
-            # AlexNet forward kept records of the warm-up's last kernels
-            # (once converted to 70 us before the window opened; once 18
-            # key-switches too many inside it), and the converted times of
-            # the recorded call's first kernels lie up to 10 ms early.
-            # Records that start in the first half of the pad or end in
-            # the last half are not the recorded call's.
-            if not (opened_us + half_pad_us <= base_us + e.time_range.start
-                    and base_us + e.time_range.end
-                    <= closed_us - half_pad_us):
-                outside += 1
-                continue
-            n_kernels += 1
-            span.append((e.time_range.start, e.time_range.end))
+        for e in kept:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
             for o in OUR_KERNELS:
                 seen[o] += o in e.name
-        if seen == launched:
+        if seen == launched and left and not left["overlapping"]:
             break
-        print(f"  profile {attempt} of {PROFILE_ATTEMPTS} lost records of "
-              f"the port's kernels: recorded {seen}, launched {launched}",
-              flush=True)
-    # how far the first and last device records lie inside the host's
-    # clock readings around the recorded call
-    margin_us = None
-    if span:
-        margin_us = [base_us + min(a for a, _ in span) - opened_us,
-                     closed_us - base_us - max(b for _, b in span)]
+        print(f"  profile {attempt} of {PROFILE_ATTEMPTS} is not whole: "
+              f"port kernels recorded {seen}, launched {launched}; "
+              + ("markers not recorded" if left is None
+                 else f"records left out {left}"), flush=True)
     dev_ms = sum(by_name.values())
     ours_by = {o: sum(v for k, v in by_name.items() if o in k)
                for o in OUR_KERNELS}
@@ -975,26 +982,30 @@ def profile_device(fn):
     return dict(wall_ms=wall_ms, device_ms=dev_ms,
                 our_kernels_ms=sum(ours_by.values()),
                 our_kernels_by_name=ours_by, our_kernels_recorded=seen,
-                our_kernels_launched=launched, device_ops=n_kernels,
+                our_kernels_launched=launched, device_ops=len(kept),
                 busy_share=dev_ms / wall_ms if wall_ms else None,
                 top=[(k[:60], v) for k, v in top], profiles=attempt,
-                window_margin_us=margin_us, records_outside=outside,
-                read_s=time.perf_counter() - t0)
+                records_left_out=left, read_s=time.perf_counter() - t0)
 
 
-def report_profile(pr):
-    m = pr["window_margin_us"]
+def report_profile(pr, what):
+    """Print what the profile kept and left out; fail unless it is whole."""
+    left = pr["records_left_out"]
     print(f"  port kernels the profile recorded {pr['our_kernels_recorded']}"
           f", launched {pr['our_kernels_launched']} (profile "
-          f"{pr['profiles']}; "
-          + (f"its first and last device records lie {m[0]:.0f} and "
-             f"{m[1]:.0f} us inside the host's clock around the recorded "
-             f"call" if m else "no device record")
-          + f"; {pr['records_outside']} records outside it left out)",
-          flush=True)
+          f"{pr['profiles']}; records outside the markers left out: "
+          + ("markers not recorded" if left is None else
+             f"{left['port']} of port kernels, {left['other']} other, "
+             f"{left['overlapping']} overlapping the call")
+          + ")", flush=True)
+    if left is None or left["overlapping"]:
+        fail(f"{what}: the profile could not delimit the recorded call")
+    if pr["our_kernels_recorded"] != pr["our_kernels_launched"]:
+        fail(f"{what}: the profile lost port kernels, so their device time "
+             f"is not measured")
 
 
-def check_net(cfg, name, title, build, profile=True):
+def check_net(cfg, name, title, build):
     """One bootstrapped net through the user entry points on cuda, from a
     fresh scheme: `build()` makes the net after the weight generator is
     reset to the seed orion_tpu's examples start from, one synthetic
@@ -1004,8 +1015,8 @@ def check_net(cfg, name, title, build, profile=True):
     bootstraps of one forward by circuit slot count and by tensor, a first
     and one steady forward, MAE vs cleartext (< 0.005 or the run fails),
     device memory after compile and the peaks of compile and the forwards,
-    and (with `profile`) a profiled forward that must record every port
-    kernel the wrappers launched."""
+    and a profiled forward that must record every port kernel the
+    wrappers launched."""
     import orion_tpu_torch as orion
     from orion_tpu_torch import kernels
     from orion_tpu_torch.nn import linear
@@ -1059,13 +1070,11 @@ def check_net(cfg, name, title, build, profile=True):
           f"key generation {keygen['s']:.1f} s ({keygen['n']} rotation "
           f"keys); input level {input_level}; bootstraps placed "
           f"{len(placed)}: {placed}", flush=True)
-    reckoned = (" (reckoned {:.1f} and {:.1f} GiB)".format(*RECKONED_GIB[
-        name]) if name in RECKONED_GIB else "")
     print(f"  key packs {len(scheme.evaluator._key_packs)} (lean {lean}, "
           f"{pack_mib:.0f} MiB), original keys kept {keys_left}; device "
           f"memory before init {start_mib:.0f} MiB, peak during compile "
           f"{compile_peak_mib / 1024:.1f} GiB and after compile "
-          f"{dev_mib / 1024:.1f} GiB{reckoned}", flush=True)
+          f"{dev_mib / 1024:.1f} GiB", flush=True)
     if not lean:
         fail(f"{name}: key packs keep Shoup companions under boot_params")
 
@@ -1115,33 +1124,25 @@ def check_net(cfg, name, title, build, profile=True):
     net(ct)
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t0
-    pr = profile_device(lambda: net(ct)) if profile else None
+    pr = profile_device(lambda: net(ct))
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     print(f"  steady forward {steady_s:.2f} s; peak device memory over the "
           f"forwards {peak_mib:.0f} MiB", flush=True)
-    if pr is None:
-        print("  profiled forward: not taken (the run's time budget)",
-              flush=True)
-    else:
-        print(f"  profiled forward: wall {pr['wall_ms']:.0f} ms, device "
-              f"{pr['device_ms']:.1f} ms in {pr['device_ops']} device ops "
-              f"(busy share {pr['busy_share']:.3f}), port kernels "
-              f"{pr['our_kernels_ms']:.1f} ms ("
-              + ", ".join(f"{k} {v:.1f}" for k, v in
-                          pr["our_kernels_by_name"].items())
-              + "); top: "
-              + "; ".join(f"{k} {v:.1f} ms" for k, v in pr["top"])
-              + f" (profile read in {pr['read_s']:.1f} s)", flush=True)
-        report_profile(pr)
+    print(f"  profiled forward: wall {pr['wall_ms']:.0f} ms, device "
+          f"{pr['device_ms']:.1f} ms in {pr['device_ops']} device ops "
+          f"(busy share {pr['busy_share']:.3f}), port kernels "
+          f"{pr['our_kernels_ms']:.1f} ms ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in
+                      pr["our_kernels_by_name"].items())
+          + "); top: "
+          + "; ".join(f"{k} {v:.1f} ms" for k, v in pr["top"])
+          + f" (profile read in {pr['read_s']:.1f} s)", flush=True)
+    report_profile(pr, name)
     if not err < 0.005:
         fail(f"{name}: MAE {err} >= 0.005")
     idle = [k for k, v in counts.items() if v == 0]
     if idle:
         fail(f"kernels not launched by the {name} forward: {idle}")
-    if pr is not None and pr["our_kernels_recorded"] != \
-            pr["our_kernels_launched"]:
-        fail(f"{name}: the profile lost port kernels, so their device "
-             f"time is not measured")
     rec = {"model": name, "mae": err, "input_level": input_level,
            "first_s": first_s, "steady_s": steady_s,
            "bootstraps_placed": len(placed), "placed": placed,
@@ -1189,14 +1190,13 @@ def check_alexnet(cfg):
     return rec
 
 
-def check_vgg(cfg, profile):
+def check_vgg(cfg):
     """VGG-11 at full width: its last stage fills half the slots, so a
     2048-slot bootstrap circuit must run."""
     from orion_tpu_torch.models import VGG11
 
     rec = check_net(cfg, "VGG-11", "phase 6c: VGG-11 (minimax ReLU "
-                    "(15, 15, 27)) on configs/vgg.yml", VGG11,
-                    profile=profile)
+                    "(15, 15, 27)) on configs/vgg.yml", VGG11)
     if not rec["ciphertext_bootstraps_by_slots"].get(2048):
         fail(f"VGG-11: no 2048-slot bootstrap ran "
              f"({rec['ciphertext_bootstraps_by_slots']})")
@@ -1293,12 +1293,8 @@ def main():
     torch.cuda.empty_cache()
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    # to keep the run within its time: ResNet-20's widths at one block per
-    # stage (phase 2 holds its kernels at every level of resnet.yml), and
-    # no profiled VGG-11 forward
-    for tag, check in (("resnet", lambda cfg: check_resnet(cfg, (1, 1, 1))),
-                       ("alexnet", check_alexnet),
-                       ("vgg", lambda cfg: check_vgg(cfg, profile=False))):
+    for tag, check in (("resnet", check_resnet), ("alexnet", check_alexnet),
+                       ("vgg", check_vgg)):
         paths[tag] = check(cfgs[tag])
         gc.collect()
         torch.cuda.empty_cache()

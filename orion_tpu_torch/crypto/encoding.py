@@ -16,16 +16,16 @@ reference's MAE < 0.005 bound, `tests/models/test_mlp.py:47`).
 
 from __future__ import annotations
 
-import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from .context import CKKSContext
 
-# encode_batch: vectors per thread's group, and threads
+# encode_batch: vectors per thread's group, and threads at most
 _ENCODE_GROUP = 16
-_ENCODE_THREADS = min(8, os.cpu_count() or 1)
+_ENCODE_THREADS = 8
 
 
 class Encoder:
@@ -138,18 +138,26 @@ class Encoder:
         if scale is None:
             scale = ctx.default_scale
         vecs = np.asarray(vecs)
-        # groups of vectors encode on threads: they share nothing, and
-        # numpy's loops and the native NTT release the GIL (the same bits
-        # as one thread).  The first group runs alone: it builds the
-        # lazily made host tables.
+        # for a scheme on the card, groups of vectors encode on threads, as
+        # many as torch's intra-op threads: they share nothing, and numpy's
+        # loops and the native NTT release the GIL (the same bits as one
+        # thread).  On device cpu the host's cores are torch's, and groups
+        # run in turn.  The first group runs alone: it builds the lazily
+        # made host tables.
+        threads = (min(_ENCODE_THREADS, torch.get_num_threads())
+                   if ctx.device.type == "cuda" else 1)
         groups = [vecs[lo: lo + _ENCODE_GROUP]
                   for lo in range(0, vecs.shape[0], _ENCODE_GROUP)]
-        parts = [self._encode_group(groups[0], level, scale, with_shoup)]
-        if len(groups) > 1:
-            with ThreadPoolExecutor(_ENCODE_THREADS) as pool:
-                parts += pool.map(
-                    lambda g: self._encode_group(g, level, scale,
-                                                 with_shoup), groups[1:])
+
+        def encode(g):
+            return self._encode_group(g, level, scale, with_shoup)
+
+        parts = [encode(groups[0])]
+        if threads > 1:
+            with ThreadPoolExecutor(threads) as pool:
+                parts += pool.map(encode, groups[1:])
+        else:
+            parts += map(encode, groups[1:])
         rns_ntt = np.concatenate([d for d, _ in parts])
         if not with_shoup:
             return rns_ntt, float(scale)
