@@ -28,6 +28,13 @@ stderr and exits 1:
      as the earlier slices took it), its device ms (calls queued behind
      a sleep kernel, so the host's issue time is left out) and the plain
      version's ms;
+  2b. the same for the kernels' ConjugateInvariant forms (`*_ci`: rows of
+     n residues, transforms on the 2n lift) at every level of
+     configs/lola.yml (N = 8192, transforms of 2^14) and of
+     tests/configs/mlp.yml (N = 4096, 2^13): the transforms, the
+     rescale_poly pair (the CI ring has no fused drop), ks_decompose and
+     ks_finish; one profiled CI rescale_poly must record exactly its two
+     kernels, both the CI instantiations;
   3. the full-width MLP 784-128-128-10 on configs/mlp.yml through the
      user entry points on `cuda`: MAE vs cleartext < 0.005, every kernel
      of the path launched during the encrypted forward (the generic
@@ -41,13 +48,22 @@ stderr and exits 1:
   4. the full-width LeNet on configs/lenet.yml the same way, with the
      host seconds of fit and compile, the rotation keys made and the peak
      device memory;
+  4b. LoLA at full width on configs/lola.yml (ConjugateInvariant, LogN
+     13, 8192 real slots) the same way as phase 3: every CI kernel of the
+     path launched, no standard one; the standalone ntt_fwd_ci / ntt_inv_ci
+     stay off the path as ntt_fwd / ntt_inv do (their map runs in the
+     rescale pair and the key-switch kernels);
+  4c. the MLP 784-128-128-10 on tests/configs/mlp.yml (ConjugateInvariant,
+     LogN 12), orion_tpu's own MLP/LoLA test config, the same way;
+  4d. LoLA on configs/lola2.yml (standard ring, LogN 14), the same way;
   5. one bootstrap on configs/resnet.yml (full slots, lean key packs)
      from one seed on `cuda` and with device="cpu" (plain path): equal
      output ciphertexts, the decrypted error against the input, the
      key-switches per bootstrap and its time on the card;
-  6. ResNet-20 on configs/resnet.yml through the user entry points on
-     `cuda` (weights from the seeded generator the port shares with
-     orion_tpu, synthetic CIFAR-10 images): fit, compile (host seconds of
+  6. ResNet (widths 16/32/64, one BasicBlock per stage: ResNet-20's
+     depth cut, RESNET_BLOCKS) on configs/resnet.yml through the user
+     entry points on `cuda` (weights from the seeded generator the port
+     shares with orion_tpu, synthetic CIFAR-10 images): fit, compile (host seconds of
      fit, compile and key generation, rotation keys, key packs and their
      bytes, the bootstraps placed), the ciphertext bootstraps of a forward
      by circuit slot count, a first and a steady forward, MAE vs cleartext
@@ -59,8 +75,8 @@ stderr and exits 1:
      12-ciphertext tensor must be bootstrapped;
   6c. VGG-11 at full width on configs/vgg.yml the same way; a bootstrap
      on the 2048-slot circuit must run;
-  7. the key-switch kernels batched as the forwards of phases 3, 4, 6, 6b
-     and 6c batch them: ks_decompose over B polys, ks_finish and
+  7. the key-switch kernels batched as the forwards of phases 3, 4, 4b-4d,
+     6, 6b and 6c batch them: ks_decompose over B polys, ks_finish and
      ks_finish_raw over a pack of K keys (shared ext) and over K paired
      items, B and K the largest batch of that level in that config's
      forward (4 where it has none; for the bootstrapped nets only the
@@ -88,7 +104,16 @@ import yaml
 
 ROOT = Path(__file__).resolve().parent
 CONFIGS = {tag: ROOT / "configs" / f"{tag}.yml"
-           for tag in ("mlp", "lenet", "resnet", "alexnet", "vgg")}
+           for tag in ("mlp", "lenet", "resnet", "alexnet", "vgg", "lola",
+                       "lola2")}
+# orion_tpu's own MLP/LoLA test config: the ConjugateInvariant ring, LogN 12
+CONFIGS["mlp_ci"] = ROOT / "tests" / "configs" / "mlp.yml"
+
+
+def cfg_name(tag):
+    """The config file of a tag, as the repo names it (mlp14: mlp.yml's
+    chain on a ring of 2^14)."""
+    return str(CONFIGS[tag.removesuffix("14")].relative_to(ROOT))
 # the bootstrapped paths: their configs share resnet.yml's ckks and boot
 # parameters, so phase 2's resnet cases hold every kernel at their levels
 BOOTSTRAPPED = ("resnet", "alexnet", "vgg")
@@ -98,6 +123,12 @@ MEM_RATE = 3.35e12     # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 # instruction throughput) x 132 SMs x 1.98 GHz boost; a quarter of the data
 # sheet's 67 TFLOP/s float32, which counts 128 lanes and 2 flops per FMA
 OP_RATE = 64 * 132 * 1.98e9
+# calls per timing of a batched key-switch case (phase 7)
+BATCH_ITERS = 10
+# phase 6's ResNet: widths 16/32/64 at one BasicBlock per stage, the depth
+# cut that keeps the whole run well inside its time limit (the full
+# ResNet-20, blocks (3, 3, 3), took 140 s of a 1002-s run on one H100)
+RESNET_BLOCKS = (1, 1, 1)
 
 
 def fail(msg):
@@ -194,64 +225,74 @@ def _sleep_s():
 # (3 per Shoup product, 4 per Montgomery product), against the card's IMAD
 # rate.
 
-def ntt_work(rows, table_rows, n):
+# n is a row's stored residues and `lift` the transform size: equal on the
+# standard ring, 2n on the ConjugateInvariant ring (rows of n residues,
+# transforms on their 2n lift, twiddle tables 2n long).
+
+def _lg(n):
+    return n.bit_length() - 1
+
+
+def ntt_work(rows, table_rows, n, lift=None):
     """`rows` transformed rows over `table_rows` rows of twiddles."""
-    logn = n.bit_length() - 1
-    nbytes = 8 * rows * n * 2 + 8 * table_rows * n   # data + packed tw
-    ops = 3 * rows * (n // 2) * logn + 3 * rows * n
+    lift = lift or n
+    nbytes = 8 * rows * n * 2 + 8 * table_rows * lift   # data + packed tw
+    ops = 3 * rows * (lift // 2) * _lg(lift) + 3 * rows * n
     return nbytes, ops
 
 
-def divisor_intt_work(groups, n_div, n):
+def divisor_intt_work(groups, n_div, n, lift=None):
     """Launch A of a rescale epilogue: the divisor rows (int64) and their
     inverse tables read, the uint32 scratch written."""
-    logn = n.bit_length() - 1
-    nbytes = 8 * groups * n_div * n + 8 * n_div * n + 4 * groups * n_div * n
-    return nbytes, 3 * groups * n_div * ((n // 2) * logn + n)
+    lift = lift or n
+    nbytes = (8 * groups * n_div * n + 8 * n_div * lift
+              + 4 * groups * n_div * n)
+    return nbytes, 3 * groups * n_div * ((lift // 2) * _lg(lift) + n)
 
 
-def lift_ntt_work(groups, n_div, l, n, fbc):
+def lift_ntt_work(groups, n_div, l, n, fbc, lift=None):
     """Launch B: the scratch, acc's (or c's) l target rows and their
     forward tables read, the output written; per coefficient the lift (the
     basis conversion over n_div rows, or the centered lift's reduction),
     the butterflies and the subtract-and-scale."""
-    logn = n.bit_length() - 1
-    nbytes = 4 * groups * n_div * n + 8 * l * n + 16 * groups * l * n
-    lift = 6 * n_div + 3 if fbc else 3
-    return nbytes, groups * l * (n * (lift + 3) + 3 * (n // 2) * logn)
+    lift = lift or n
+    nbytes = 4 * groups * n_div * n + 8 * l * lift + 16 * groups * l * n
+    per = 6 * n_div + 3 if fbc else 3
+    return nbytes, groups * l * (n * (per + 3)
+                                 + 3 * (lift // 2) * _lg(lift))
 
 
-def drop_work(groups, n_div, l, n, fbc):
+def drop_work(groups, n_div, l, n, fbc, lift=None):
     """The launch pair of mod_drop_rescale (fbc) or rescale_poly, each
     input once: the divisor rows, the target rows, the packed twiddles of
     both transforms, and the output (the scratch is internal)."""
-    a_bytes, a_ops = divisor_intt_work(groups, n_div, n)
-    b_bytes, b_ops = lift_ntt_work(groups, n_div, l, n, fbc)
+    a_bytes, a_ops = divisor_intt_work(groups, n_div, n, lift)
+    b_bytes, b_ops = lift_ntt_work(groups, n_div, l, n, fbc, lift)
     nbytes = a_bytes + b_bytes - 8 * groups * n_div * n
     return nbytes, a_ops + b_ops
 
 
-def decompose_work(nl, n_t, dnum, alpha, n):
-    logn = n.bit_length() - 1
+def decompose_work(nl, n_t, dnum, alpha, n, lift=None):
+    lift = lift or n
     # c, ext, the inverse tables of the nl Q rows, the forward of n_t rows
-    nbytes = 8 * n * (nl + dnum * n_t + nl + n_t)
-    ops = (3 * nl * (n // 2) * logn + 3 * nl * n
+    nbytes = 8 * n * (nl + dnum * n_t) + 8 * lift * (nl + n_t)
+    ops = (3 * nl * (lift // 2) * _lg(lift) + 3 * nl * n
            + dnum * n_t * n * (6 * alpha + 3)
-           + 3 * dnum * n_t * (n // 2) * logn)
+           + 3 * dnum * n_t * (lift // 2) * _lg(lift))
     return nbytes, ops
 
 
-def decompose_batch_work(nl, n_t, dnum, alpha, n, batch):
+def decompose_batch_work(nl, n_t, dnum, alpha, n, batch, lift=None):
     """B polys: data and operations B times, the tables once."""
-    nbytes, ops = decompose_work(nl, n_t, dnum, alpha, n)
-    tables = 8 * n * (nl + n_t)
+    nbytes, ops = decompose_work(nl, n_t, dnum, alpha, n, lift)
+    tables = 8 * (lift or n) * (nl + n_t)
     return batch * (nbytes - tables) + tables, batch * ops
 
 
 def finish_work(nl, n_t, dnum, n, lean, items=1, paired=False,
-                moddown=True):
+                moddown=True, lift=None):
     """K items over K keys; a shared ext is read once, the tables once."""
-    logn = n.bit_length() - 1
+    lift = lift or n
     n_sp = n_t - nl
     key_words = items * dnum * 2 * n_t * n * (1 if lean else 2)
     ext_words = (items if paired else 1) * dnum * n_t * n
@@ -259,10 +300,10 @@ def finish_work(nl, n_t, dnum, n, lean, items=1, paired=False,
     if not moddown:
         return 8 * (ext_words + key_words + items * 2 * n_t * n), ops
     nbytes = 8 * (ext_words + key_words + items * 2 * nl * n
-                  + n_sp * n + nl * n)
-    ops += items * (2 * n_sp * (3 * (n // 2) * logn + 3 * n)
+                  + n_sp * lift + nl * lift)
+    ops += items * (2 * n_sp * (3 * (lift // 2) * _lg(lift) + 3 * n)
                     + 2 * nl * n * (6 * n_sp + 3)
-                    + 2 * nl * (3 * (n // 2) * logn + 3 * n))
+                    + 2 * nl * (3 * (lift // 2) * _lg(lift) + 3 * n))
     return nbytes, ops
 
 
@@ -283,8 +324,22 @@ def make_context(cfg, logn=None):
 
     p = parse_config(cfg)
     return CKKSContext(logn=logn or p.logn, logq=p.split_logq, logp=p.logp,
-                       logscale=p.logscale, h=p.h, seed=p.seed,
-                       device="cuda")
+                       logscale=p.logscale, h=p.h, ring_type=p.ring_type,
+                       seed=p.seed, device="cuda")
+
+
+def kernel_names(ctx):
+    """The port's kernels as the context's ring runs them: the standard
+    ones, or their ConjugateInvariant forms (`*_ci`, counted apart)."""
+    from orion_tpu_torch import kernels as k
+
+    ks = ((k.NTT_FWD, k.NTT_INV, k.DROP_INTT, k.RESCALE_NTT, k.KS_DECOMPOSE,
+           k.KS_FINISH) if ctx.ci is None else
+          (k.NTT_FWD_CI, k.NTT_INV_CI, k.DROP_INTT_CI, k.RESCALE_NTT_CI,
+           k.KS_DECOMPOSE_CI, k.KS_FINISH_CI))
+    base = ("ntt_fwd", "ntt_inv", "drop_intt", "rescale_ntt",
+            "ks_decompose", "ks_finish")
+    return {b: kern.name for b, kern in zip(base, ks)}
 
 
 class Cases:
@@ -346,7 +401,9 @@ def check_kernels(cfg, tag, stats, logn=None, levels=None, iters=50,
                   plain_iters=3):
     """Every kernel, one key-switch per call, at every level of one config
     (or at `levels`, on a ring of 2^logn when given); records go to
-    `stats` (kernel -> list of per-case records)."""
+    `stats` (kernel -> list of per-case records).  On a ConjugateInvariant
+    config the kernels run with the CI map and are recorded under their
+    `*_ci` names; that ring has no fused drop (no drop-down tables)."""
     from orion_tpu_torch.crypto import KeyChest
     from orion_tpu_torch.crypto.keyswitch import RingRows, dev_level
     from orion_tpu_torch.crypto.ntt_pallas import PallasNTT
@@ -357,10 +414,12 @@ def check_kernels(cfg, tag, stats, logn=None, levels=None, iters=50,
     ctx = make_context(cfg, logn)
     rk = KeyChest(ctx).relin_key
     cs = Cases(ctx, tag, stats, iters=iters, plain_iters=plain_iters)
-    n = ctx.n
+    n, lift = ctx.n, ctx.lift_n
+    kn = kernel_names(ctx)
     levels = range(ctx.max_level + 1) if levels is None else levels
+    ring = "" if ctx.ci is None else f", ConjugateInvariant: 2n = {lift}"
     print(f"phase {2 if logn is None else 7}: kernels vs plain PyTorch on "
-          f"the card, configs/{tag}.yml (N={n}, levels "
+          f"the card, {cfg_name(tag)} (N={n}{ring}, levels "
           f"{', '.join(map(str, levels))})", flush=True)
     for level in levels:
         dl = dev_level(ctx, level)
@@ -390,17 +449,17 @@ def check_kernels(cfg, tag, stats, logn=None, levels=None, iters=50,
             rows = rr.p.shape[0]
             a = cs.residues(batch + (rows, n), rr.p)
             kern = getattr(kntt, kname)
-            cs.case(kname, level, str(batch + (rows, n)),
+            cs.case(kn[kname], level, str(batch + (rows, n)),
                     lambda: kern(a, rr), lambda: plain(a, rr),
-                    ntt_work(a.numel() // n, rows, n))
+                    ntt_work(a.numel() // n, rows, n, lift))
         if level >= 1:
             check_epilogues(cs, dl, krs)
         c = cs.residues((nl, n), dl.q.p)
         alpha = max(dg.src_hi - dg.src_lo for dg in dl.digits)
-        cs.case("ks_decompose", level, f"({nl}, {n})",
+        cs.case(kn["ks_decompose"], level, f"({nl}, {n})",
                 lambda: kks.ks_decompose(c, dl),
                 lambda: kks.ks_decompose_plain(c, dl),
-                decompose_work(nl, n_t, dnum, alpha, n))
+                decompose_work(nl, n_t, dnum, alpha, n, lift))
         ext = kks.ks_decompose(c, dl)
         rows = dl.ksk_rows_idx
         trim = rk.data[:dnum][:, :, rows].contiguous()
@@ -410,18 +469,21 @@ def check_kernels(cfg, tag, stats, logn=None, levels=None, iters=50,
                 ("full-chain lean", rk.data, None, False),
                 ("trimmed Shoup", trim, trim_sh, True),
                 ("trimmed lean", trim, None, True)):
-            cs.case("ks_finish", level, label,
+            cs.case(kn["ks_finish"], level, label,
                     lambda: kks.ks_finish(ext, dl, kd, ks, trimmed),
                     lambda: kks.ks_finish_plain(ext, dl, kd, ks, trimmed),
-                    finish_work(nl, n_t, dnum, n, ks is None))
+                    finish_work(nl, n_t, dnum, n, ks is None, lift=lift))
         # the inner product alone, as the fused mul_relin gives it
-        cs.case("ks_finish", level, "raw full-chain Shoup",
+        cs.case(kn["ks_finish"], level, "raw full-chain Shoup",
                 lambda: kks.ks_finish_raw(ext, dl, rk.data, rk.shoup),
                 lambda: kks.ks_inner(ext, dl, rk.data, rk.shoup),
-                finish_work(nl, n_t, dnum, n, False, moddown=False))
+                finish_work(nl, n_t, dnum, n, False, moddown=False,
+                            lift=lift))
     if logn is not None or tag == "resnet":
         return ctx
     profile_epilogues(dev_level(ctx, ctx.max_level), tag, krs)
+    if ctx.ci is not None:
+        return ctx
 
     # the PallasNTT counterpart (crypto/ntt_pallas.py), over the limb rows
     # tests/crypto/test_ntt_pallas.py uses and over the whole chain batched
@@ -445,57 +507,51 @@ def check_epilogues(cs, dl, krs):
     """mod_drop_rescale and rescale_poly at one level >= 1, over one
     ciphertext (2, rows, N) and a batch of two (2, 2, rows, N): launch A,
     launch B (from launch A's scratch) and the pair, each against its plain
-    version."""
-    n, level = cs.ctx.n, dl.level
+    version.  The ConjugateInvariant ring has rescale_poly only."""
+    n, level, lift = cs.ctx.n, dl.level, cs.ctx.lift_n
+    kn = kernel_names(cs.ctx)
+    ci = "" if dl.ci is None else "_ci"
     n_t = dl.t.p.shape[0]
-    n_sp1 = dl.kernel_tables["drop_rows"].p.shape[0]
+    forms = [("rescale", level + 1, dl.q.p, 1, False, kn["rescale_ntt"],
+              krs.rescale_lift_ntt, krs.rescale_lift_ntt_plain,
+              krs.rescale_poly, krs.rescale_poly_plain)]
+    if dl.dropdown is not None:
+        n_sp1 = dl.kernel_tables["drop_rows"].p.shape[0]
+        forms.insert(0, ("drop", n_t, dl.t.p, n_sp1, True, "drop_ntt",
+                         krs.drop_lift_ntt, krs.drop_lift_ntt_plain,
+                         krs.mod_drop_rescale, krs.mod_drop_rescale_plain))
     for batch in ((2,), (2, 2)):
         groups = int(np.prod(batch))
         for what, rows, rr_p, n_div, fbc, b_name, b_fn, b_plain, pair, \
-                pair_plain in (
-                ("drop", n_t, dl.t.p, n_sp1, True, "drop_ntt",
-                 krs.drop_lift_ntt, krs.drop_lift_ntt_plain,
-                 krs.mod_drop_rescale, krs.mod_drop_rescale_plain),
-                ("rescale", level + 1, dl.q.p, 1, False, "rescale_ntt",
-                 krs.rescale_lift_ntt, krs.rescale_lift_ntt_plain,
-                 krs.rescale_poly, krs.rescale_poly_plain)):
+                pair_plain in forms:
             x = cs.residues(batch + (rows, n), rr_p)
             drop = what == "drop"
             label = f"{what} {batch + (rows, n)}"
-            cs.case("drop_intt", level, label,
+            cs.case(kn["drop_intt"], level, label,
                     lambda: krs.divisor_intt(x, dl, drop),
                     lambda: krs.divisor_intt_plain(x, dl, drop),
-                    divisor_intt_work(groups, n_div, n))
+                    divisor_intt_work(groups, n_div, n, lift))
             z = krs.divisor_intt(x, dl, drop)
             cs.case(b_name, level, label, lambda: b_fn(x, z, dl),
                     lambda: b_plain(x, z, dl),
-                    lift_ntt_work(groups, n_div, level, n, fbc))
-            cs.case(f"{what}_pair", level, label, lambda: pair(x, dl),
+                    lift_ntt_work(groups, n_div, level, n, fbc, lift))
+            cs.case(f"{what}_pair{ci}", level, label, lambda: pair(x, dl),
                     lambda: pair_plain(x, dl),
-                    drop_work(groups, n_div, level, n, fbc))
-
-
-def device_kernels(fn):
-    """Names of the device kernels one call of fn ran, from torch.profiler
-    (a first call warms the profiler up and is not recorded)."""
-    from torch.profiler import ProfilerActivity
-
-    prof = profiled(fn, [ProfilerActivity.CPU, ProfilerActivity.CUDA])[0]
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.name.startswith("ProfilerStep")]
+                    drop_work(groups, n_div, level, n, fbc, lift))
 
 
 def profile_epilogues(dl, tag, krs):
     """One profiled call of each rescale epilogue on a ciphertext must run
-    exactly its two kernels on the card: no torch op between them."""
+    exactly its two kernels on the card: no torch op between them (on the
+    ConjugateInvariant ring rescale_poly's, with the CI map)."""
     n = dl.ring_n
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for name, rows, fn, want in (
-            ("mod_drop_rescale", dl.t.p, krs.mod_drop_rescale,
-             ("drop_intt_rows", "drop_lift_ntt")),
-            ("rescale_poly", dl.q.p, krs.rescale_poly,
-             ("drop_intt_rows", "rescale_lift_ntt"))):
+    forms = [("rescale_poly", dl.q.p, krs.rescale_poly,
+              ("drop_intt_rows", "rescale_lift_ntt"))]
+    if dl.dropdown is not None:
+        forms.insert(0, ("mod_drop_rescale", dl.t.p, krs.mod_drop_rescale,
+                         ("drop_intt_rows", "drop_lift_ntt")))
+    for name, rows, fn, want in forms:
         x = torch.randint(0, 1 << 62, (2, rows.shape[0], n), generator=gen,
                           device="cuda") % rows[:, None]
         names = device_kernels(lambda: fn(x, dl))
@@ -505,6 +561,8 @@ def profile_epilogues(dl, tag, krs):
         if len(names) != 2 or not all(w in k for w, k in zip(want, names)):
             fail(f"{name} ran {names} on the card, not its two kernels "
                  f"{want}")
+        if dl.ci is not None and not all("true" in k for k in names):
+            fail(f"{name} ran {names}: not the kernels' CI forms")
 
 
 def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
@@ -522,13 +580,14 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
     from orion_tpu_torch.kernels import keyswitch as kks
 
     cs = Cases(ctx, tag, stats, seed=11)
-    n = ctx.n
+    n, lift = ctx.n, ctx.lift_n
+    kn = kernel_names(ctx)
     levels = range(ctx.max_level + 1) if levels is None else levels
     print(f"phase 7: batched key-switch kernels vs plain PyTorch, "
-          f"configs/{tag}.yml (N={n})", flush=True)
+          f"{cfg_name(tag)} (N={n}, transforms of {lift})", flush=True)
 
     def largest(kernel, level):
-        return max(sizes.get(kernel, {}).get(level, {default: 0}))
+        return max(sizes.get(kn[kernel], {}).get(level, {default: 0}))
 
     # the plain versions are timed once, at the config's largest batch
     timed = {k: max(largest(k, lv) for lv in levels)
@@ -557,11 +616,12 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
             done |= {("ks_decompose", level, b), ("ks_finish", level, k)}
         if ("ks_decompose", level, b) not in seen:
             c = cs.device_residues((b, nl, n), dl.q.p)
-            cs.case("ks_decompose", level, f"batch B={b} ({b}, {nl}, {n})",
+            cs.case(kn["ks_decompose"], level,
+                    f"batch B={b} ({b}, {nl}, {n})",
                     lambda: kks.ks_decompose(c, dl),
                     lambda: kks.ks_decompose_plain(c, dl),
-                    decompose_batch_work(nl, n_t, dnum, alpha, n, b),
-                    iters=20, items=b,
+                    decompose_batch_work(nl, n_t, dnum, alpha, n, b, lift),
+                    iters=BATCH_ITERS, items=b,
                     plain_iters=plain_once("ks_decompose", b))
             del c
         if ("ks_finish", level, k) in seen:
@@ -578,14 +638,14 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
             for fn, plain, raw in ((kks.ks_finish, kks.ks_finish_plain, ""),
                                    (kks.ks_finish_raw, kks.ks_inner,
                                     "raw ")):
-                cs.case("ks_finish", level,
+                cs.case(kn["ks_finish"], level,
                         f"{raw}pack K={k} {how} trimmed {keys}",
                         lambda: fn(ext, dl, pack, pack_sh, True, idx),
                         lambda: plain(ext, dl, pack, pack_sh, True, idx),
                         finish_work(nl, n_t, dnum, n, lean, items=k,
                                     paired=how == "paired",
-                                    moddown=not raw),
-                        iters=20, items=k, plain_iters=plain_iters)
+                                    moddown=not raw, lift=lift),
+                        iters=BATCH_ITERS, items=k, plain_iters=plain_iters)
         del pack, pack_sh, ext1, extk
 
 
@@ -596,35 +656,54 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
 OUR_KERNELS = ("ntt_fwd_cluster", "ntt_inv_cluster", "ntt_inv_rows",
                "fbc_ntt_digits", "ks_inner_intt", "moddown_rows",
                "drop_intt_rows", "drop_lift_ntt", "rescale_lift_ntt")
-# kernels that neither forward launches: the generic transforms serve
-# PallasNTT and ring_ntt, rescale_ntt is rescale_poly's second launch
-# (Evaluator.rescale); every multiply of both networks rescales through the
-# fused drop (drop_intt, drop_ntt)
-OFF_PATH = ("ntt_fwd", "ntt_inv", "rescale_ntt")
+# kernels that no standard-ring forward of phases 3-4 launches: the generic
+# transforms serve PallasNTT and ring_ntt, rescale_ntt is rescale_poly's
+# second launch (Evaluator.rescale); every multiply of those networks
+# rescales through the fused drop (drop_intt, drop_ntt).  On the
+# ConjugateInvariant ring (no fused drop) every rescale is rescale_poly's
+# pair with the CI map, and the generic transforms' CI forms serve ring_ntt
+# (their map runs in the forward inside drop_intt_ci and rescale_ntt_ci,
+# the same cluster transforms, and inside the key-switch kernels).
+OFF_PATH = {"standard": ("ntt_fwd", "ntt_inv", "rescale_ntt"),
+            "conjugate_invariant": ("ntt_fwd_ci", "ntt_inv_ci")}
+
+
+def ring_kernels(ring):
+    """Names of the kernels a forward on this ring may launch."""
+    from orion_tpu_torch import kernels
+
+    ci = ring == "conjugate_invariant"
+    return [k.name for k in kernels.KERNELS if k.name.endswith("_ci") == ci]
 
 
 def launched_grids():
     """Device kernels by name that the port's wrappers launched since the
     counts were last set to 0: ntt_inv_rows is ks_decompose's first grid,
-    moddown_rows ks_finish's second (ks_finish_raw has none)."""
+    moddown_rows ks_finish's second (ks_finish_raw has none).  A kernel's
+    CI form is the same device kernel (its `CI = true` instantiation)."""
     from orion_tpu_torch import kernels as k
 
-    dec, fin = k.KS_DECOMPOSE, k.KS_FINISH
-    return {"ntt_fwd_cluster": k.NTT_FWD.grids,
-            "ntt_inv_cluster": k.NTT_INV.grids,
-            "ntt_inv_rows": dec.grids - dec.launches,
-            "fbc_ntt_digits": dec.launches,
-            "ks_inner_intt": fin.launches,
-            "moddown_rows": fin.grids - fin.launches,
-            "drop_intt_rows": k.DROP_INTT.grids,
+    dec = (k.KS_DECOMPOSE.grids + k.KS_DECOMPOSE_CI.grids,
+           k.KS_DECOMPOSE.launches + k.KS_DECOMPOSE_CI.launches)
+    fin = (k.KS_FINISH.grids + k.KS_FINISH_CI.grids,
+           k.KS_FINISH.launches + k.KS_FINISH_CI.launches)
+    return {"ntt_fwd_cluster": k.NTT_FWD.grids + k.NTT_FWD_CI.grids,
+            "ntt_inv_cluster": k.NTT_INV.grids + k.NTT_INV_CI.grids,
+            "ntt_inv_rows": dec[0] - dec[1],
+            "fbc_ntt_digits": dec[1],
+            "ks_inner_intt": fin[1],
+            "moddown_rows": fin[0] - fin[1],
+            "drop_intt_rows": k.DROP_INTT.grids + k.DROP_INTT_CI.grids,
             "drop_lift_ntt": k.DROP_NTT.grids,
-            "rescale_lift_ntt": k.RESCALE_NTT.grids}
+            "rescale_lift_ntt": k.RESCALE_NTT.grids + k.RESCALE_NTT_CI.grids}
 
 
 def run_model(cfg, model, device, params=None, steady=0):
     """init_scheme -> fit -> compile -> encode -> encrypt -> he forward ->
     decrypt of `models.<model>` on one device; launch counts of the first
-    forward (counts set to 0 just before it)."""
+    forward (counts set to 0 just before it).  The weights come from the
+    port's seeded generator (or `params`, carried across with
+    `load_jax_params`), the input from the synthetic MNIST set."""
     import orion_tpu_torch as orion
     from orion_tpu_torch import kernels, models
     from orion_tpu_torch.utils import get_mnist_datasets, mae
@@ -684,7 +763,8 @@ def run_model(cfg, model, device, params=None, steady=0):
         key_packs=len(scheme.evaluator._key_packs),
         peak_mib=(torch.cuda.max_memory_allocated() / 2 ** 20 if cuda
                   else None),
-        dev_mib=dev_mib)
+        dev_mib=dev_mib, ring=scheme.ctx.ring_type, n=scheme.ctx.n,
+        slots=scheme.ctx.slots)
 
 
 def check_model(cfg, model, title):
@@ -693,6 +773,9 @@ def check_model(cfg, model, title):
     print(f"{title}, device cuda", flush=True)
     gpu = run_model(cfg, model, "cuda", steady=3)
     steady_ms = [s * 1e3 for s in gpu["steady_s"]]
+    ring = gpu["ring"]
+    ci = ring == "conjugate_invariant"
+    print(f"  ring {ring}: N = {gpu['n']}, {gpu['slots']} slots", flush=True)
     print(f"  input level {gpu['level']} ({gpu['in_cts']} ciphertext(s)); "
           f"MAE vs cleartext {gpu['mae']:.3e}; first forward "
           f"{gpu['first_s'] * 1e3:.1f} ms; steady forward "
@@ -710,11 +793,14 @@ def check_model(cfg, model, title):
     print(f"  key-switch and rescale batches {{kernel: {{level: {{items per "
           f"launch: launches}}}}}}: {gpu['batches']}", flush=True)
     pr = gpu["prof"]
+    c = gpu["counts"]
     drops = gpu["by_level"].get("drop_ntt", {})
+    rescale = "rescale_ntt_ci" if ci else "rescale_ntt"
     print(f"  rescale epilogues in one forward: {sum(drops.values())} "
           f"mod_drop_rescale launch pairs (drop_intt + drop_ntt) by level "
-          f"{drops}, {gpu['counts']['rescale_ntt']} rescale_poly pairs; "
-          f"{pr['device_ops']} device ops", flush=True)
+          f"{drops}, {c[rescale]} rescale_poly pairs by level "
+          f"{gpu['by_level'].get(rescale, {})}; {pr['device_ops']} device "
+          f"ops", flush=True)
     if not pr["device_ops"]:
         print("  profiled forward: the profiler saw no device time "
               "(device breakdown not measured)", flush=True)
@@ -729,12 +815,16 @@ def check_model(cfg, model, title):
     report_profile(pr, model)
     if not gpu["mae"] < 0.005:
         fail(f"{model}: MAE {gpu['mae']} >= 0.005")
-    idle = [k for k, v in gpu["counts"].items()
-            if v == 0 and k not in OFF_PATH]
+    mine = ring_kernels(ring)
+    idle = [k for k in mine if c[k] == 0 and k not in OFF_PATH[ring]]
     if idle:
         fail(f"kernels not launched by the {model} forward: {idle}")
-    c = gpu["counts"]
-    if c["drop_intt"] != c["drop_ntt"] + c["rescale_ntt"]:
+    other = [k for k, v in c.items() if v and k not in mine]
+    if other:
+        fail(f"the {model} forward on the {ring} ring launched {other}")
+    pairs = (c["drop_intt_ci"] == c["rescale_ntt_ci"] if ci else
+             c["drop_intt"] == c["drop_ntt"] + c["rescale_ntt"])
+    if not pairs:
         fail(f"{model}: rescale launches do not come in pairs: {c}")
 
     print(f"{title}, the same flow on device cpu (plain PyTorch path)",
@@ -751,7 +841,8 @@ def check_model(cfg, model, title):
                 and torch.equal(a.data.cpu(), b.data)):
             fail(f"{model}: cuda and cpu output ciphertexts differ")
     print("  cuda and cpu output ciphertexts are equal", flush=True)
-    return {"first_ms": gpu["first_s"] * 1e3, "steady_ms": steady_ms,
+    return {"ring": ring, "n": gpu["n"], "slots": gpu["slots"],
+            "first_ms": gpu["first_s"] * 1e3, "steady_ms": steady_ms,
             "mae": gpu["mae"], "launches": gpu["counts"],
             "launches_by_level": gpu["by_level"], "items": gpu["items"],
             "items_by_level": gpu["items_by_level"],
@@ -830,7 +921,7 @@ def check_bootstrap(cfg):
           f"{pr['our_kernels_ms']:.1f} ms; top: "
           + "; ".join(f"{k} {v:.2f} ms" for k, v in pr["top"]), flush=True)
     report_profile(pr, "bootstrap")
-    idle = [k for k, v in gpu["counts"].items() if v == 0]
+    idle = [k for k in ring_kernels("standard") if gpu["counts"][k] == 0]
     if idle:
         fail(f"kernels not launched by the bootstrap: {idle}")
     if not gpu["err"] < 0.05:
@@ -932,18 +1023,25 @@ def call_records(prof):
 
 
 def device_kernels(fn):
-    """Names of the device kernels one call of fn ran, from torch.profiler
-    (a first call warms the profiler up and is not recorded)."""
+    """Names of the device kernels one call of fn ran, from a CUDA-only
+    torch.profiler profile (a first call warms the profiler up and is not
+    recorded), taken again while its markers are missing, up to
+    PROFILE_ATTEMPTS profiles.  (A CPU and CUDA profile of a rescale
+    recorded no device event at all once, after phase 2's thousand
+    resnet cases.)"""
     from torch.profiler import ProfilerActivity
 
-    prof = profiled(fn, [ProfilerActivity.CPU, ProfilerActivity.CUDA])[0]
-    got = call_records(prof)
-    if got is None:
-        fail("the profiler did not record the two marker kernels around a "
-             "call: " + ", ".join(e.name[:40] for e in prof.events()
-                                  if e.device_type
-                                  == torch.autograd.DeviceType.CUDA))
-    return [e.name for e in got[0]]
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        prof = profiled(fn, [ProfilerActivity.CUDA])[0]
+        got = call_records(prof)
+        if got is not None:
+            return [e.name for e in got[0]]
+        print(f"  profile {attempt} of {PROFILE_ATTEMPTS}: the markers "
+              f"around the call were not recorded; device records: "
+              + ", ".join(e.name[:40] for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+              flush=True)
+    fail("the profiler did not record the two marker kernels around a call")
 
 
 def profile_device(fn):
@@ -1140,7 +1238,7 @@ def check_net(cfg, name, title, build):
     report_profile(pr, name)
     if not err < 0.005:
         fail(f"{name}: MAE {err} >= 0.005")
-    idle = [k for k, v in counts.items() if v == 0]
+    idle = [k for k in ring_kernels("standard") if counts[k] == 0]
     if idle:
         fail(f"kernels not launched by the {name} forward: {idle}")
     rec = {"model": name, "mae": err, "input_level": input_level,
@@ -1205,17 +1303,18 @@ def check_vgg(cfg):
 
 def print_ptxas(libs):
     """Registers and spills of each kernel at LogN 13 and 14, from ptxas'
-    report beside each library."""
+    report beside each library (`, CI`: the ConjugateInvariant form)."""
     import re
 
     for src, so in libs.items():
         log = so.with_suffix(".log").read_text()
         name = None
         for line in log.splitlines():
-            m = re.search(r"entry function '_Z\w*?(\d+)([a-z_]+)ILi(\d+)E",
-                          line)
+            m = re.search(r"entry function '_Z\w*?(\d+)([a-z_]+)ILi(\d+)E"
+                          r"(Lb([01])E)?", line)
             if m:
-                name = (f"{m.group(2)}<{m.group(3)}>"
+                ci = ", CI" if m.group(5) == "1" else ""
+                name = (f"{m.group(2)}<{m.group(3)}{ci}>"
                         if m.group(3) in ("13", "14") else None)
             elif name and "spill" in line:
                 spill = re.search(r"(\d+) bytes spill stores", line).group(1)
@@ -1265,6 +1364,12 @@ def main():
     stats = {}
     check_kernels(cfgs["mlp"], "mlp", stats)
     check_kernels(cfgs["lenet"], "lenet", stats)
+    # the ConjugateInvariant ring: the kernels' CI forms at every level of
+    # configs/lola.yml (transforms of 2^14) and tests/configs/mlp.yml (2^13)
+    check_kernels(cfgs["lola"], "lola", stats)
+    check_kernels(cfgs["mlp_ci"], "mlp_ci", stats)
+    print(f"phase 2b done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     # every level that rescales: timed in full at four levels, with a few
     # calls and the plain version once (for the comparison) at the others
     timed = (1, 17, 42, 43)
@@ -1285,6 +1390,19 @@ def main():
     }
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    for tag, model, title in (
+            ("lola_ci", "LoLA", "phase 4b: LoLA on configs/lola.yml "
+             "(ConjugateInvariant, LogN 13)"),
+            ("mlp_ci", "MLP", "phase 4c: MLP 784-128-128-10 on "
+             "tests/configs/mlp.yml (ConjugateInvariant, LogN 12)"),
+            ("lola14", "LoLA", "phase 4d: LoLA on configs/lola2.yml "
+             "(standard, LogN 14)")):
+        cfg = cfgs[{"lola_ci": "lola", "lola14": "lola2"}.get(tag, tag)]
+        # the finished paths' schemes go before this one reads memory
+        gc.collect()
+        paths[tag] = check_model(cfg, model, title)
+    print(f"phase 4d done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     # a scheme's services and modules refer to each other: collect the
     # finished phases' schemes before the next phase reads device memory
     gc.collect()
@@ -1293,17 +1411,18 @@ def main():
     torch.cuda.empty_cache()
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    for tag, check in (("resnet", check_resnet), ("alexnet", check_alexnet),
-                       ("vgg", check_vgg)):
+    for tag, check in (("resnet", lambda c: check_resnet(c, RESNET_BLOCKS)),
+                       ("alexnet", check_alexnet), ("vgg", check_vgg)):
         paths[tag] = check(cfgs[tag])
         gc.collect()
         torch.cuda.empty_cache()
         print(f"{tag} phase done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
 
-    for tag in ("mlp", "lenet"):
+    for tag, path in (("mlp", "mlp"), ("lenet", "lenet"), ("lola", "lola_ci"),
+                      ("mlp_ci", "mlp_ci"), ("lola2", "lola14")):
         check_batched(make_context(cfgs[tag]), tag, stats,
-                      paths[tag]["batches"])
+                      paths[path]["batches"])
     ctx, done = make_context(cfgs["resnet"]), set()
     for tag in BOOTSTRAPPED:
         b = paths[tag]["batches"]
@@ -1315,15 +1434,19 @@ def main():
     ctx14 = check_kernels(cfgs["mlp"], "mlp14", stats, logn=14, levels=[5])
     check_batched(ctx14, "mlp14", stats, {}, levels=[5])
     del ctx14
+    print(f"phase 7 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
     line = []
     for k in kernels.KERNELS:
         recs = stats[k.name]
+        ci = k.name.endswith("_ci")
         # the first case at the top level of this slice's config: the 2-D
         # transforms, full-chain Shoup keys for ks_finish, one ciphertext
-        # for the rescale epilogues
-        top = next(r for r in recs if r["config"] == "lenet"
-                   and r["level"] == 7)
+        # for the rescale epilogues (configs/lola.yml's for the CI forms)
+        home, home_level = ("lola", 5) if ci else ("lenet", 7)
+        top = next(r for r in recs if r["config"] == home
+                   and r["level"] == home_level)
         by_path = {p: rec["launches"][k.name] for p, rec in paths.items()}
         line.append({
             "name": k.name, "route": "cuda",
@@ -1341,21 +1464,22 @@ def main():
             "library_ms": None,
         })
         if k.source == "ntt.cu":
-            line[-1]["cluster_ctas"] = ctas[13]
+            line[-1]["cluster_ctas"] = ctas[14 if ci else 13]
         # the top level of configs/resnet.yml (44 Q rows, 50 extended
-        # rows, 8 digits), lean trimmed keys for ks_finish
-        res = [r for r in recs if r["config"] == "resnet"
-               and r["level"] == 43]
+        # rows, 8 digits), lean trimmed keys for ks_finish; the CI forms
+        # at the top level of tests/configs/mlp.yml (transforms of 2^13)
+        res = [r for r in recs if r["level"] == (5 if ci else 43)
+               and r["config"] == ("mlp_ci" if ci else "resnet")]
         r = next((r for r in res if "trimmed lean" in r["label"]), res[0])
-        line[-1]["resnet_top"] = {
+        line[-1]["mlp_ci_top" if ci else "resnet_top"] = {
             "shape": r["label"], "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"]}
-        pair = {"drop_ntt": "drop_pair",
-                "rescale_ntt": "rescale_pair"}.get(k.name)
+        pair = {"drop_ntt": "drop_pair", "rescale_ntt": "rescale_pair",
+                "rescale_ntt_ci": "rescale_pair_ci"}.get(k.name)
         if pair:
-            r = next(r for r in stats[pair] if r["config"] == "lenet"
-                     and r["level"] == 7)
+            r = next(r for r in stats[pair] if r["config"] == home
+                     and r["level"] == home_level)
             line[-1]["pair"] = {
                 "shape": r["label"], "ms": r["ms"],
                 "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
@@ -1363,13 +1487,17 @@ def main():
                 "max_abs_err": max(x["err"] for x in stats[pair]),
                 "bit_exact": all(x["ok"] for x in stats[pair])}
         # conv2's batch (lenet level 5): the largest launch of LeNet's
-        # forward; and the largest of the bootstrapped nets' forwards
+        # forward; the largest of the bootstrapped nets' forwards; the
+        # largest of the CI forwards
         lenet = [r for r in recs if r["config"] == "lenet"
                  and r["level"] == 5 and r["items"] > 1]
         deep = sorted((r for r in recs if r["config"] in BOOTSTRAPPED
                        and r["items"] > 1), key=lambda r: -r["items"])
+        cib = sorted((r for r in recs if ci and r["items"] > 1),
+                     key=lambda r: -r["items"])
         for key, batched in (("batched", lenet),
-                             ("batched_bootstrapped", deep)):
+                             ("batched_bootstrapped", deep),
+                             ("batched_ci", cib)):
             if batched:
                 r = batched[0]
                 line[-1][key] = {

@@ -76,6 +76,9 @@ class Bootstrapper:
         self.mod_degree = mod_degree
 
         ctx = self.ctx
+        if ctx.ring_type != "standard":
+            raise NotImplementedError(
+                "bootstrapping is implemented for the standard ring only")
         p = scheme.params
         self.n = ctx.slots
         # sparse slot count: at least one butterfly stage per grouped level

@@ -1,9 +1,17 @@
 """CKKS context: parameters and all precomputed tables, host + device.
 
-Counterpart of `orion_tpu/crypto/context.py`, standard ring only.  The host
-tables (primes, twiddles, digit / ModDown / rescale constants) are computed
-by the same code and are identical; the device dict holds them as int64
-tensors on the scheme's `torch.device`.
+Counterpart of `orion_tpu/crypto/context.py`, for the standard and the
+ConjugateInvariant ring.  The host tables (primes, twiddles, digit /
+ModDown / rescale constants, the CI orbit maps) are computed by the same
+code and are identical; the device dict holds them as int64 tensors on the
+scheme's `torch.device`.
+
+ConjugateInvariant (CI) ring of degree n: the conjugation-invariant
+subring of the 2n-degree standard ring, n real slots.  Elements are
+stored as n coefficients; every NTT routes through the 2n lift (lift, 2n
+transform, keep the n orbit positions `ci_keep`; the inverse gathers the
+2n positions from the n slots through `ci_src`), so the transform tables
+are built at `lift_n` = 2n (`crypto/ntt.py`, `kernels/ntt.py`).
 
 Hybrid key-switching uses the CRT-indicator gadget: the key for digit j
 encrypts g_j * s' where g_j = P mod q_i on the digit's primes and 0 on all
@@ -22,8 +30,12 @@ import torch
 from . import placement
 from . import primes as primegen
 from .modops import shoup_precompute
+from .ntt import CIMap
 from .ntt4 import build_t4_tables
-from .ref import HostRing, bit_reverse_indices
+from .ref import CIHostRing, HostRing, bit_reverse_indices
+
+# the largest transform the kernels instantiate (csrc/modarith.cuh with_logn)
+MAX_KERNEL_LOGN = 14
 
 
 def _shoup_arr(vals: np.ndarray, p: int) -> np.ndarray:
@@ -82,19 +94,29 @@ class CKKSContext:
                  logscale: int, h: int, ring_type: str = "standard",
                  seed: int = 0, device: str | torch.device | None = None):
         rt = ring_type.lower().replace("_", "").replace("-", "")
-        if rt != "standard":
-            raise NotImplementedError(
-                f"ring type {ring_type!r}: the port runs the standard ring")
-        if logn < 8:
-            raise ValueError(
-                f"LogN {logn} < 8: the four-step transform needs N >= 256")
-        self.ring_type = "standard"
+        if rt == "standard":
+            self.ring_type = "standard"
+        elif rt == "conjugateinvariant":
+            self.ring_type = "conjugate_invariant"
+        else:
+            raise NotImplementedError(f"ring type {ring_type!r}")
+        ci = self.ring_type == "conjugate_invariant"
         self.device = placement.resolve_device(device)
         self.logn = logn
-        self.n = 1 << logn
-        self.lift_n = self.n
-        self.slots = self.n // 2
-        self.gal_mod = 2 * self.n       # Galois exponents live mod this
+        self.n = 1 << logn              # stored coefficient count
+        self.lift_n = 2 * self.n if ci else self.n   # NTT ring degree
+        self.slots = self.n if ci else self.n // 2
+        self.gal_mod = 2 * self.lift_n  # Galois exponents live mod this
+        lift_logn = self.lift_n.bit_length() - 1
+        if lift_logn < 8:
+            raise ValueError(
+                f"transform size 2^{lift_logn} < 2^8: the four-step "
+                f"transform needs at least 256 points")
+        if self.device.type == "cuda" and lift_logn > MAX_KERNEL_LOGN:
+            raise ValueError(
+                f"LogN {logn} on the {self.ring_type} ring needs 2^"
+                f"{lift_logn}-point transforms; the kernels go up to "
+                f"2^{MAX_KERNEL_LOGN}")
         self.logq = list(logq)
         self.logp = list(logp)
         self.logscale = logscale
@@ -120,12 +142,35 @@ class CKKSContext:
                      for p in self.primes]
 
         # slot <-> evaluation-point bookkeeping for automorphisms/encoding
-        self._brev = bit_reverse_indices(self.n)
+        self._brev = bit_reverse_indices(self.lift_n)
         # NTT-domain position j holds the evaluation at psi^(2*bitrev(j)+1)
         self._pos_to_exp = (2 * self._brev + 1) % self.gal_mod
-        self.host = HostRing(self.primes, self.n, self.psis)
+
+        if ci:
+            m = self.gal_mod
+            rot = np.array([pow(5, j, m) for j in range(self.n)], np.int64)
+            self._ci_exps = rot         # CI slot j evaluates at psi^rot[j]
+            self._ci_slot_of = {int(e): j for j, e in enumerate(rot)}
+            # 2n-NTT output position holding exponent e: brev[(e-1)/2]
+            keep = self._brev[(rot - 1) // 2]
+            src = np.empty(self.lift_n, np.int64)
+            for p2 in range(self.lift_n):
+                e = int(self._pos_to_exp[p2])
+                j = self._ci_slot_of.get(e)
+                if j is None:
+                    j = self._ci_slot_of[m - e]
+                src[p2] = j
+            self.ci_keep = keep.astype(np.int32)
+            self.ci_src = src.astype(np.int32)
+            base = HostRing(self.primes, self.lift_n, self.psis)
+            self.host = CIHostRing(base, self.n, self.ci_keep, self.ci_src)
+        else:
+            self.ci_keep = None
+            self.ci_src = None
+            self.host = HostRing(self.primes, self.n, self.psis)
 
         self._build_device_tables()
+        self.ci = CIMap.from_ctx(self)      # None on the standard ring
         self.ks_tables = {l: self._build_level_tables(l)
                           for l in range(self.n_q)}
         self._perm_cache: dict[int, np.ndarray] = {}
@@ -135,7 +180,7 @@ class CKKSContext:
     # ------------------------------------------------------------------ #
 
     def _build_device_tables(self):
-        n, n_all = self.n, self.n_all
+        n, n_all = self.lift_n, self.n_all
         p_arr = np.zeros(n_all, np.uint32)
         pinv = np.zeros(n_all, np.uint32)
         r_mod = np.zeros(n_all, np.uint32)
@@ -168,9 +213,17 @@ class CKKSContext:
             "r_mod": r_mod, "r_shoup": r_shoup,
             "ninv": ninv, "ninv_shoup": ninv_sh,
         }
-        t4 = build_t4_tables(tw, itw, self.psis, self.primes, self.logn)
+        t4 = build_t4_tables(tw, itw, self.psis, self.primes,
+                             n.bit_length() - 1)
         self.t4_keys = ["t4_" + k for k in t4]
         host.update({"t4_" + k: v for k, v in t4.items()})
+        if self.ci_keep is not None:
+            # the kernels' store map: the CI position of each 2n output
+            # position, -1 where the forward transform drops it
+            pos = np.full(n, -1, np.int64)
+            pos[self.ci_keep] = np.arange(self.n)
+            host.update(ci_keep=self.ci_keep, ci_src=self.ci_src,
+                        ci_pos=pos)
         self.dev = {k: self.to_device(v) for k, v in host.items()}
 
     def to_device(self, x) -> torch.Tensor:
@@ -284,17 +337,26 @@ class CKKSContext:
     def automorphism_perm(self, k: int) -> np.ndarray:
         """NTT-domain permutation for tau_k: out[j] = in[perm[j]].
 
-        Position j evaluates at psi^e(j) with e(j) = 2*bitrev(j)+1; tau_k
-        maps that to the evaluation at psi^(e(j)*k), i.e. input position j'
-        with e(j') = e(j)*k mod 2N.
+        Standard ring: position j evaluates at psi^e(j) with
+        e(j) = 2*bitrev(j)+1; tau_k maps that to the evaluation at
+        psi^(e(j)*k), i.e. input position j' with e(j') = e(j)*k mod 2N.
+        CI ring: position j evaluates at psi^(5^j); tau_k sends it to the
+        orbit representative of +-(5^j * k).
         """
         k = k % self.gal_mod
         if k in self._perm_cache:
             return self._perm_cache[k]
-        e = self._pos_to_exp
-        e_src = (e * k) % self.gal_mod
-        # invert e(j') = 2*bitrev(j')+1  =>  j' = bitrev((e_src-1)/2)
-        perm = self._brev[(e_src - 1) // 2].astype(np.int32)
+        if self.ring_type == "conjugate_invariant":
+            m = self.gal_mod
+            e_src = (self._ci_exps * k) % m
+            perm = np.array(
+                [self._ci_slot_of.get(int(e), self._ci_slot_of.get(m - int(e)))
+                 for e in e_src], np.int32)
+        else:
+            e = self._pos_to_exp
+            e_src = (e * k) % self.gal_mod
+            # invert e(j') = 2*bitrev(j')+1  =>  j' = bitrev((e_src-1)/2)
+            perm = self._brev[(e_src - 1) // 2].astype(np.int32)
         self._perm_cache[k] = perm
         return perm
 
@@ -303,7 +365,9 @@ class CKKSContext:
         return pow(5, rot % self.slots, self.gal_mod)
 
     def galois_element_conj(self) -> int:
-        """Conjugation element."""
+        """Conjugation element (identity on the CI ring: slots are real)."""
+        if self.ring_type == "conjugate_invariant":
+            return 1
         return self.gal_mod - 1
 
     # ------------------------------------------------------------------ #

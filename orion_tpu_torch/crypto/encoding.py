@@ -1,6 +1,6 @@
 """Host-side CKKS encode/decode via the canonical embedding.
 
-Counterpart of `orion_tpu/crypto/encoding.py` (same code, standard ring).
+Counterpart of `orion_tpu/crypto/encoding.py` (same code, both rings).
 Like a real deployment, encode/decode/keygen/encrypt/decrypt are
 client-side host operations (numpy float64/bigint, exact integer
 handling); only homomorphic evaluation runs on the device.
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .context import CKKSContext
+from .ref import ci_lift_int
 
 # encode_batch: vectors per thread's group, and threads at most
 _ENCODE_GROUP = 16
@@ -31,6 +32,9 @@ _ENCODE_THREADS = 8
 class Encoder:
     def __init__(self, ctx: CKKSContext):
         self.ctx = ctx
+        # embedding runs in the NTT (lift) ring: degree n for the standard
+        # ring, 2n for conjugate-invariant (whose elements are the
+        # conjugation-symmetric half of the 2n ring: all slots real)
         self.emb_n = ctx.lift_n
         two_m = 2 * self.emb_n
         slots = ctx.slots
@@ -48,6 +52,8 @@ class Encoder:
 
         a_k = (2/M) * Re( sum_j v_j * conj(psi^(k e_j)) ), computed by
         placing v_j at spectrum position e_j and taking a length-2M FFT.
+        CI ring: v is real (slots = n); the resulting lift coefficients
+        are antisymmetric and the stored first n are returned.
         """
         m, two_m = self.emb_n, 2 * self.emb_n
         spec = np.zeros(two_m, dtype=np.complex128)
@@ -58,6 +64,8 @@ class Encoder:
     def coeffs_to_slots(self, a: np.ndarray) -> np.ndarray:
         """Canonical embedding: stored coeffs -> slot values."""
         two_m = 2 * self.emb_n
+        if self.ctx.ring_type == "conjugate_invariant":
+            a = ci_lift_int(np.asarray(a, dtype=np.float64))
         vals = np.fft.ifft(a, two_m) * two_m
         return vals[self.rot_group]
 

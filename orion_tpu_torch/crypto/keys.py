@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .context import CKKSContext
+from .ref import ci_lift_int
 
 
 class KeySwitchKey:
@@ -127,8 +128,13 @@ class KeyChest:
         k = k % self.ctx.gal_mod
         if k not in self.galois_keys:
             ctx = self.ctx
-            # automorphism over signed coeffs, exact on the +-1 entries
-            src = self.s_coeff
+            # automorphism over signed coeffs, exact on the +-1 entries;
+            # CI ring: apply in the 2n lift and project back (tau_k
+            # preserves conjugation-invariance)
+            if ctx.ring_type == "conjugate_invariant":
+                src = ci_lift_int(self.s_coeff)
+            else:
+                src = self.s_coeff
             m = src.shape[0]
             sk = np.zeros(m, dtype=np.int64)
             idx = (np.arange(m, dtype=np.int64) * k) % (2 * m)

@@ -34,6 +34,7 @@ from ..kernels import rescale as _rescale
 from ..kernels.ntt import (cluster_twiddles, ntt_fwd, ntt_inv,
                            packed_twiddles)
 from .context import CKKSContext, DigitTables, LevelKSTables
+from .ntt import CIMap
 
 __all__ = ["DevDigit", "RingRows", "DevLevel", "dev_level", "ring_ntt",
            "ring_intt", "fbc", "ks_decompose", "ks_finish", "keyswitch",
@@ -61,7 +62,10 @@ class RingRows:
     The kernels read the merged-psi twiddles with their Shoup companions,
     packed (`kernels.ntt.packed_twiddles` and `cluster_twiddles`, cached
     in `kernel_tables`);
-    the plain versions read the four-step tables `t4`."""
+    the plain versions read the four-step tables `t4`.  On the CI ring
+    the tables are the 2n lift's (N = 2n) and `ci` holds the orbit maps:
+    rows of residues are n wide, and every transform of them goes
+    through the lift (`crypto/ntt.py`)."""
     p: torch.Tensor               # (L,)
     tw: torch.Tensor              # (L, N)
     tw_shoup: torch.Tensor
@@ -71,6 +75,7 @@ class RingRows:
     ninv_shoup: torch.Tensor
     t4: dict
     kernel_tables: dict = field(default_factory=dict)
+    ci: CIMap | None = None       # the CI ring's orbit maps
 
     @classmethod
     def from_ctx(cls, ctx: CKKSContext, rows) -> "RingRows":
@@ -80,7 +85,17 @@ class RingRows:
         return cls(d["p"][idx], d["tw"][idx], d["tw_shoup"][idx],
                    d["itw"][idx], d["itw_shoup"][idx], d["ninv"][idx],
                    d["ninv_shoup"][idx],
-                   {k[3:]: d[k][idx] for k in ctx.t4_keys})
+                   {k[3:]: d[k][idx] for k in ctx.t4_keys}, ci=ctx.ci)
+
+    @property
+    def width(self) -> int:
+        """Residues per row: N, or n on the CI ring."""
+        return self.tw.shape[-1] if self.ci is None else self.ci.n
+
+    @property
+    def logn(self) -> int:
+        """log2 of the transform size (the lift's on the CI ring)."""
+        return self.tw.shape[-1].bit_length() - 1
 
     def rows(self, lo: int, hi: int) -> "RingRows":
         """Rows lo..hi-1 as views.  On the card the packed kernel tables
@@ -92,7 +107,8 @@ class RingRows:
                         self.itw[lo:hi], self.itw_shoup[lo:hi],
                         self.ninv[lo:hi], self.ninv_shoup[lo:hi],
                         {k: v[lo:hi] for k, v in self.t4.items()},
-                        {k: v[lo:hi] for k, v in self.kernel_tables.items()})
+                        {k: v[lo:hi] for k, v in self.kernel_tables.items()},
+                        self.ci)
 
 
 @dataclass
@@ -118,9 +134,11 @@ class DevLevel:
     qlast_half: int               # (q_l + 1) // 2
     ksk_rows: tuple               # global prime rows used by this level
     ksk_rows_idx: torch.Tensor    # the same, as an index tensor
-    ring_n: int
+    ring_n: int                   # stored coefficients per row
+    # the CI ring's orbit maps (None on the standard ring)
+    ci: CIMap | None = None
     # fused ModDown+rescale (divide by P*q_l in one basis conversion);
-    # None at level 0
+    # None at level 0 and on the CI ring
     dropdown: DevDigit | None = None
     dqinv: torch.Tensor | None = None
     dqinv_shoup: torch.Tensor | None = None
@@ -198,8 +216,11 @@ def _build_dev_level(ctx: CKKSContext, level: int) -> DevLevel:
         ksk_rows=tuple(t_rows),
         ksk_rows_idx=t_idx,
         ring_n=ctx.n,
+        ci=ctx.ci,
     )
-    if lt.dropdown is not None:
+    # the CI ring builds no drop-down tables (orion_tpu's dev_level), so
+    # its multiplies rescale through rescale_poly
+    if lt.dropdown is not None and ctx.ci is None:
         out.dropdown = _dev_digit(lt.dropdown, ctx)
         out.dqinv = _col(ctx, lt.dqinv_mod_q)
         out.dqinv_shoup = _col(ctx, lt.dqinv_mod_q_shoup)
@@ -217,12 +238,15 @@ def _build_dev_level(ctx: CKKSContext, level: int) -> DevLevel:
 
 def ring_ntt(a, rr: RingRows):
     """Forward NTT of (..., L, N) over the rows of `rr`: the `ntt_fwd`
-    kernel on a CUDA tensor, the four-step torch transform on the CPU."""
+    kernel on a CUDA tensor, the four-step torch transform on the CPU.
+    On the CI ring (`rr.ci`) the rows are n wide and go through the 2n
+    lift: the kernel's CI map, or `crypto.ntt.ci_ntt`."""
     return ntt_fwd(a.contiguous(), rr)
 
 
 def ring_intt(a, rr: RingRows):
-    """Inverse NTT (see ring_ntt): the `ntt_inv` kernel or `intt4`."""
+    """Inverse NTT (see ring_ntt): the `ntt_inv` kernel or `intt4`, on
+    the CI ring its map or `crypto.ntt.ci_intt`."""
     return ntt_inv(a.contiguous(), rr)
 
 

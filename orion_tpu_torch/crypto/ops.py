@@ -255,4 +255,6 @@ class Evaluator:
         return self._apply_galois(ct, self.ctx.galois_element(amount))
 
     def conjugate(self, ct: Ciphertext) -> Ciphertext:
+        if self.ctx.ring_type == "conjugate_invariant":
+            return ct  # slots are real; conjugation is the identity
         return self._apply_galois(ct, self.ctx.galois_element_conj())

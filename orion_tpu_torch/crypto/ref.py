@@ -207,3 +207,66 @@ class HostRing:
             out[..., i, :] = np.asarray(coeffs % self.rings[i].p,
                                         dtype=np.int64)
         return out
+
+
+# ------------------------------------------------------------------ #
+#  Conjugate-invariant ring (real slots)                             #
+# ------------------------------------------------------------------ #
+
+def ci_lift_int(a: np.ndarray, p=None) -> np.ndarray:
+    """Lift CI coefficients (..., n) to the 2n-degree standard ring.
+
+    A conjugate-invariant element f = a_0 + sum_i a_i (X^i + X^{-i}) of
+    Z[X]/(X^{2n}+1) has power-basis coefficients
+    (a_0, a_1, .., a_{n-1}, 0, -a_{n-1}, .., -a_1) since X^{-i} = -X^{2n-i}.
+    With `p` given (an int, or per-limb moduli broadcast over the last
+    axis), negation is mod p (residue inputs); otherwise signed.
+    """
+    tail = a[..., 1:][..., ::-1]
+    if p is None:
+        neg = -tail
+    else:
+        neg = np.where(tail == 0, 0, p - tail)
+    zeros = np.zeros(a.shape[:-1] + (1,), a.dtype)
+    return np.concatenate([a, zeros, neg], axis=-1)
+
+
+class CIHostRing:
+    """Conjugate-invariant host ring of degree n (real slots = n).
+
+    Elements are stored as n coefficients (the X^i + X^{-i} basis);
+    NTT/iNTT route through the 2n-degree standard ring: lift -> 2n NTT ->
+    keep the n orbit-representative positions (exponents 5^j mod 4n);
+    inverse: replicate each value onto both orbit positions (CI elements
+    take equal values at e and -e), 2n iNTT, project to the first n
+    coefficients (the tail is the lift's antisymmetric mirror).
+    """
+
+    def __init__(self, base: HostRing, n: int,
+                 keep: np.ndarray, src: np.ndarray):
+        self.base = base
+        self.primes = base.primes
+        self.rings = base.rings        # 2n-degree tables (device build)
+        self.n = n
+        self.keep = keep               # (n,) positions kept after 2n NTT
+        self.src = src                 # (2n,) CI slot feeding each position
+
+    def _moduli(self, a: np.ndarray) -> np.ndarray:
+        assert a.ndim >= 2 and a.shape[-1] == self.n, a.shape
+        return np.array(self.primes[: a.shape[-2]], np.int64)[:, None]
+
+    def ntt(self, a: np.ndarray) -> np.ndarray:
+        p = self._moduli(a)
+        return self.base.ntt(ci_lift_int(a, p))[..., self.keep]
+
+    def intt(self, a: np.ndarray) -> np.ndarray:
+        self._moduli(a)
+        return self.base.intt(a[..., self.src])[..., : self.n]
+
+    def reduce(self, coeffs: np.ndarray, num_limbs: int) -> np.ndarray:
+        out = np.zeros(coeffs.shape[:-1] + (num_limbs, self.n),
+                       dtype=np.int64)
+        for i in range(num_limbs):
+            out[..., i, :] = np.asarray(coeffs % self.rings[i].p,
+                                        dtype=np.int64)
+        return out

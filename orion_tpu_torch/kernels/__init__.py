@@ -5,15 +5,18 @@ build (`_build.py`) and their wrappers (`ntt.py`, `keyswitch.py`,
 Every wrapper launches its kernel on a CUDA tensor (or raises) and runs
 its plain PyTorch version on a CPU tensor.  `KERNELS` lists them with
 their launch and item counts (in all, and per level for the key-switch
-kernels).
+kernels); the `*_ci` entries are the same kernels run with the
+ConjugateInvariant ring's map, counted apart.
 """
 
-from .keyswitch import KS_DECOMPOSE, KS_FINISH
-from .ntt import NTT_FWD, NTT_INV
-from .rescale import DROP_INTT, DROP_NTT, RESCALE_NTT
+from .keyswitch import KS_DECOMPOSE, KS_DECOMPOSE_CI, KS_FINISH, KS_FINISH_CI
+from .ntt import NTT_FWD, NTT_FWD_CI, NTT_INV, NTT_INV_CI
+from .rescale import (DROP_INTT, DROP_INTT_CI, DROP_NTT, RESCALE_NTT,
+                      RESCALE_NTT_CI)
 
 KERNELS = (NTT_FWD, NTT_INV, KS_DECOMPOSE, KS_FINISH, DROP_INTT, DROP_NTT,
-           RESCALE_NTT)
+           RESCALE_NTT, NTT_FWD_CI, NTT_INV_CI, KS_DECOMPOSE_CI,
+           KS_FINISH_CI, DROP_INTT_CI, RESCALE_NTT_CI)
 
 
 def reset_launches() -> None:

@@ -27,6 +27,16 @@
 // re-reads the alpha source rows once per target row (n_t times), from L2.
 // The conversion and the transforms stay in registers and shared memory.
 //
+// On the ConjugateInvariant ring (CI = true, ci_pos non-null) rows hold n
+// residues and the transforms run at N = 2n through the map of
+// modarith.cuh: launch A gathers through ci_src and keeps n coefficients;
+// launch B converts those n coefficients, lifts the results into the 2n
+// transform (the mirror is the negated conversion of the same
+// coefficient, never a conversion of mirrored residues, whose float32
+// v-correction could round otherwise) and stores through ci_pos.  This is
+// orion_tpu's jnp key-switch on the CI ring, which its Pallas kernels
+// refuse (ks_pallas.py ks_supported).
+//
 // Table layouts (all contiguous int64 except srcq, float32):
 //   dig_lo, dig_alpha (dnum); qi, qi_sh, srcp, srcq (dnum, amax);
 //   conv, conv_sh (dnum, amax, n_t); dmod, dmod_sh (dnum, n_t);
@@ -37,37 +47,77 @@
 
 using namespace orion;
 
-template <int LOGN>
+template <int LOGN, bool CI>
 __global__ void __launch_bounds__(Ring<LOGN>::T) fbc_ntt_digits(
         int64_t* ext, const int64_t* coeff, int nl, int n_t, int dnum,
         int amax, const int64_t* dig_lo, const int64_t* dig_alpha,
         const int64_t* qi, const int64_t* qi_sh, const int64_t* srcp,
         const float* srcq, const int64_t* conv, const int64_t* conv_sh,
         const int64_t* dmod, const int64_t* dmod_sh, const int64_t* t_p,
-        const int64_t* t_twp) {
+        const int64_t* t_twp, const int64_t* ci_pos) {
     extern __shared__ uint32_t s[];
     constexpr int N = Ring<LOGN>::N;
+    constexpr int W = row_width<LOGN, CI>();
     const int t = blockIdx.x;
     const int d = blockIdx.y;
     const int64_t b = blockIdx.z;
     const uint32_t pt = (uint32_t)t_p[t];
     const int alpha = (int)dig_alpha[d];
-    const int64_t* z = coeff + (b * nl + dig_lo[d]) * N;
+    const int64_t* z = coeff + (b * nl + dig_lo[d]) * W;
     const int64_t dg = (int64_t)d * amax;
     const int64_t* cv = conv + dg * n_t + t;
     const int64_t* cv_sh = conv_sh + dg * n_t + t;
     const uint32_t dm = (uint32_t)dmod[(int64_t)d * n_t + t];
     const uint32_t dm_sh = (uint32_t)dmod_sh[(int64_t)d * n_t + t];
-    int64_t* dst = ext + ((b * dnum + d) * n_t + t) * N;
+    int64_t* dst = ext + ((b * dnum + d) * n_t + t) * W;
     ntt_fwd_row<LOGN>(
         s, t_twp + (int64_t)t * N, pt,
         [&](int i) {
-            return fbc_one(z + i, N, alpha, qi + dg, qi_sh + dg, srcp + dg,
-                           srcq + dg, cv, cv_sh, n_t, dm, dm_sh, pt);
+            return lift_at<CI>(
+                [&](int k) {
+                    return fbc_one(z + k, W, alpha, qi + dg, qi_sh + dg,
+                                   srcp + dg, srcq + dg, cv, cv_sh, n_t, dm,
+                                   dm_sh, pt);
+                },
+                i, W, pt);
         },
-        [&](int i, uint32_t v) { dst[i] = v; });
+        [&](int i, uint32_t v) {
+            keep_at<CI>(ci_pos, i, [&](int k) { dst[k] = v; });
+        });
 }
 
+template <bool CI>
+static int decompose_launch(
+        int64_t* ext, int64_t* coeff, const int64_t* c, int batch, int nl,
+        int n_t, int dnum, int amax, int logn, const int64_t* dig_lo,
+        const int64_t* dig_alpha, const int64_t* qi, const int64_t* qi_sh,
+        const int64_t* srcp, const float* srcq, const int64_t* conv,
+        const int64_t* conv_sh, const int64_t* dmod, const int64_t* dmod_sh,
+        const int64_t* t_p, const int64_t* t_twp, const int64_t* t_itwp,
+        const int64_t* t_ninv, const int64_t* t_ninv_sh,
+        const int64_t* ci_src, const int64_t* ci_pos, cudaStream_t st) {
+    return (int)with_logn(logn, [&](auto cst) {
+        constexpr int LOGN = decltype(cst)::value;
+        using RG = Ring<LOGN>;
+        cudaError_t e = allow_smem(ntt_inv_rows<LOGN, CI>, RG::SMEM);
+        if (e == cudaSuccess)
+            e = allow_smem(fbc_ntt_digits<LOGN, CI>, RG::SMEM);
+        if (e != cudaSuccess) return e;
+        // A: the Q rows are the first nl rows of the target tables
+        ntt_inv_rows<LOGN, CI><<<dim3(nl, batch), RG::T, RG::SMEM, st>>>(
+            coeff, c, nl, t_p, t_itwp, t_ninv, t_ninv_sh, ci_src);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return e;
+        // B
+        fbc_ntt_digits<LOGN, CI><<<dim3(n_t, dnum, batch), RG::T, RG::SMEM,
+                                   st>>>(
+            ext, coeff, nl, n_t, dnum, amax, dig_lo, dig_alpha, qi, qi_sh,
+            srcp, srcq, conv, conv_sh, dmod, dmod_sh, t_p, t_twp, ci_pos);
+        return cudaGetLastError();
+    });
+}
+
+// ci_src, ci_pos: the CI ring's map (logn then the lift's), or both null.
 extern "C" int orion_ks_decompose(
         int64_t* ext, int64_t* coeff, const int64_t* c, int batch, int nl,
         int n_t, int dnum, int amax, int logn, const int64_t* dig_lo,
@@ -75,24 +125,12 @@ extern "C" int orion_ks_decompose(
         const int64_t* srcp, const float* srcq, const int64_t* conv,
         const int64_t* conv_sh, const int64_t* dmod, const int64_t* dmod_sh,
         const int64_t* t_p, const int64_t* t_twp, const int64_t* t_itwp,
-        const int64_t* t_ninv, const int64_t* t_ninv_sh, void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    return (int)with_logn(logn, [&](auto cst) {
-        constexpr int LOGN = decltype(cst)::value;
-        using RG = Ring<LOGN>;
-        cudaError_t e = allow_smem(ntt_inv_rows<LOGN>, RG::SMEM);
-        if (e == cudaSuccess) e = allow_smem(fbc_ntt_digits<LOGN>, RG::SMEM);
-        if (e != cudaSuccess) return e;
-        // A: the Q rows are the first nl rows of the target tables
-        ntt_inv_rows<LOGN><<<dim3(nl, batch), RG::T, RG::SMEM, st>>>(
-            coeff, c, nl, t_p, t_itwp, t_ninv, t_ninv_sh);
-        e = cudaGetLastError();
-        if (e != cudaSuccess) return e;
-        // B
-        fbc_ntt_digits<LOGN><<<dim3(n_t, dnum, batch), RG::T, RG::SMEM,
-                               st>>>(
-            ext, coeff, nl, n_t, dnum, amax, dig_lo, dig_alpha, qi, qi_sh,
-            srcp, srcq, conv, conv_sh, dmod, dmod_sh, t_p, t_twp);
-        return cudaGetLastError();
-    });
+        const int64_t* t_ninv, const int64_t* t_ninv_sh,
+        const int64_t* ci_src, const int64_t* ci_pos, void* stream) {
+    auto launch = ci_pos != nullptr ? decompose_launch<true>
+                                    : decompose_launch<false>;
+    return launch(ext, coeff, c, batch, nl, n_t, dnum, amax, logn, dig_lo,
+                  dig_alpha, qi, qi_sh, srcp, srcq, conv, conv_sh, dmod,
+                  dmod_sh, t_p, t_twp, t_itwp, t_ninv, t_ninv_sh, ci_src,
+                  ci_pos, (cudaStream_t)stream);
 }

@@ -36,6 +36,15 @@
 // the other poly finds it in L2.  The work buffer (K, 2, n_t, N) makes one
 // round trip.  Everything else stays in registers and shared memory.
 
+// On the ConjugateInvariant ring (CI = true, ci_pos non-null) rows hold n
+// residues and the transforms run at N = 2n through the map of
+// modarith.cuh: launch A's inner product covers the n positions, and a
+// special row's result goes to a second shared buffer, from which the 2n
+// inverse gathers (through ci_src) and keeps n coefficients; launch B
+// converts those n coefficients, lifts the results into the 2n transform
+// and stores through ci_pos.  This is orion_tpu's jnp key-switch on the
+// CI ring, which its Pallas kernels refuse (ks_pallas.py ks_supported).
+
 #include "modarith.cuh"
 
 using namespace orion;
@@ -44,7 +53,15 @@ __device__ __forceinline__ longlong2 ld2(const int64_t* p) {
     return __ldg(reinterpret_cast<const longlong2*>(p));
 }
 
-template <int LOGN>
+// Shared memory of ks_inner_intt: the transform's, and on the CI ring a
+// second buffer of the n inner products its inverse gathers from.
+template <int LOGN, bool CI>
+constexpr size_t inner_smem() {
+    return Ring<LOGN>::SMEM
+           + (CI ? sizeof(uint32_t) * row_width<LOGN, CI>() : 0);
+}
+
+template <int LOGN, bool CI>
 __global__ void __launch_bounds__(Ring<LOGN>::T) ks_inner_intt(
         int64_t* __restrict__ work, const int64_t* __restrict__ ext,
         int ext_item, const int64_t* __restrict__ ksk,
@@ -52,10 +69,14 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) ks_inner_intt(
         int kdig, int krows, const int64_t* row_map, int nl, int n_t,
         int dnum, int moddown, const int64_t* t_p, const int64_t* t_pinv,
         const int64_t* t_rmod, const int64_t* t_rsh, const int64_t* t_itwp,
-        const int64_t* t_ninv, const int64_t* t_ninv_sh) {
+        const int64_t* t_ninv, const int64_t* t_ninv_sh,
+        const int64_t* ci_src) {
     extern __shared__ uint32_t s[];
     using RG = Ring<LOGN>;
     constexpr int N = RG::N;
+    constexpr int W = row_width<LOGN, CI>();
+    // the CI inner products, apart from the buffer the passes write
+    uint32_t* acc = CI ? s + RG::SMEM / sizeof(uint32_t) : s;
     const int t = blockIdx.x;
     const int q = blockIdx.y;
     const int64_t k = blockIdx.z;
@@ -65,14 +86,14 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) ks_inner_intt(
     const uint32_t rm = (uint32_t)t_rmod[t];
     const uint32_t rsh = (uint32_t)t_rsh[t];
     const bool special = moddown && t >= nl;
-    const int64_t* e_row = ext + k * ext_item + (int64_t)t * N;
-    const int64_t e_dig = (int64_t)n_t * N;
-    const int64_t k_off = key_idx[k] * ((int64_t)kdig * 2 * krows * N)
-                          + ((int64_t)q * krows + row_map[t]) * N;
-    const int64_t k_dig = (int64_t)2 * krows * N;
-    int64_t* dst = work + ((k * 2 + q) * n_t + t) * N;
+    const int64_t* e_row = ext + k * ext_item + (int64_t)t * W;
+    const int64_t e_dig = (int64_t)n_t * W;
+    const int64_t k_off = key_idx[k] * ((int64_t)kdig * 2 * krows * W)
+                          + ((int64_t)q * krows + row_map[t]) * W;
+    const int64_t k_dig = (int64_t)2 * krows * W;
+    int64_t* dst = work + ((k * 2 + q) * n_t + t) * W;
 #pragma unroll
-    for (int r = 0; r < RG::R / 2; ++r) {
+    for (int r = 0; r < RG::R * W / N / 2; ++r) {
         const int i = 2 * ((int)threadIdx.x + r * RG::T);
         uint32_t a0 = 0, a1 = 0;
 #pragma unroll 4
@@ -98,8 +119,8 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) ks_inner_intt(
             a1 = add_mod(a1, t1, p);
         }
         if (special) {
-            s[pad(i)] = a0;
-            s[pad(i + 1)] = a1;
+            acc[CI ? i : pad(i)] = a0;
+            acc[CI ? i + 1 : pad(i + 1)] = a1;
         } else {
             *reinterpret_cast<longlong2*>(dst + i) =
                 make_longlong2((long long)a0, (long long)a1);
@@ -110,28 +131,35 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) ks_inner_intt(
     const uint32_t nv = (uint32_t)t_ninv[t];
     const uint32_t nv_sh = (uint32_t)t_ninv_sh[t];
     ntt_inv_row<LOGN>(
-        s, t_itwp + (int64_t)t * N, p, [&](int i) { return s[pad(i)]; },
-        [&](int i, uint32_t v) { dst[i] = shoup_mul(v, nv, nv_sh, p); });
+        s, t_itwp + (int64_t)t * N, p,
+        [&](int i) {
+            return CI ? acc[gather_at<CI>(ci_src, i)] : s[pad(i)];
+        },
+        [&](int i, uint32_t v) {
+            if (!CI || i < W) dst[i] = shoup_mul(v, nv, nv_sh, p);
+        });
 }
 
-template <int LOGN>
+template <int LOGN, bool CI>
 __global__ void __launch_bounds__(Ring<LOGN>::T) moddown_rows(
         int64_t* out, const int64_t* work, int nl, int n_t, int n_sp,
         const int64_t* md_qi, const int64_t* md_qi_sh,
         const int64_t* md_srcp, const float* md_srcq, const int64_t* md_conv,
         const int64_t* md_conv_sh, const int64_t* md_dmod,
         const int64_t* md_dmod_sh, const int64_t* pinv_q,
-        const int64_t* pinv_q_sh, const int64_t* t_p, const int64_t* t_twp) {
+        const int64_t* pinv_q_sh, const int64_t* t_p, const int64_t* t_twp,
+        const int64_t* ci_pos) {
     extern __shared__ uint32_t s[];
     constexpr int N = Ring<LOGN>::N;
+    constexpr int W = row_width<LOGN, CI>();
     const int i = blockIdx.x;
     const int q = blockIdx.y;
     const int64_t k = blockIdx.z;
     const uint32_t p = (uint32_t)t_p[i];
-    const int64_t* poly = work + (k * 2 + q) * n_t * N;
-    const int64_t* sp = poly + (int64_t)nl * N;
-    const int64_t* qrow = poly + (int64_t)i * N;
-    int64_t* dst = out + ((k * 2 + q) * nl + i) * N;
+    const int64_t* poly = work + (k * 2 + q) * n_t * W;
+    const int64_t* sp = poly + (int64_t)nl * W;
+    const int64_t* qrow = poly + (int64_t)i * W;
+    int64_t* dst = out + ((k * 2 + q) * nl + i) * W;
     const uint32_t dm = (uint32_t)md_dmod[i];
     const uint32_t dm_sh = (uint32_t)md_dmod_sh[i];
     const uint32_t pv = (uint32_t)pinv_q[i];
@@ -139,16 +167,60 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) moddown_rows(
     ntt_fwd_row<LOGN>(
         s, t_twp + (int64_t)i * N, p,
         [&](int c) {
-            return fbc_one(sp + c, N, n_sp, md_qi, md_qi_sh, md_srcp,
-                           md_srcq, md_conv + i, md_conv_sh + i, nl, dm,
-                           dm_sh, p);
+            return lift_at<CI>(
+                [&](int m) {
+                    return fbc_one(sp + m, W, n_sp, md_qi, md_qi_sh,
+                                   md_srcp, md_srcq, md_conv + i,
+                                   md_conv_sh + i, nl, dm, dm_sh, p);
+                },
+                c, W, p);
         },
         [&](int c, uint32_t v) {
-            dst[c] = shoup_mul(sub_mod((uint32_t)qrow[c], v, p), pv, pv_sh,
-                               p);
+            keep_at<CI>(ci_pos, c, [&](int m) {
+                dst[m] = shoup_mul(sub_mod((uint32_t)qrow[m], v, p), pv,
+                                   pv_sh, p);
+            });
         });
 }
 
+template <bool CI>
+static int finish_launch(
+        int64_t* out, int64_t* work, const int64_t* ext, int ext_item,
+        const int64_t* ksk, const int64_t* ksk_sh, const int64_t* key_idx,
+        const int64_t* row_map, int items, int kdig, int krows, int nl,
+        int n_t, int dnum, int logn, int moddown, const int64_t* t_p,
+        const int64_t* t_pinv, const int64_t* t_rmod, const int64_t* t_rsh,
+        const int64_t* t_twp, const int64_t* t_itwp, const int64_t* t_ninv,
+        const int64_t* t_ninv_sh, const int64_t* md_qi,
+        const int64_t* md_qi_sh, const int64_t* md_srcp,
+        const float* md_srcq, const int64_t* md_conv,
+        const int64_t* md_conv_sh, const int64_t* md_dmod,
+        const int64_t* md_dmod_sh, const int64_t* pinv_q,
+        const int64_t* pinv_q_sh, const int64_t* ci_src,
+        const int64_t* ci_pos, cudaStream_t st) {
+    return (int)with_logn(logn, [&](auto c) {
+        constexpr int LOGN = decltype(c)::value;
+        using RG = Ring<LOGN>;
+        constexpr size_t smem_a = inner_smem<LOGN, CI>();
+        cudaError_t e = allow_smem(ks_inner_intt<LOGN, CI>, smem_a);
+        if (e == cudaSuccess)
+            e = allow_smem(moddown_rows<LOGN, CI>, RG::SMEM);
+        if (e != cudaSuccess) return e;
+        ks_inner_intt<LOGN, CI><<<dim3(n_t, 2, items), RG::T, smem_a, st>>>(
+            work, ext, ext_item, ksk, ksk_sh, key_idx, kdig, krows, row_map,
+            nl, n_t, dnum, moddown, t_p, t_pinv, t_rmod, t_rsh, t_itwp,
+            t_ninv, t_ninv_sh, ci_src);
+        e = cudaGetLastError();
+        if (e != cudaSuccess || !moddown) return e;
+        moddown_rows<LOGN, CI><<<dim3(nl, 2, items), RG::T, RG::SMEM, st>>>(
+            out, work, nl, n_t, n_t - nl, md_qi, md_qi_sh, md_srcp, md_srcq,
+            md_conv, md_conv_sh, md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, t_p,
+            t_twp, ci_pos);
+        return cudaGetLastError();
+    });
+}
+
+// ci_src, ci_pos: the CI ring's map (logn then the lift's), or both null.
 extern "C" int orion_ks_finish(
         int64_t* out, int64_t* work, const int64_t* ext, int ext_item,
         const int64_t* ksk, const int64_t* ksk_sh, const int64_t* key_idx,
@@ -161,24 +233,14 @@ extern "C" int orion_ks_finish(
         const float* md_srcq, const int64_t* md_conv,
         const int64_t* md_conv_sh, const int64_t* md_dmod,
         const int64_t* md_dmod_sh, const int64_t* pinv_q,
-        const int64_t* pinv_q_sh, void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    return (int)with_logn(logn, [&](auto c) {
-        constexpr int LOGN = decltype(c)::value;
-        using RG = Ring<LOGN>;
-        cudaError_t e = allow_smem(ks_inner_intt<LOGN>, RG::SMEM);
-        if (e == cudaSuccess) e = allow_smem(moddown_rows<LOGN>, RG::SMEM);
-        if (e != cudaSuccess) return e;
-        ks_inner_intt<LOGN><<<dim3(n_t, 2, items), RG::T, RG::SMEM, st>>>(
-            work, ext, ext_item, ksk, ksk_sh, key_idx, kdig, krows, row_map,
-            nl, n_t, dnum, moddown, t_p, t_pinv, t_rmod, t_rsh, t_itwp,
-            t_ninv, t_ninv_sh);
-        e = cudaGetLastError();
-        if (e != cudaSuccess || !moddown) return e;
-        moddown_rows<LOGN><<<dim3(nl, 2, items), RG::T, RG::SMEM, st>>>(
-            out, work, nl, n_t, n_t - nl, md_qi, md_qi_sh, md_srcp, md_srcq,
-            md_conv, md_conv_sh, md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, t_p,
-            t_twp);
-        return cudaGetLastError();
-    });
+        const int64_t* pinv_q_sh, const int64_t* ci_src,
+        const int64_t* ci_pos, void* stream) {
+    auto launch = ci_pos != nullptr ? finish_launch<true>
+                                    : finish_launch<false>;
+    return launch(out, work, ext, ext_item, ksk, ksk_sh, key_idx, row_map,
+                  items, kdig, krows, nl, n_t, dnum, logn, moddown, t_p,
+                  t_pinv, t_rmod, t_rsh, t_twp, t_itwp, t_ninv, t_ninv_sh,
+                  md_qi, md_qi_sh, md_srcp, md_srcq, md_conv, md_conv_sh,
+                  md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, ci_src, ci_pos,
+                  (cudaStream_t)stream);
 }

@@ -279,27 +279,86 @@ __device__ __forceinline__ uint32_t fbc_one(
     return sub_mod(acc, shoup_mul(v, dmod, dmod_sh, pt), pt);
 }
 
+// ------------------------------------------------------------------ //
+//  The ConjugateInvariant ring's map                                 //
+// ------------------------------------------------------------------ //
+//
+// On the CI ring of degree n a row stores n residues, and every transform
+// runs at N = 2n on the antisymmetric lift (crypto/ntt.py):
+//   forward: input i of the 2n transform is a_i (i < n), 0 (i = n), or
+//            -a_{2n-i} mod p (i > n), 0 staying 0; of its outputs only the
+//            n orbit positions are kept, output g going to CI slot pos[g]
+//            (pos[g] = -1: dropped);
+//   inverse: input g is CI slot src[g]; of its outputs the first n are
+//            kept.
+// A kernel instantiated with CI = true applies the map in its load and
+// store functors; the standard ring's kernels (CI = false) are unchanged.
+
+// Stored residues per row: N, or n = N / 2 on the CI ring.
+template <int LOGN, bool CI>
+__host__ __device__ constexpr int row_width() {
+    return CI ? (1 << LOGN) / 2 : 1 << LOGN;
+}
+
+// Input i of the forward transform: at(i) on the standard ring, the
+// antisymmetric lift of the n values at(k) on the CI ring.
+template <bool CI, class At>
+__device__ __forceinline__ uint32_t lift_at(At at, int i, int n,
+                                            uint32_t p) {
+    if constexpr (CI) {
+        if (i < n) return at(i);
+        if (i == n) return 0u;
+        const uint32_t t = at(2 * n - i);
+        return t == 0u ? 0u : p - t;
+    } else {
+        return at(i);
+    }
+}
+
+// Output g of the forward transform: put(g) on the standard ring, put(j)
+// for the CI slot j = pos[g] it holds on the CI ring, or nothing.
+template <bool CI, class Put>
+__device__ __forceinline__ void keep_at(const int64_t* pos, int g, Put put) {
+    if constexpr (CI) {
+        const int64_t j = pos[g];
+        if (j >= 0) put((int)j);
+    } else {
+        put(g);
+    }
+}
+
+// Input g of the inverse transform: the stored index it reads.
+template <bool CI>
+__device__ __forceinline__ int gather_at(const int64_t* src, int g) {
+    if constexpr (CI) return (int)src[g];
+    else return g;
+}
+
 // Inverse row transforms: block (x, y) handles row r = y * gridDim.x + x
-// of a (rows, N) int64 array whose limb (table row) is r % L.  in and out
+// of a (rows, W) int64 array whose limb (table row) is r % L, W =
+// row_width<LOGN, CI>; on the CI ring through the map (src).  in and out
 // may alias: a block reads its whole row before its first write.
-template <int LOGN>
+template <int LOGN, bool CI>
 __global__ void __launch_bounds__(Ring<LOGN>::T)
 ntt_inv_rows(int64_t* out, const int64_t* in, int L, const int64_t* p,
              const int64_t* itwp, const int64_t* ninv,
-             const int64_t* ninv_sh) {
+             const int64_t* ninv_sh, const int64_t* ci_src) {
     extern __shared__ uint32_t s[];
     constexpr int N = Ring<LOGN>::N;
+    constexpr int W = row_width<LOGN, CI>();
     const int64_t row = (int64_t)blockIdx.y * gridDim.x + blockIdx.x;
     const int limb = (int)(row % L);
     const uint32_t pl = (uint32_t)p[limb];
     const uint32_t nv = (uint32_t)ninv[limb];
     const uint32_t nv_sh = (uint32_t)ninv_sh[limb];
-    const int64_t* src = in + row * N;
-    int64_t* dst = out + row * N;
+    const int64_t* src = in + row * W;
+    int64_t* dst = out + row * W;
     ntt_inv_row<LOGN>(
         s, itwp + (int64_t)limb * N, pl,
-        [&](int i) { return (uint32_t)src[i]; },
-        [&](int i, uint32_t v) { dst[i] = shoup_mul(v, nv, nv_sh, pl); });
+        [&](int i) { return (uint32_t)src[gather_at<CI>(ci_src, i)]; },
+        [&](int i, uint32_t v) {
+            if (!CI || i < W) dst[i] = shoup_mul(v, nv, nv_sh, pl);
+        });
 }
 
 // Allow more than the default 48 KB of dynamic shared memory when a row

@@ -11,6 +11,12 @@
 //   rescale_ntt: launch B of rescale_poly - the centered lift of the last
 //                limb to q_j, the forward NTT, (c_j - lift) * q_l^-1.
 //
+// ntt_fwd, ntt_inv, drop_intt and rescale_ntt also come with the
+// ConjugateInvariant ring's map (CI = true, modarith.cuh): rows of n
+// stored residues, transforms at N = 2n on their lift, as orion_tpu's
+// ring_ntt / ring_intt run the Pallas transforms on the CI ring.
+// drop_ntt has no CI form: the CI ring builds no drop-down tables.
+//
 // Replaces orion_tpu/crypto/ks_pallas.py pallas_ntt4 (body _kntt) and
 // pallas_intt4 (body _kintt), which run the four-step transform on an
 // (R, 128) VMEM tile with rolls and selects, and the jnp epilogues around
@@ -37,58 +43,81 @@ using namespace orion;
     template <int LOGN>    \
     __global__ void __launch_bounds__(Split<LOGN>::T) name
 
-SPLIT_KERNEL(ntt_fwd_cluster)(int64_t* out, const int64_t* in, int L,
-                              const int64_t* p, const int64_t* twc) {
+// The same, also instantiated with the CI map.
+#define SPLIT_KERNEL_CI(name)       \
+    template <int LOGN, bool CI>    \
+    __global__ void __launch_bounds__(Split<LOGN>::T) name
+
+// Row strides below are W = row_width<LOGN, CI>: N, or n = N / 2 on CI.
+SPLIT_KERNEL_CI(ntt_fwd_cluster)(int64_t* out, const int64_t* in, int L,
+                                 const int64_t* p, const int64_t* twc,
+                                 const int64_t* ci_pos) {
     extern __shared__ uint32_t s[];
     constexpr int N = 1 << LOGN;
+    constexpr int W = row_width<LOGN, CI>();
     const int64_t row = blockIdx.x / Split<LOGN>::C;
     const int limb = (int)(row % L);
-    const int64_t* src = in + row * N;
-    int64_t* dst = out + row * N;
+    const uint32_t pl = (uint32_t)p[limb];
+    const int64_t* src = in + row * W;
+    int64_t* dst = out + row * W;
     ntt_fwd_split<LOGN>(
-        s, twc + (int64_t)limb * N, (uint32_t)p[limb],
-        [&](int i) { return (uint32_t)src[i]; },
-        [&](int i, uint32_t v) { dst[i] = v; });
+        s, twc + (int64_t)limb * N, pl,
+        [&](int i) {
+            return lift_at<CI>([&](int k) { return (uint32_t)src[k]; }, i,
+                               W, pl);
+        },
+        [&](int i, uint32_t v) {
+            keep_at<CI>(ci_pos, i, [&](int j) { dst[j] = v; });
+        });
 }
 
-SPLIT_KERNEL(ntt_inv_cluster)(int64_t* out, const int64_t* in, int L,
-                              const int64_t* p, const int64_t* itwc,
-                              const int64_t* ninv, const int64_t* ninv_sh) {
+SPLIT_KERNEL_CI(ntt_inv_cluster)(int64_t* out, const int64_t* in, int L,
+                                 const int64_t* p, const int64_t* itwc,
+                                 const int64_t* ninv,
+                                 const int64_t* ninv_sh,
+                                 const int64_t* ci_src) {
     extern __shared__ uint32_t s[];
     constexpr int N = 1 << LOGN;
+    constexpr int W = row_width<LOGN, CI>();
     const int64_t row = blockIdx.x / Split<LOGN>::C;
     const int limb = (int)(row % L);
     const uint32_t pl = (uint32_t)p[limb];
     const uint32_t nv = (uint32_t)ninv[limb];
     const uint32_t nv_sh = (uint32_t)ninv_sh[limb];
-    const int64_t* src = in + row * N;
-    int64_t* dst = out + row * N;
+    const int64_t* src = in + row * W;
+    int64_t* dst = out + row * W;
     ntt_inv_split<LOGN>(
         s, itwc + (int64_t)limb * N, pl,
-        [&](int i) { return (uint32_t)src[i]; },
-        [&](int i, uint32_t v) { dst[i] = shoup_mul(v, nv, nv_sh, pl); });
+        [&](int i) { return (uint32_t)src[gather_at<CI>(ci_src, i)]; },
+        [&](int i, uint32_t v) {
+            if (!CI || i < W) dst[i] = shoup_mul(v, nv, nv_sh, pl);
+        });
 }
 
-// z (groups, L, N) uint32 = n^-1 iNTT of in[g, rmap[d]], in (groups,
-// n_src, N) int64; cluster (g, d) in row-major order.
-SPLIT_KERNEL(drop_intt_rows)(uint32_t* z, const int64_t* in, int n_src,
-                             int L, const int64_t* rmap, const int64_t* p,
-                             const int64_t* itwc, const int64_t* ninv,
-                             const int64_t* ninv_sh) {
+// z (groups, L, W) uint32 = n^-1 iNTT of in[g, rmap[d]], in (groups,
+// n_src, W) int64; cluster (g, d) in row-major order.
+SPLIT_KERNEL_CI(drop_intt_rows)(uint32_t* z, const int64_t* in, int n_src,
+                                int L, const int64_t* rmap, const int64_t* p,
+                                const int64_t* itwc, const int64_t* ninv,
+                                const int64_t* ninv_sh,
+                                const int64_t* ci_src) {
     extern __shared__ uint32_t s[];
     constexpr int N = 1 << LOGN;
+    constexpr int W = row_width<LOGN, CI>();
     const int64_t row = blockIdx.x / Split<LOGN>::C;
     const int64_t g = row / L;
     const int d = (int)(row % L);
     const uint32_t pd = (uint32_t)p[d];
     const uint32_t nv = (uint32_t)ninv[d];
     const uint32_t nv_sh = (uint32_t)ninv_sh[d];
-    const int64_t* src = in + (g * n_src + rmap[d]) * N;
-    uint32_t* dst = z + row * N;
+    const int64_t* src = in + (g * n_src + rmap[d]) * W;
+    uint32_t* dst = z + row * W;
     ntt_inv_split<LOGN>(
         s, itwc + (int64_t)d * N, pd,
-        [&](int i) { return (uint32_t)src[i]; },
-        [&](int i, uint32_t v) { dst[i] = shoup_mul(v, nv, nv_sh, pd); });
+        [&](int i) { return (uint32_t)src[gather_at<CI>(ci_src, i)]; },
+        [&](int i, uint32_t v) {
+            if (!CI || i < W) dst[i] = shoup_mul(v, nv, nv_sh, pd);
+        });
 }
 
 // out (groups, l, N) = (acc[g, j] - NTT(fbc(z[g]) -> q_j)) * scale_j mod
@@ -126,17 +155,21 @@ SPLIT_KERNEL(drop_lift_ntt)(int64_t* out, const int64_t* acc,
         });
 }
 
-// out (groups, l, N) = (c[g, j] - NTT(lift_j(z[g]))) * scale_j mod q_j,
-// c (groups, n_src, N), z (groups, 1, N) the last limb in coefficients;
-// lift_j(x) = x mod q_j - [x >= half] * (q_l mod q_j), the centered lift.
-SPLIT_KERNEL(rescale_lift_ntt)(int64_t* out, const int64_t* c,
-                               const uint32_t* z, int n_src, int l,
-                               int half, const int64_t* p,
-                               const int64_t* twc, const int64_t* qlast_mod,
-                               const int64_t* scale,
-                               const int64_t* scale_sh) {
+// out (groups, l, W) = (c[g, j] - NTT(lift_j(z[g]))) * scale_j mod q_j,
+// c (groups, n_src, W), z (groups, 1, W) the last limb in coefficients;
+// lift_j(x) = x mod q_j - [x >= half] * (q_l mod q_j), the centered lift
+// (on the CI ring then lifted to 2n, and stored through the map).
+SPLIT_KERNEL_CI(rescale_lift_ntt)(int64_t* out, const int64_t* c,
+                                  const uint32_t* z, int n_src, int l,
+                                  int half, const int64_t* p,
+                                  const int64_t* twc,
+                                  const int64_t* qlast_mod,
+                                  const int64_t* scale,
+                                  const int64_t* scale_sh,
+                                  const int64_t* ci_pos) {
     extern __shared__ uint32_t s[];
     constexpr int N = 1 << LOGN;
+    constexpr int W = row_width<LOGN, CI>();
     const int64_t row = blockIdx.x / Split<LOGN>::C;
     const int64_t g = row / l;
     const int j = (int)(row % l);
@@ -144,18 +177,25 @@ SPLIT_KERNEL(rescale_lift_ntt)(int64_t* out, const int64_t* c,
     const uint32_t qm = (uint32_t)qlast_mod[j];
     const uint32_t sc = (uint32_t)scale[j];
     const uint32_t sc_sh = (uint32_t)scale_sh[j];
-    const uint32_t* zg = z + g * N;
-    const int64_t* a = c + (g * n_src + j) * N;
-    int64_t* dst = out + row * N;
+    const uint32_t* zg = z + g * W;
+    const int64_t* a = c + (g * n_src + j) * W;
+    int64_t* dst = out + row * W;
     ntt_fwd_split<LOGN>(
         s, twc + (int64_t)j * N, pj,
         [&](int i) {
-            const uint32_t x = zg[i];
-            return sub_mod(x % pj, x >= (uint32_t)half ? qm : 0u, pj);
+            return lift_at<CI>(
+                [&](int k) {
+                    const uint32_t x = zg[k];
+                    return sub_mod(x % pj, x >= (uint32_t)half ? qm : 0u,
+                                   pj);
+                },
+                i, W, pj);
         },
         [&](int i, uint32_t v) {
-            dst[i] = shoup_mul(sub_mod((uint32_t)a[i], v, pj), sc, sc_sh,
-                               pj);
+            keep_at<CI>(ci_pos, i, [&](int k) {
+                dst[k] = shoup_mul(sub_mod((uint32_t)a[k], v, pj), sc,
+                                   sc_sh, pj);
+            });
         });
 }
 
@@ -168,27 +208,60 @@ extern "C" int orion_ntt_cluster_size(int logn) {
     return c;
 }
 
+template <bool CI>
+static int ntt_fwd_launch(int64_t* out, const int64_t* in, int rows, int L,
+                          int logn, const int64_t* p, const int64_t* twc,
+                          const int64_t* ci_pos, void* stream) {
+    return (int)with_logn(logn, [&](auto k) {
+        constexpr int LOGN = decltype(k)::value;
+        return launch_split<LOGN>(ntt_fwd_cluster<LOGN, CI>, rows,
+                                  Split<LOGN>::SMEM_FWD, (cudaStream_t)stream,
+                                  out, in, L, p, twc, ci_pos);
+    });
+}
+
+template <bool CI>
+static int ntt_inv_launch(int64_t* out, const int64_t* in, int rows, int L,
+                          int logn, const int64_t* p, const int64_t* itwc,
+                          const int64_t* ninv, const int64_t* ninv_sh,
+                          const int64_t* ci_src, void* stream) {
+    return (int)with_logn(logn, [&](auto k) {
+        constexpr int LOGN = decltype(k)::value;
+        return launch_split<LOGN>(ntt_inv_cluster<LOGN, CI>, rows,
+                                  Split<LOGN>::SMEM_INV, (cudaStream_t)stream,
+                                  out, in, L, p, itwc, ninv, ninv_sh,
+                                  ci_src);
+    });
+}
+
+template <bool CI>
+static int drop_intt_launch(uint32_t* z, const int64_t* in, int groups,
+                            int n_src, int L, int logn, const int64_t* rmap,
+                            const int64_t* p, const int64_t* itwc,
+                            const int64_t* ninv, const int64_t* ninv_sh,
+                            const int64_t* ci_src, void* stream) {
+    return (int)with_logn(logn, [&](auto k) {
+        constexpr int LOGN = decltype(k)::value;
+        return launch_split<LOGN>(drop_intt_rows<LOGN, CI>,
+                                  (int64_t)groups * L, Split<LOGN>::SMEM_INV,
+                                  (cudaStream_t)stream, z, in, n_src, L,
+                                  rmap, p, itwc, ninv, ninv_sh, ci_src);
+    });
+}
+
 extern "C" int orion_ntt_fwd(int64_t* out, const int64_t* in, int rows,
                              int L, int logn, const int64_t* p,
                              const int64_t* twc, void* stream) {
-    return (int)with_logn(logn, [&](auto k) {
-        constexpr int LOGN = decltype(k)::value;
-        return launch_split<LOGN>(ntt_fwd_cluster<LOGN>, rows,
-                                  Split<LOGN>::SMEM_FWD, (cudaStream_t)stream,
-                                  out, in, L, p, twc);
-    });
+    return ntt_fwd_launch<false>(out, in, rows, L, logn, p, twc, nullptr,
+                                 stream);
 }
 
 extern "C" int orion_ntt_inv(int64_t* out, const int64_t* in, int rows,
                              int L, int logn, const int64_t* p,
                              const int64_t* itwc, const int64_t* ninv,
                              const int64_t* ninv_sh, void* stream) {
-    return (int)with_logn(logn, [&](auto k) {
-        constexpr int LOGN = decltype(k)::value;
-        return launch_split<LOGN>(ntt_inv_cluster<LOGN>, rows,
-                                  Split<LOGN>::SMEM_INV, (cudaStream_t)stream,
-                                  out, in, L, p, itwc, ninv, ninv_sh);
-    });
+    return ntt_inv_launch<false>(out, in, rows, L, logn, p, itwc, ninv,
+                                 ninv_sh, nullptr, stream);
 }
 
 extern "C" int orion_drop_intt(uint32_t* z, const int64_t* in, int groups,
@@ -196,13 +269,36 @@ extern "C" int orion_drop_intt(uint32_t* z, const int64_t* in, int groups,
                                const int64_t* rmap, const int64_t* p,
                                const int64_t* itwc, const int64_t* ninv,
                                const int64_t* ninv_sh, void* stream) {
-    return (int)with_logn(logn, [&](auto k) {
-        constexpr int LOGN = decltype(k)::value;
-        return launch_split<LOGN>(drop_intt_rows<LOGN>, (int64_t)groups * L,
-                                  Split<LOGN>::SMEM_INV, (cudaStream_t)stream,
-                                  z, in, n_src, L, rmap, p, itwc, ninv,
-                                  ninv_sh);
-    });
+    return drop_intt_launch<false>(z, in, groups, n_src, L, logn, rmap, p,
+                                   itwc, ninv, ninv_sh, nullptr, stream);
+}
+
+// The CI ring's forms: logn is the lift's (N = 2n); rows of n residues.
+extern "C" int orion_ntt_fwd_ci(int64_t* out, const int64_t* in, int rows,
+                                int L, int logn, const int64_t* p,
+                                const int64_t* twc, const int64_t* ci_pos,
+                                void* stream) {
+    return ntt_fwd_launch<true>(out, in, rows, L, logn, p, twc, ci_pos,
+                                stream);
+}
+
+extern "C" int orion_ntt_inv_ci(int64_t* out, const int64_t* in, int rows,
+                                int L, int logn, const int64_t* p,
+                                const int64_t* itwc, const int64_t* ninv,
+                                const int64_t* ninv_sh,
+                                const int64_t* ci_src, void* stream) {
+    return ntt_inv_launch<true>(out, in, rows, L, logn, p, itwc, ninv,
+                                ninv_sh, ci_src, stream);
+}
+
+extern "C" int orion_drop_intt_ci(uint32_t* z, const int64_t* in,
+                                  int groups, int n_src, int L, int logn,
+                                  const int64_t* rmap, const int64_t* p,
+                                  const int64_t* itwc, const int64_t* ninv,
+                                  const int64_t* ninv_sh,
+                                  const int64_t* ci_src, void* stream) {
+    return drop_intt_launch<true>(z, in, groups, n_src, L, logn, rmap, p,
+                                  itwc, ninv, ninv_sh, ci_src, stream);
 }
 
 extern "C" int orion_drop_ntt(
@@ -222,17 +318,43 @@ extern "C" int orion_drop_ntt(
     });
 }
 
+template <bool CI>
+static int rescale_ntt_launch(int64_t* out, const int64_t* c,
+                              const uint32_t* z, int groups, int n_src,
+                              int l, int logn, int half, const int64_t* p,
+                              const int64_t* twc, const int64_t* qlast_mod,
+                              const int64_t* scale, const int64_t* scale_sh,
+                              const int64_t* ci_pos, void* stream) {
+    return (int)with_logn(logn, [&](auto k) {
+        constexpr int LOGN = decltype(k)::value;
+        return launch_split<LOGN>(rescale_lift_ntt<LOGN, CI>,
+                                  (int64_t)groups * l, Split<LOGN>::SMEM_FWD,
+                                  (cudaStream_t)stream, out, c, z, n_src, l,
+                                  half, p, twc, qlast_mod, scale, scale_sh,
+                                  ci_pos);
+    });
+}
+
 extern "C" int orion_rescale_ntt(int64_t* out, const int64_t* c,
                                  const uint32_t* z, int groups, int n_src,
                                  int l, int logn, int half, const int64_t* p,
                                  const int64_t* twc, const int64_t* qlast_mod,
                                  const int64_t* scale,
                                  const int64_t* scale_sh, void* stream) {
-    return (int)with_logn(logn, [&](auto k) {
-        constexpr int LOGN = decltype(k)::value;
-        return launch_split<LOGN>(rescale_lift_ntt<LOGN>,
-                                  (int64_t)groups * l, Split<LOGN>::SMEM_FWD,
-                                  (cudaStream_t)stream, out, c, z, n_src, l,
-                                  half, p, twc, qlast_mod, scale, scale_sh);
-    });
+    return rescale_ntt_launch<false>(out, c, z, groups, n_src, l, logn, half,
+                                     p, twc, qlast_mod, scale, scale_sh,
+                                     nullptr, stream);
+}
+
+extern "C" int orion_rescale_ntt_ci(int64_t* out, const int64_t* c,
+                                    const uint32_t* z, int groups, int n_src,
+                                    int l, int logn, int half,
+                                    const int64_t* p, const int64_t* twc,
+                                    const int64_t* qlast_mod,
+                                    const int64_t* scale,
+                                    const int64_t* scale_sh,
+                                    const int64_t* ci_pos, void* stream) {
+    return rescale_ntt_launch<true>(out, c, z, groups, n_src, l, logn, half,
+                                    p, twc, qlast_mod, scale, scale_sh,
+                                    ci_pos, stream);
 }

@@ -23,6 +23,14 @@ orion_tpu's jnp key-switch (`orion_tpu/crypto/keyswitch.py`), looped over
 the batch.  The plain versions call the four-step torch transforms
 directly, so on the card they stay pure torch ops and can be held against
 the kernels.
+
+On the ConjugateInvariant ring (`dl.ci`) every row is n wide and the
+transforms go through the 2n lift, as orion_tpu's jnp path does there:
+the kernels run with the CI map (`ks_decompose_ci`, `ks_finish_ci`).  Each
+inverse transform gathers its 2n positions through `ci.src` and keeps n
+coefficients; each basis conversion (`fbc`) runs on those n coefficients
+only, and its results are then lifted (mirrored, negated) into the 2n
+forward transform, whose store keeps the n orbit positions (`ci.pos`).
 """
 
 from __future__ import annotations
@@ -30,20 +38,31 @@ from __future__ import annotations
 import torch
 
 from ..crypto.modops import add_mod, sub_mod
-from ..crypto.ntt4 import intt4, ntt4
 from ._launch import Kernel, check_residues
-from .ntt import packed_twiddles
+from .ntt import ntt_fwd_plain, ntt_inv_plain, packed_twiddles
 
+_DECOMPOSE_SIG = "ppp" + "iiiiii" + "p" * 17
+_FINISH_SIG = "pppi" + "pppp" + "iiiiiiii" + "p" * 20
 KS_DECOMPOSE = Kernel(
-    "ks_decompose", "ks_decompose.cu", "orion_ks_decompose",
-    "ppp" + "iiiiii" + "p" * 15,
+    "ks_decompose", "ks_decompose.cu", "orion_ks_decompose", _DECOMPOSE_SIG,
     "orion_tpu/crypto/ks_pallas.py:717 ks_decompose_pallas "
     "(_decompose_k :201, _fbc_k :174), :509 ks_decompose_pallas_grid")
 KS_FINISH = Kernel(
-    "ks_finish", "ks_finish.cu", "orion_ks_finish",
-    "pppi" + "pppp" + "iiiiiiii" + "p" * 18,
+    "ks_finish", "ks_finish.cu", "orion_ks_finish", _FINISH_SIG,
     "orion_tpu/crypto/ks_pallas.py:740 ks_finish_pallas (_finish_k :217), "
     ":592 ks_finish_pallas_grid")
+KS_DECOMPOSE_CI = Kernel(
+    "ks_decompose_ci", "ks_decompose.cu", "orion_ks_decompose",
+    _DECOMPOSE_SIG,
+    "orion_tpu/crypto/keyswitch.py:324 _ks_decompose_jit on the CI ring "
+    "(jnp fbc around ks_pallas.py:351 pallas_ntt4 and :387 pallas_intt4; "
+    "ks_decompose_pallas refuses CI at ks_pallas.py:303)")
+KS_FINISH_CI = Kernel(
+    "ks_finish_ci", "ks_finish.cu", "orion_ks_finish", _FINISH_SIG,
+    "orion_tpu/crypto/keyswitch.py:363 _ks_finish_jit on the CI ring "
+    "(jnp inner product and mod_down around ks_pallas.py:351 pallas_ntt4 "
+    "and :387 pallas_intt4; ks_finish_pallas refuses CI at "
+    "ks_pallas.py:303)")
 
 
 # ------------------------------------------------------------------ #
@@ -70,12 +89,12 @@ def fbc(z, dg, tgt_p):
 def ks_decompose_plain(c_ntt, dl):
     if c_ntt.dim() == 3:
         return torch.stack([ks_decompose_plain(c, dl) for c in c_ntt])
-    c_coeff = intt4(c_ntt, dl.q.t4, dl.q.ninv, dl.q.p)
+    c_coeff = ntt_inv_plain(c_ntt, dl.q)
     exts = [fbc(c_coeff[dg.src_lo:dg.src_hi], dg, dl.t.p[:, None])
             for dg in dl.digits]
     # one batched NTT over (dnum, n_t, N): every digit's extension shares
     # the target-basis tables
-    return ntt4(torch.stack(exts), dl.t.t4, dl.t.p)
+    return ntt_fwd_plain(torch.stack(exts), dl.t)
 
 
 def _items(ext, ksk, key_index):
@@ -122,9 +141,9 @@ def mod_down(x, dl):
     """Divide an extended-basis poly (nl + n_sp, N, NTT) by P -> Q base."""
     lvl = dl.level
     qp = dl.q.p[:, None]
-    pp_coeff = intt4(x[lvl + 1:], dl.s.t4, dl.s.ninv, dl.s.p)
+    pp_coeff = ntt_inv_plain(x[lvl + 1:], dl.s)
     lift = fbc(pp_coeff, dl.moddown, qp)
-    lift_ntt = ntt4(lift, dl.q.t4, dl.q.p)
+    lift_ntt = ntt_fwd_plain(lift, dl.q)
     diff = sub_mod(x[: lvl + 1], lift_ntt, qp)
     return diff * dl.pinv_mod_q % qp
 
@@ -184,28 +203,36 @@ def ks_decompose(c_ntt, dl):
     nl, n = dl.level + 1, dl.ring_n
     n_t = dl.t.p.shape[0]
     dnum = len(dl.digits)
+    kernel = KS_DECOMPOSE if dl.ci is None else KS_DECOMPOSE_CI
     batched = c_ntt.dim() == 3
     c3 = c_ntt if batched else c_ntt[None]
     b = c3.shape[0]
-    check_residues(KS_DECOMPOSE.name, c3, (b, nl, n))
+    check_residues(kernel.name, c3, (b, nl, n))
     d = _digit_stack(dl)
     t = dl.t
     twp, itwp = packed_twiddles(t)
     ext = torch.empty((b, dnum, n_t, n), dtype=torch.int64,
                       device=c_ntt.device)
     coeff = torch.empty((b, nl, n), dtype=torch.int64, device=c_ntt.device)
-    KS_DECOMPOSE.launch(
-        c_ntt.device, ext, coeff, c3, b, nl, n_t, dnum, d["amax"],
-        n.bit_length() - 1, d["lo"], d["alpha"], d["qi"], d["qi_sh"],
-        d["srcp"], d["srcq"], d["conv"], d["conv_sh"], d["dmod"],
-        d["dmod_sh"], t.p, twp, itwp, t.ninv, t.ninv_shoup, level=dl.level,
-        items=b, grids=2)
+    kernel.launch(
+        c_ntt.device, ext, coeff, c3, b, nl, n_t, dnum, d["amax"], t.logn,
+        d["lo"], d["alpha"], d["qi"], d["qi_sh"], d["srcp"], d["srcq"],
+        d["conv"], d["conv_sh"], d["dmod"], d["dmod_sh"], t.p, twp, itwp,
+        t.ninv, t.ninv_shoup, *_ci_maps(dl), level=dl.level, items=b,
+        grids=2)
     return ext if batched else ext[0]
+
+
+def _ci_maps(dl) -> tuple:
+    """The CI map arguments (src, pos) of the key-switch kernels: null
+    pointers on the standard ring."""
+    return (None, None) if dl.ci is None else (dl.ci.src, dl.ci.pos)
 
 
 def _finish(ext, dl, ksk_data, ksk_shoup, trimmed, key_index, moddown):
     """Launch ks_finish.cu over the items (see the module docstring)."""
-    name = KS_FINISH.name
+    kernel = KS_FINISH if dl.ci is None else KS_FINISH_CI
+    name = kernel.name
     dev = ext.device
     nl, n = dl.level + 1, dl.ring_n
     n_t = dl.t.p.shape[0]
@@ -251,11 +278,11 @@ def _finish(ext, dl, ksk_data, ksk_shoup, trimmed, key_index, moddown):
     work = torch.empty((k, 2, n_t, n), dtype=torch.int64, device=dev)
     out = (torch.empty((k, 2, nl, n), dtype=torch.int64, device=dev)
            if moddown else None)
-    KS_FINISH.launch(
+    kernel.launch(
         dev, out, work, ext, dnum * n_t * n if paired else 0, pack, pack_sh,
-        key_index, row_map, k, kdig, krows, nl, n_t, dnum,
-        n.bit_length() - 1, int(moddown), *_finish_tables(dl),
-        level=dl.level, items=k, grids=2 if moddown else 1)
+        key_index, row_map, k, kdig, krows, nl, n_t, dnum, dl.t.logn,
+        int(moddown), *_finish_tables(dl), *_ci_maps(dl), level=dl.level,
+        items=k, grids=2 if moddown else 1)
     res = out if moddown else work
     return res if batched else res[0]
 

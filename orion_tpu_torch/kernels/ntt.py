@@ -7,6 +7,14 @@ launch the kernel, one thread-block cluster of `cluster_size(logn)` CTAs
 per row (`csrc/cluster_ntt.cuh`), or raise; on a CPU tensor they run the
 plain version below, the four-step torch transform of `crypto/ntt4.py`.
 
+On the ConjugateInvariant ring (`rr.ci`) rows hold n residues and the
+tables are the 2n lift's.  The same kernels then run with the CI map
+(`ntt_fwd_ci`, `ntt_inv_ci`): the forward's load forms the antisymmetric
+2n lift of the n stored residues and its store keeps the n orbit
+positions (`ci.pos`); the inverse's load gathers the 2n positions through
+`ci.src` and its store keeps the first n coefficients.  The plain
+versions are `crypto/ntt.py`'s `ci_ntt` / `ci_intt`.
+
 The kernels read the twiddles packed (`pack_twiddles`): each with its
 Shoup companion in one 64-bit word, in the order a transform reads them:
 the single-block core of `csrc/modarith.cuh` (the key-switch kernels) or
@@ -23,6 +31,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..crypto.ntt import ci_intt, ci_ntt
 from ..crypto.ntt4 import intt4, ntt4
 from ._launch import Kernel, check_residues
 
@@ -34,6 +43,15 @@ NTT_INV = Kernel(
     "ntt_inv", "ntt.cu", "orion_ntt_inv", "ppiiipppp",
     "orion_tpu/crypto/ks_pallas.py:387 pallas_intt4 (_kintt :106); "
     "orion_tpu/crypto/ntt_pallas.py:251 PallasNTT.intt (_inv_kernel :126)")
+NTT_FWD_CI = Kernel(
+    "ntt_fwd_ci", "ntt.cu", "orion_ntt_fwd_ci", "ppiiippp",
+    "orion_tpu/crypto/ks_pallas.py:351 pallas_ntt4 (_kntt :82) with the "
+    "CI lift and keep of orion_tpu/crypto/keyswitch.py:235 ring_ntt")
+NTT_INV_CI = Kernel(
+    "ntt_inv_ci", "ntt.cu", "orion_ntt_inv_ci", "ppiiippppp",
+    "orion_tpu/crypto/ks_pallas.py:387 pallas_intt4 (_kintt :106) with the "
+    "CI gather and projection of orion_tpu/crypto/keyswitch.py:254 "
+    "ring_intt")
 
 
 def split_logc(logn: int) -> int:
@@ -136,40 +154,51 @@ def cluster_twiddles(rr) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def ntt_fwd_plain(a, rr):
+    if rr.ci is not None:
+        return ci_ntt(a, rr.t4, rr.p, rr.ci)
     return ntt4(a, rr.t4, rr.p)
 
 
 def ntt_inv_plain(a, rr):
+    if rr.ci is not None:
+        return ci_intt(a, rr.t4, rr.ninv, rr.p, rr.ci)
     return intt4(a, rr.t4, rr.ninv, rr.p)
 
 
 def _rows(name, a, rr):
-    L, n = rr.tw.shape
+    L, n = rr.p.shape[0], rr.width
     if a.dim() < 2 or a.shape[-2] != L or a.shape[-1] != n:
         raise ValueError(f"{name}: input {tuple(a.shape)} does not end in "
                          f"the table's ({L}, {n})")
     check_residues(name, a, a.shape)
-    return a.numel() // n, L, n.bit_length() - 1
+    return a.numel() // n, L, rr.logn
 
 
 def ntt_fwd(a, rr):
-    """Forward negacyclic NTT (standard -> bit-reversed order)."""
+    """Forward negacyclic NTT (standard -> bit-reversed order); on the CI
+    ring through the 2n lift (the kernel's CI map)."""
     if a.device.type == "cpu":
         return ntt_fwd_plain(a, rr)
-    rows, L, logn = _rows(NTT_FWD.name, a, rr)
+    k = NTT_FWD if rr.ci is None else NTT_FWD_CI
+    rows, L, logn = _rows(k.name, a, rr)
     out = torch.empty_like(a)
-    NTT_FWD.launch(a.device, out, a, rows, L, logn,
-                   rr.p, cluster_twiddles(rr)[0], items=rows)
+    args = (rr.p, cluster_twiddles(rr)[0])
+    if rr.ci is not None:
+        args += (rr.ci.pos,)
+    k.launch(a.device, out, a, rows, L, logn, *args, items=rows)
     return out
 
 
 def ntt_inv(a, rr):
-    """Inverse negacyclic NTT (bit-reversed -> standard order, times n^-1)."""
+    """Inverse negacyclic NTT (bit-reversed -> standard order, times n^-1);
+    on the CI ring through the 2n lift (the kernel's CI map)."""
     if a.device.type == "cpu":
         return ntt_inv_plain(a, rr)
-    rows, L, logn = _rows(NTT_INV.name, a, rr)
+    k = NTT_INV if rr.ci is None else NTT_INV_CI
+    rows, L, logn = _rows(k.name, a, rr)
     out = torch.empty_like(a)
-    NTT_INV.launch(a.device, out, a, rows, L, logn,
-                   rr.p, cluster_twiddles(rr)[1], rr.ninv, rr.ninv_shoup,
-                   items=rows)
+    args = (rr.p, cluster_twiddles(rr)[1], rr.ninv, rr.ninv_shoup)
+    if rr.ci is not None:
+        args += (rr.ci.src,)
+    k.launch(a.device, out, a, rows, L, logn, *args, items=rows)
     return out

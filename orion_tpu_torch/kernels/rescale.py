@@ -16,6 +16,13 @@ takes one launch pair:
 Both transforms are the cluster transforms of `ntt.py`; nothing runs
 between the two launches but the allocation of the output and scratch.
 
+On the ConjugateInvariant ring `rescale_poly` runs with the CI map
+(`drop_intt_ci`, `rescale_ntt_ci`): launch A reads the last limb's n
+residues through `ci.src` into the 2n inverse transform and keeps its
+first n coefficients; launch B lifts each (the centered lift, then the
+antisymmetric 2n lift) in its load functor and writes through `ci.pos`.
+The CI ring has no drop-down tables, so `mod_drop_rescale` refuses it.
+
 On a CUDA tensor the wrappers launch the kernels or raise; on a CPU tensor
 they run the plain versions below, the port of orion_tpu's jnp epilogues
 (`orion_tpu/crypto/keyswitch.py` mod_drop_rescale, rescale_poly) with the
@@ -30,7 +37,7 @@ from ..crypto.modops import sub_mod
 from ..crypto.ntt4 import intt4, ntt4
 from ._launch import Kernel, check_residues
 from .keyswitch import fbc
-from .ntt import cluster_twiddles
+from .ntt import cluster_twiddles, ntt_fwd_plain, ntt_inv_plain
 
 _EPILOGUES = ("orion_tpu/crypto/keyswitch.py:446 mod_drop_rescale, "
               ":503 rescale_poly (jnp)")
@@ -48,13 +55,31 @@ RESCALE_NTT = Kernel(
     "orion_tpu/crypto/ks_pallas.py:351 pallas_ntt4 (_kntt :82) with the "
     "centered lift and subtract-and-scale of "
     "orion_tpu/crypto/keyswitch.py:503 rescale_poly (jnp)")
+DROP_INTT_CI = Kernel(
+    "drop_intt_ci", "ntt.cu", "orion_drop_intt_ci", "pp" + "iiii" + "p" * 6,
+    "orion_tpu/crypto/ks_pallas.py:387 pallas_intt4 (_kintt :106) with the "
+    "CI gather of orion_tpu/crypto/keyswitch.py:254 ring_intt in "
+    ":503 rescale_poly (jnp)")
+RESCALE_NTT_CI = Kernel(
+    "rescale_ntt_ci", "ntt.cu", "orion_rescale_ntt_ci",
+    "ppp" + "iiiii" + "p" * 6,
+    "orion_tpu/crypto/ks_pallas.py:351 pallas_ntt4 (_kntt :82) with the "
+    "centered lift, CI lift and keep and subtract-and-scale of "
+    "orion_tpu/crypto/keyswitch.py:503 rescale_poly (jnp)")
 
 
 # ------------------------------------------------------------------ #
 #  Plain versions                                                    #
 # ------------------------------------------------------------------ #
 
+def _no_dropdown(dl):
+    if dl.dropdown is None:
+        raise ValueError(f"mod_drop_rescale: level {dl.level} has no "
+                         f"drop-down tables (level 0, or the CI ring)")
+
+
 def mod_drop_rescale_plain(acc, dl):
+    _no_dropdown(dl)
     if acc.dim() > 2:
         # fbc contracts over a leading source-limb axis and so does not
         # broadcast over batch dims: loop over the leading axis
@@ -74,30 +99,30 @@ def mod_drop_rescale_plain(acc, dl):
 def rescale_poly_plain(c, dl):
     lvl = dl.level
     qp = dl.q.p[:lvl, None]
-    last = intt4(c[..., lvl:lvl + 1, :],
-                 {k: v[lvl:lvl + 1] for k, v in dl.q.t4.items()},
-                 dl.q.ninv[lvl:lvl + 1], dl.q.p[lvl:lvl + 1])[..., 0, :]
+    last = ntt_inv_plain(c[..., lvl:lvl + 1, :],
+                         dl.q.rows(lvl, lvl + 1))[..., 0, :]
     # centered lift of `last` into each remaining modulus
     red = last[..., None, :] % qp
     v = (last >= dl.qlast_half)[..., None, :]
     y = sub_mod(red, torch.where(v, dl.qlast_mod_t, 0), qp)
-    y_ntt = ntt4(y, {k: v[:lvl] for k, v in dl.q.t4.items()}, dl.q.p[:lvl])
+    y_ntt = ntt_fwd_plain(y, dl.q.rows(0, lvl))
     diff = sub_mod(c[..., :lvl, :], y_ntt, qp)
     return diff * dl.qlast_inv % qp
 
 
 def divisor_intt_plain(x, dl, drop: bool):
     """Launch A's plain version: the divisor rows of x (read through the
-    row map), inverse-transformed, as int32 (groups, L, N)."""
+    row map), inverse-transformed, as int32 (groups, L, n)."""
     lvl = dl.level
     rr = dl.kernel_tables["drop_rows"] if drop else dl.q.rows(lvl, lvl + 1)
     rows = x.index_select(-2, divisor_row_map(dl, drop))
-    z = intt4(rows, rr.t4, rr.ninv, rr.p)
+    z = ntt_inv_plain(rows, rr)
     return z.reshape(-1, *z.shape[-2:]).to(torch.int32)
 
 
 def drop_lift_ntt_plain(acc, z, dl):
     """Launch B's plain version for mod_drop_rescale, from launch A's z."""
+    _no_dropdown(dl)
     lvl = dl.level
     qp = dl.q.p[:lvl, None]
     a = acc.reshape(-1, *acc.shape[-2:])
@@ -117,7 +142,7 @@ def rescale_lift_ntt_plain(c, z, dl):
     red = last[:, None, :] % qp
     y = sub_mod(red, torch.where((last >= dl.qlast_half)[:, None, :],
                                  dl.qlast_mod_t, 0), qp)
-    y_ntt = ntt4(y, {k: v[:lvl] for k, v in dl.q.t4.items()}, dl.q.p[:lvl])
+    y_ntt = ntt_fwd_plain(y, dl.q.rows(0, lvl))
     a = c.reshape(-1, *c.shape[-2:])
     out = sub_mod(a[:, :lvl], y_ntt, qp) * dl.qlast_inv % qp
     return out.reshape(c.shape[:-2] + out.shape[-2:])
@@ -154,9 +179,11 @@ def divisor_intt(x, dl, drop: bool):
     if x.device.type == "cpu":
         return divisor_intt_plain(x, dl, drop)
     lvl, n = dl.level, dl.ring_n
+    k = DROP_INTT if dl.ci is None else DROP_INTT_CI
     if lvl < 1:
-        raise ValueError(f"{DROP_INTT.name}: level 0 has no limb to drop")
+        raise ValueError(f"{k.name}: level 0 has no limb to drop")
     if drop:
+        _no_dropdown(dl)
         rr = dl.kernel_tables["drop_rows"]
         p, itwc, ninv, ninv_sh = (rr.p, cluster_twiddles(rr)[1], rr.ninv,
                                   rr.ninv_shoup)
@@ -166,12 +193,13 @@ def divisor_intt(x, dl, drop: bool):
         p, itwc, ninv, ninv_sh = (q.p[last], cluster_twiddles(q)[1][last],
                                   q.ninv[last], q.ninv_shoup[last])
         n_src = lvl + 1
-    groups = _groups(DROP_INTT.name, x, n_src, n)
+    groups = _groups(k.name, x, n_src, n)
     n_div = p.shape[0]
     z = torch.empty((groups, n_div, n), dtype=torch.int32, device=x.device)
-    DROP_INTT.launch(x.device, z, x, groups, n_src, n_div,
-                     n.bit_length() - 1, divisor_row_map(dl, drop), p, itwc,
-                     ninv, ninv_sh, level=lvl, items=groups * n_div)
+    ci = () if dl.ci is None else (dl.ci.src,)
+    k.launch(x.device, z, x, groups, n_src, n_div, dl.q.logn,
+             divisor_row_map(dl, drop), p, itwc, ninv, ninv_sh, *ci,
+             level=lvl, items=groups * n_div)
     return z
 
 
@@ -189,6 +217,7 @@ def drop_lift_ntt(acc, z, dl):
     """Launch B of mod_drop_rescale, from launch A's scratch z."""
     if acc.device.type == "cpu":
         return drop_lift_ntt_plain(acc, z, dl)
+    _no_dropdown(dl)
     lvl, n = dl.level, dl.ring_n
     n_t = dl.t.p.shape[0]
     groups = _check_scratch(DROP_NTT.name, z, acc, n_t, dl)
@@ -209,14 +238,15 @@ def rescale_lift_ntt(c, z, dl):
     if c.device.type == "cpu":
         return rescale_lift_ntt_plain(c, z, dl)
     lvl, n = dl.level, dl.ring_n
-    groups = _check_scratch(RESCALE_NTT.name, z, c, lvl + 1, dl)
+    k = RESCALE_NTT if dl.ci is None else RESCALE_NTT_CI
+    groups = _check_scratch(k.name, z, c, lvl + 1, dl)
     out = torch.empty(c.shape[:-2] + (lvl, n), dtype=torch.int64,
                       device=c.device)
-    RESCALE_NTT.launch(c.device, out, c, z, groups, lvl + 1, lvl,
-                       n.bit_length() - 1, dl.qlast_half, dl.q.p,
-                       cluster_twiddles(dl.q)[0], dl.qlast_mod_t,
-                       dl.qlast_inv, dl.qlast_inv_shoup, level=lvl,
-                       items=groups * lvl)
+    ci = () if dl.ci is None else (dl.ci.pos,)
+    k.launch(c.device, out, c, z, groups, lvl + 1, lvl, dl.q.logn,
+             dl.qlast_half, dl.q.p, cluster_twiddles(dl.q)[0],
+             dl.qlast_mod_t, dl.qlast_inv, dl.qlast_inv_shoup, *ci,
+             level=lvl, items=groups * lvl)
     return out
 
 

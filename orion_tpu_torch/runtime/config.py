@@ -12,8 +12,9 @@ special primes, as orion_tpu does.
 `io_mode`: `none` and `stream` are accepted.  orion_tpu's stream mode
 spills compiled buffers to host memory between modules (made for a 16 GiB
 TPU); the port keeps every buffer on the card in both modes and says so
-once at `init_scheme`.  The ConjugateInvariant ring and the key/diagonal
-I/O modes (`save`, `load`) are refused until their slices are ported.
+once at `init_scheme`.  The key/diagonal I/O modes (`save`, `load`) are
+refused until their slice is ported.  `RingType: ConjugateInvariant` gives
+N real slots; bootstrapping on it is refused, as orion_tpu refuses it.
 """
 
 from __future__ import annotations
@@ -63,7 +64,10 @@ class Params:
 
     @property
     def slots(self):
-        return self.n // 2   # standard ring: N/2 complex slots
+        # ConjugateInvariant: all-real slots = N; standard: N/2 complex
+        if self.ring_type == "conjugate_invariant":
+            return self.n
+        return self.n // 2
 
     @property
     def l_eff(self):
@@ -91,9 +95,10 @@ def parse_config(config: dict) -> Params:
     p.h = int(ckks.get("H", p.h))
     ring = str(ckks.get("RingType", "Standard")).lower().replace("_", "")
     if ring == "conjugateinvariant":
-        raise NotImplementedError(
-            "RingType ConjugateInvariant is not ported yet; use Standard")
-    if ring != "standard":
+        p.ring_type = "conjugate_invariant"
+    elif ring == "standard":
+        p.ring_type = "standard"
+    else:
         raise ValueError(f"unknown RingType {ring!r}")
     p.boot_logp = list(boot.get("LogP", []))
     if boot:
@@ -117,6 +122,11 @@ def parse_config(config: dict) -> Params:
             "ModDepth": hi_scale_depth(mod_degree),
             "CircuitLogQ": circuit_logq,
         }
+
+    if p.boot and p.ring_type == "conjugate_invariant":
+        raise NotImplementedError(
+            "bootstrapping on the ConjugateInvariant ring is not "
+            "implemented; use the standard ring for bootstrapped networks")
 
     p.margin = float(orion_cfg.get("margin", p.margin))
     p.embedding_method = str(

@@ -206,3 +206,50 @@ def test_chip_smoke_fails_without_a_gpu():
                          timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_ci_ring_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    """A ConjugateInvariant config (tests/configs/mlp.yml, at LogN 8) runs
+    on `cuda` unless the CPU is asked for, through both entry points; on
+    the CPU its tables are the 2n lift's, and a tensor that is not on the
+    CPU must launch the CI kernels (here: raise)."""
+    with open(ROOT / "tests" / "configs" / "mlp.yml") as f:
+        cfg = yaml.safe_load(f)
+    assert cfg["ckks_params"]["RingType"] == "ConjugateInvariant"
+    cfg["ckks_params"].update(LogN=8, H=64)
+    kw = dict(logn=8, logq=[29, 26], logp=[29], logscale=26, h=64,
+              ring_type="conjugate_invariant")
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            orion_tpu_torch.init_scheme(cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            CKKSContext(**kw)
+    scheme = orion_tpu_torch.init_scheme(cfg, device="cpu")
+    assert scheme.ctx.ring_type == "conjugate_invariant"
+    assert scheme.ctx.slots == scheme.ctx.n == 256
+    assert scheme.ctx.dev["tw"].shape[-1] == 512
+    assert scheme.ctx.dev["tw"].device.type == "cpu"
+
+    ctx = CKKSContext(**kw, device="cpu")
+    dl = dev_level(ctx, 1)
+    assert dl.ci is not None and dl.dropdown is None
+    meta = torch.empty((2, 2, ctx.n), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kntt.ntt_fwd(meta[0], dl.q)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kntt.ntt_inv(meta[0], dl.q)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kks.ks_decompose(meta[0], dl)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        krs.rescale_poly(meta, dl)
+    # no drop-down tables on the CI ring: the fused drop refuses it
+    with pytest.raises(ValueError, match="drop-down"):
+        krs.mod_drop_rescale(torch.zeros((2, 3, ctx.n), dtype=torch.int64),
+                             dl)
+    # a CI ring of LogN 14 needs transforms of 2^15, beyond the kernels:
+    # refused on the card before anything is built
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        with pytest.raises(ValueError, match=r"2\^15-point"):
+            CKKSContext(**dict(kw, logn=14))
