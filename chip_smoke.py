@@ -60,10 +60,9 @@ stderr and exits 1:
      from one seed on `cuda` and with device="cpu" (plain path): equal
      output ciphertexts, the decrypted error against the input, the
      key-switches per bootstrap and its time on the card;
-  6. ResNet (widths 16/32/64, one BasicBlock per stage: ResNet-20's
-     depth cut, RESNET_BLOCKS) on configs/resnet.yml through the user
-     entry points on `cuda` (weights from the seeded generator the port
-     shares with orion_tpu, synthetic CIFAR-10 images): fit, compile (host seconds of
+  6. ResNet-20 on configs/resnet.yml through the user entry points on
+     `cuda` (weights from the seeded generator the port shares with
+     orion_tpu, synthetic CIFAR-10 images): fit, compile (host seconds of
      fit, compile and key generation, rotation keys, key packs and their
      bytes, the bootstraps placed), the ciphertext bootstraps of a forward
      by circuit slot count, a first and a steady forward, MAE vs cleartext
@@ -123,12 +122,6 @@ MEM_RATE = 3.35e12     # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 # instruction throughput) x 132 SMs x 1.98 GHz boost; a quarter of the data
 # sheet's 67 TFLOP/s float32, which counts 128 lanes and 2 flops per FMA
 OP_RATE = 64 * 132 * 1.98e9
-# calls per timing of a batched key-switch case (phase 7)
-BATCH_ITERS = 10
-# phase 6's ResNet: widths 16/32/64 at one BasicBlock per stage, the depth
-# cut that keeps the whole run well inside its time limit (the full
-# ResNet-20, blocks (3, 3, 3), took 140 s of a 1002-s run on one H100)
-RESNET_BLOCKS = (1, 1, 1)
 
 
 def fail(msg):
@@ -621,7 +614,7 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
                     lambda: kks.ks_decompose(c, dl),
                     lambda: kks.ks_decompose_plain(c, dl),
                     decompose_batch_work(nl, n_t, dnum, alpha, n, b, lift),
-                    iters=BATCH_ITERS, items=b,
+                    iters=20, items=b,
                     plain_iters=plain_once("ks_decompose", b))
             del c
         if ("ks_finish", level, k) in seen:
@@ -645,7 +638,7 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
                         finish_work(nl, n_t, dnum, n, lean, items=k,
                                     paired=how == "paired",
                                     moddown=not raw, lift=lift),
-                        iters=BATCH_ITERS, items=k, plain_iters=plain_iters)
+                        iters=20, items=k, plain_iters=plain_iters)
         del pack, pack_sh, ext1, extk
 
 
@@ -1364,6 +1357,8 @@ def main():
     stats = {}
     check_kernels(cfgs["mlp"], "mlp", stats)
     check_kernels(cfgs["lenet"], "lenet", stats)
+    print(f"phase 2 lenet done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     # the ConjugateInvariant ring: the kernels' CI forms at every level of
     # configs/lola.yml (transforms of 2^14) and tests/configs/mlp.yml (2^13)
     check_kernels(cfgs["lola"], "lola", stats)
@@ -1411,8 +1406,8 @@ def main():
     torch.cuda.empty_cache()
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    for tag, check in (("resnet", lambda c: check_resnet(c, RESNET_BLOCKS)),
-                       ("alexnet", check_alexnet), ("vgg", check_vgg)):
+    for tag, check in (("resnet", check_resnet), ("alexnet", check_alexnet),
+                       ("vgg", check_vgg)):
         paths[tag] = check(cfgs[tag])
         gc.collect()
         torch.cuda.empty_cache()
@@ -1423,12 +1418,16 @@ def main():
                       ("mlp_ci", "mlp_ci"), ("lola2", "lola14")):
         check_batched(make_context(cfgs[tag]), tag, stats,
                       paths[path]["batches"])
+        print(f"phase 7 {tag} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
     ctx, done = make_context(cfgs["resnet"]), set()
     for tag in BOOTSTRAPPED:
         b = paths[tag]["batches"]
         check_batched(ctx, tag, stats, b, lean=True, done=done,
                       levels=sorted({lv for k in ("ks_decompose", "ks_finish")
                                      for lv in b.get(k, {})}))
+        print(f"phase 7 {tag} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
     del ctx
     # LogN 14: one key-switch per call, then a batch of 4, at the top level
     ctx14 = check_kernels(cfgs["mlp"], "mlp14", stats, logn=14, levels=[5])

@@ -249,56 +249,38 @@ static int drop_intt_launch(uint32_t* z, const int64_t* in, int groups,
     });
 }
 
+// ci_pos / ci_src: the CI ring's map (logn then the lift's, rows of n
+// residues), or null on the standard ring.
 extern "C" int orion_ntt_fwd(int64_t* out, const int64_t* in, int rows,
                              int L, int logn, const int64_t* p,
-                             const int64_t* twc, void* stream) {
-    return ntt_fwd_launch<false>(out, in, rows, L, logn, p, twc, nullptr,
-                                 stream);
+                             const int64_t* twc, const int64_t* ci_pos,
+                             void* stream) {
+    auto launch = ci_pos != nullptr ? ntt_fwd_launch<true>
+                                    : ntt_fwd_launch<false>;
+    return launch(out, in, rows, L, logn, p, twc, ci_pos, stream);
 }
 
 extern "C" int orion_ntt_inv(int64_t* out, const int64_t* in, int rows,
                              int L, int logn, const int64_t* p,
                              const int64_t* itwc, const int64_t* ninv,
-                             const int64_t* ninv_sh, void* stream) {
-    return ntt_inv_launch<false>(out, in, rows, L, logn, p, itwc, ninv,
-                                 ninv_sh, nullptr, stream);
+                             const int64_t* ninv_sh, const int64_t* ci_src,
+                             void* stream) {
+    auto launch = ci_src != nullptr ? ntt_inv_launch<true>
+                                    : ntt_inv_launch<false>;
+    return launch(out, in, rows, L, logn, p, itwc, ninv, ninv_sh, ci_src,
+                  stream);
 }
 
 extern "C" int orion_drop_intt(uint32_t* z, const int64_t* in, int groups,
                                int n_src, int L, int logn,
                                const int64_t* rmap, const int64_t* p,
                                const int64_t* itwc, const int64_t* ninv,
-                               const int64_t* ninv_sh, void* stream) {
-    return drop_intt_launch<false>(z, in, groups, n_src, L, logn, rmap, p,
-                                   itwc, ninv, ninv_sh, nullptr, stream);
-}
-
-// The CI ring's forms: logn is the lift's (N = 2n); rows of n residues.
-extern "C" int orion_ntt_fwd_ci(int64_t* out, const int64_t* in, int rows,
-                                int L, int logn, const int64_t* p,
-                                const int64_t* twc, const int64_t* ci_pos,
-                                void* stream) {
-    return ntt_fwd_launch<true>(out, in, rows, L, logn, p, twc, ci_pos,
-                                stream);
-}
-
-extern "C" int orion_ntt_inv_ci(int64_t* out, const int64_t* in, int rows,
-                                int L, int logn, const int64_t* p,
-                                const int64_t* itwc, const int64_t* ninv,
-                                const int64_t* ninv_sh,
-                                const int64_t* ci_src, void* stream) {
-    return ntt_inv_launch<true>(out, in, rows, L, logn, p, itwc, ninv,
-                                ninv_sh, ci_src, stream);
-}
-
-extern "C" int orion_drop_intt_ci(uint32_t* z, const int64_t* in,
-                                  int groups, int n_src, int L, int logn,
-                                  const int64_t* rmap, const int64_t* p,
-                                  const int64_t* itwc, const int64_t* ninv,
-                                  const int64_t* ninv_sh,
-                                  const int64_t* ci_src, void* stream) {
-    return drop_intt_launch<true>(z, in, groups, n_src, L, logn, rmap, p,
-                                  itwc, ninv, ninv_sh, ci_src, stream);
+                               const int64_t* ninv_sh, const int64_t* ci_src,
+                               void* stream) {
+    auto launch = ci_src != nullptr ? drop_intt_launch<true>
+                                    : drop_intt_launch<false>;
+    return launch(z, in, groups, n_src, L, logn, rmap, p, itwc, ninv,
+                  ninv_sh, ci_src, stream);
 }
 
 extern "C" int orion_drop_ntt(
@@ -340,21 +322,10 @@ extern "C" int orion_rescale_ntt(int64_t* out, const int64_t* c,
                                  int l, int logn, int half, const int64_t* p,
                                  const int64_t* twc, const int64_t* qlast_mod,
                                  const int64_t* scale,
-                                 const int64_t* scale_sh, void* stream) {
-    return rescale_ntt_launch<false>(out, c, z, groups, n_src, l, logn, half,
-                                     p, twc, qlast_mod, scale, scale_sh,
-                                     nullptr, stream);
-}
-
-extern "C" int orion_rescale_ntt_ci(int64_t* out, const int64_t* c,
-                                    const uint32_t* z, int groups, int n_src,
-                                    int l, int logn, int half,
-                                    const int64_t* p, const int64_t* twc,
-                                    const int64_t* qlast_mod,
-                                    const int64_t* scale,
-                                    const int64_t* scale_sh,
-                                    const int64_t* ci_pos, void* stream) {
-    return rescale_ntt_launch<true>(out, c, z, groups, n_src, l, logn, half,
-                                    p, twc, qlast_mod, scale, scale_sh,
-                                    ci_pos, stream);
+                                 const int64_t* scale_sh,
+                                 const int64_t* ci_pos, void* stream) {
+    auto launch = ci_pos != nullptr ? rescale_ntt_launch<true>
+                                    : rescale_ntt_launch<false>;
+    return launch(out, c, z, groups, n_src, l, logn, half, p, twc, qlast_mod,
+                  scale, scale_sh, ci_pos, stream);
 }

@@ -8,12 +8,17 @@ per row (`csrc/cluster_ntt.cuh`), or raise; on a CPU tensor they run the
 plain version below, the four-step torch transform of `crypto/ntt4.py`.
 
 On the ConjugateInvariant ring (`rr.ci`) rows hold n residues and the
-tables are the 2n lift's.  The same kernels then run with the CI map
-(`ntt_fwd_ci`, `ntt_inv_ci`): the forward's load forms the antisymmetric
+tables are the 2n lift's.  The same C entry points then get the CI map
+(a null map pointer selects the standard form) and are counted apart as
+`ntt_fwd_ci` / `ntt_inv_ci`: the forward's load forms the antisymmetric
 2n lift of the n stored residues and its store keeps the n orbit
 positions (`ci.pos`); the inverse's load gathers the 2n positions through
 `ci.src` and its store keeps the first n coefficients.  The plain
-versions are `crypto/ntt.py`'s `ci_ntt` / `ci_intt`.
+versions are `crypto/ntt.py`'s `ci_ntt` / `ci_intt`.  No forward on the
+CI ring calls these two standalone: its transforms run inside the
+rescale epilogues and the key-switch kernels, and `ring_ntt` /
+`ring_intt` reach them only from bootstrapping, which the CI ring
+refuses.
 
 The kernels read the twiddles packed (`pack_twiddles`): each with its
 Shoup companion in one 64-bit word, in the order a transform reads them:
@@ -36,19 +41,19 @@ from ..crypto.ntt4 import intt4, ntt4
 from ._launch import Kernel, check_residues
 
 NTT_FWD = Kernel(
-    "ntt_fwd", "ntt.cu", "orion_ntt_fwd", "ppiiipp",
+    "ntt_fwd", "ntt.cu", "orion_ntt_fwd", "ppiiippp",
     "orion_tpu/crypto/ks_pallas.py:351 pallas_ntt4 (_kntt :82); "
     "orion_tpu/crypto/ntt_pallas.py:247 PallasNTT.ntt (_fwd_kernel :90)")
 NTT_INV = Kernel(
-    "ntt_inv", "ntt.cu", "orion_ntt_inv", "ppiiipppp",
+    "ntt_inv", "ntt.cu", "orion_ntt_inv", "ppiiippppp",
     "orion_tpu/crypto/ks_pallas.py:387 pallas_intt4 (_kintt :106); "
     "orion_tpu/crypto/ntt_pallas.py:251 PallasNTT.intt (_inv_kernel :126)")
 NTT_FWD_CI = Kernel(
-    "ntt_fwd_ci", "ntt.cu", "orion_ntt_fwd_ci", "ppiiippp",
+    "ntt_fwd_ci", "ntt.cu", "orion_ntt_fwd", "ppiiippp",
     "orion_tpu/crypto/ks_pallas.py:351 pallas_ntt4 (_kntt :82) with the "
     "CI lift and keep of orion_tpu/crypto/keyswitch.py:235 ring_ntt")
 NTT_INV_CI = Kernel(
-    "ntt_inv_ci", "ntt.cu", "orion_ntt_inv_ci", "ppiiippppp",
+    "ntt_inv_ci", "ntt.cu", "orion_ntt_inv", "ppiiippppp",
     "orion_tpu/crypto/ks_pallas.py:387 pallas_intt4 (_kintt :106) with the "
     "CI gather and projection of orion_tpu/crypto/keyswitch.py:254 "
     "ring_intt")
@@ -182,10 +187,8 @@ def ntt_fwd(a, rr):
     k = NTT_FWD if rr.ci is None else NTT_FWD_CI
     rows, L, logn = _rows(k.name, a, rr)
     out = torch.empty_like(a)
-    args = (rr.p, cluster_twiddles(rr)[0])
-    if rr.ci is not None:
-        args += (rr.ci.pos,)
-    k.launch(a.device, out, a, rows, L, logn, *args, items=rows)
+    k.launch(a.device, out, a, rows, L, logn, rr.p, cluster_twiddles(rr)[0],
+             None if rr.ci is None else rr.ci.pos, items=rows)
     return out
 
 
@@ -197,8 +200,7 @@ def ntt_inv(a, rr):
     k = NTT_INV if rr.ci is None else NTT_INV_CI
     rows, L, logn = _rows(k.name, a, rr)
     out = torch.empty_like(a)
-    args = (rr.p, cluster_twiddles(rr)[1], rr.ninv, rr.ninv_shoup)
-    if rr.ci is not None:
-        args += (rr.ci.src,)
-    k.launch(a.device, out, a, rows, L, logn, *args, items=rows)
+    k.launch(a.device, out, a, rows, L, logn, rr.p, cluster_twiddles(rr)[1],
+             rr.ninv, rr.ninv_shoup, None if rr.ci is None else rr.ci.src,
+             items=rows)
     return out

@@ -42,7 +42,7 @@ from .ntt import cluster_twiddles, ntt_fwd_plain, ntt_inv_plain
 _EPILOGUES = ("orion_tpu/crypto/keyswitch.py:446 mod_drop_rescale, "
               ":503 rescale_poly (jnp)")
 DROP_INTT = Kernel(
-    "drop_intt", "ntt.cu", "orion_drop_intt", "pp" + "iiii" + "p" * 5,
+    "drop_intt", "ntt.cu", "orion_drop_intt", "pp" + "iiii" + "p" * 6,
     "orion_tpu/crypto/ks_pallas.py:387 pallas_intt4 (_kintt :106) in "
     + _EPILOGUES)
 DROP_NTT = Kernel(
@@ -51,18 +51,17 @@ DROP_NTT = Kernel(
     "fbc and subtract-and-scale of orion_tpu/crypto/keyswitch.py:446 "
     "mod_drop_rescale (jnp)")
 RESCALE_NTT = Kernel(
-    "rescale_ntt", "ntt.cu", "orion_rescale_ntt", "ppp" + "iiiii" + "p" * 5,
+    "rescale_ntt", "ntt.cu", "orion_rescale_ntt", "ppp" + "iiiii" + "p" * 6,
     "orion_tpu/crypto/ks_pallas.py:351 pallas_ntt4 (_kntt :82) with the "
     "centered lift and subtract-and-scale of "
     "orion_tpu/crypto/keyswitch.py:503 rescale_poly (jnp)")
 DROP_INTT_CI = Kernel(
-    "drop_intt_ci", "ntt.cu", "orion_drop_intt_ci", "pp" + "iiii" + "p" * 6,
+    "drop_intt_ci", "ntt.cu", "orion_drop_intt", "pp" + "iiii" + "p" * 6,
     "orion_tpu/crypto/ks_pallas.py:387 pallas_intt4 (_kintt :106) with the "
     "CI gather of orion_tpu/crypto/keyswitch.py:254 ring_intt in "
     ":503 rescale_poly (jnp)")
 RESCALE_NTT_CI = Kernel(
-    "rescale_ntt_ci", "ntt.cu", "orion_rescale_ntt_ci",
-    "ppp" + "iiiii" + "p" * 6,
+    "rescale_ntt_ci", "ntt.cu", "orion_rescale_ntt", "ppp" + "iiiii" + "p" * 6,
     "orion_tpu/crypto/ks_pallas.py:351 pallas_ntt4 (_kntt :82) with the "
     "centered lift, CI lift and keep and subtract-and-scale of "
     "orion_tpu/crypto/keyswitch.py:503 rescale_poly (jnp)")
@@ -196,9 +195,9 @@ def divisor_intt(x, dl, drop: bool):
     groups = _groups(k.name, x, n_src, n)
     n_div = p.shape[0]
     z = torch.empty((groups, n_div, n), dtype=torch.int32, device=x.device)
-    ci = () if dl.ci is None else (dl.ci.src,)
     k.launch(x.device, z, x, groups, n_src, n_div, dl.q.logn,
-             divisor_row_map(dl, drop), p, itwc, ninv, ninv_sh, *ci,
+             divisor_row_map(dl, drop), p, itwc, ninv, ninv_sh,
+             None if dl.ci is None else dl.ci.src,
              level=lvl, items=groups * n_div)
     return z
 
@@ -242,10 +241,10 @@ def rescale_lift_ntt(c, z, dl):
     groups = _check_scratch(k.name, z, c, lvl + 1, dl)
     out = torch.empty(c.shape[:-2] + (lvl, n), dtype=torch.int64,
                       device=c.device)
-    ci = () if dl.ci is None else (dl.ci.pos,)
     k.launch(c.device, out, c, z, groups, lvl + 1, lvl, dl.q.logn,
              dl.qlast_half, dl.q.p, cluster_twiddles(dl.q)[0],
-             dl.qlast_mod_t, dl.qlast_inv, dl.qlast_inv_shoup, *ci,
+             dl.qlast_mod_t, dl.qlast_inv, dl.qlast_inv_shoup,
+             None if dl.ci is None else dl.ci.pos,
              level=lvl, items=groups * lvl)
     return out
 
