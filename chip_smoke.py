@@ -72,20 +72,44 @@ stderr and exits 1:
      launched);
   6b. AlexNet at full width on configs/alexnet.yml the same way; a
      12-ciphertext tensor must be bootstrapped;
-  6c. VGG-11 at full width on configs/vgg.yml the same way; a bootstrap
-     on the 2048-slot circuit must run;
-  7. the key-switch kernels batched as the forwards of phases 3, 4, 4b-4d,
-     6, 6b and 6c batch them: ks_decompose over B polys, ks_finish and
-     ks_finish_raw over a pack of K keys (shared ext) and over K paired
-     items, B and K the largest batch of that level in that config's
-     forward (4 where it has none; for the bootstrapped nets only the
-     levels their forwards batch, a shape run for one of them not run
-     again), bit-exact against the plain versions, with ms per launch,
+  6c. VGG at full width on configs/vgg.yml the same way, VGG-11 with one
+     conv in its third and fourth stages (6 convs, `VGG_LAYERS`); a
+     bootstrap on the 2048-slot circuit must run;
+  8. batched serving (runtime/jit.make_batched_forward: B queries stacked
+     on a leading axis of every ciphertext, one forward): the MLP on
+     configs/mlp.yml at B = 1, 2, 4, 8 and LoLA on configs/lola.yml (CI)
+     at B = 8, each batched output equal to its query's serial forward bit
+     for bit, MAE < 0.005, every kernel of the path launched; first and
+     steady walls, inferences per second, a profiled batched forward,
+     key-switch launches and items per level.  ResNet-20 at B = 2 runs
+     inside phase 6 on its compiled net: phase 6's ciphertext and a
+     second encryption of its input, equal to their serial forwards, with
+     the wall, the memory peak beside the single forward's, the
+     bootstraps and key-switch items;
+  8b. the MLP and LeNet compiled with io_mode save (numpy archives under
+     the build directory), then in a fresh scheme with io_mode load: the
+     loaded forward of the saved run's ciphertext equal to the saved
+     forward; init_scheme and compile seconds of both beside phases 3-4's
+     compile, the archives' sizes;
+  7. (run after phase 8, whose batches it takes) the key-switch kernels
+     batched as the forwards of phases 3, 4, 4b-4d, 6, 6b, 6c and 8 batch
+     them: ks_decompose over B polys, ks_finish and ks_finish_raw over a
+     pack of K keys (shared ext), over K paired items and, for phase 8's
+     MLP at B = 8 and ResNet-20 at B = 2, over K items grouped by query
+     (K / E keys, ext k % E), B and K the largest batch of that level in
+     that config's forward (4 where it has none; for the bootstrapped
+     nets only the levels their forwards batch, a shape run for one of
+     them not run again; for phase 8 the level of its largest ks_finish
+     launch), bit-exact against the plain versions, with ms per launch,
      per key-switch and the bound per launch; then every kernel once at
      LogN 14 (configs/mlp.yml's chain on a ring of 2^14), the
      instantiation that needs more than 48 KB of shared memory;
-  8. one JSON line per path, one JSON line describing each kernel, the
-     card's line, then the result line.
+  9. one JSON line per path (phase 8's batches among them), one for the
+     bootstrap, one for phase 8b, one describing each kernel, the card's
+     line, then the result line.
+
+Every profiled forward also counts its host-to-device copies (device
+records) and the host's stream synchronisations (runtime calls).
 
 Imports only torch, numpy, yaml and orion_tpu_torch.
 """
@@ -111,8 +135,9 @@ CONFIGS["mlp_ci"] = ROOT / "tests" / "configs" / "mlp.yml"
 
 def cfg_name(tag):
     """The config file of a tag, as the repo names it (mlp14: mlp.yml's
-    chain on a ring of 2^14)."""
-    return str(CONFIGS[tag.removesuffix("14")].relative_to(ROOT))
+    chain on a ring of 2^14; mlp_b8: mlp.yml's batch of 8 queries)."""
+    base = tag.removesuffix("14").split("_b")[0]
+    return str(CONFIGS[base].relative_to(ROOT))
 # the bootstrapped paths: their configs share resnet.yml's ckks and boot
 # parameters, so phase 2's resnet cases hold every kernel at their levels
 BOOTSTRAPPED = ("resnet", "alexnet", "vgg")
@@ -283,12 +308,14 @@ def decompose_batch_work(nl, n_t, dnum, alpha, n, batch, lift=None):
 
 
 def finish_work(nl, n_t, dnum, n, lean, items=1, paired=False,
-                moddown=True, lift=None):
-    """K items over K keys; a shared ext is read once, the tables once."""
+                moddown=True, lift=None, exts=1, keys=None):
+    """K items over `keys` keys (K by default) and `exts` ext items (K if
+    paired); each key and ext is read once, the tables once."""
     lift = lift or n
     n_sp = n_t - nl
-    key_words = items * dnum * 2 * n_t * n * (1 if lean else 2)
-    ext_words = (items if paired else 1) * dnum * n_t * n
+    keys = items if keys is None else keys
+    key_words = keys * dnum * 2 * n_t * n * (1 if lean else 2)
+    ext_words = (items if paired else exts) * dnum * n_t * n
     ops = items * 2 * dnum * n_t * n * (7 if lean else 3)
     if not moddown:
         return 8 * (ext_words + key_words + items * 2 * n_t * n), ops
@@ -559,7 +586,7 @@ def profile_epilogues(dl, tag, krs):
 
 
 def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
-                  lean=False, done=None):
+                  lean=False, done=None, queries=None):
     """The key-switch kernels over batches (phase 7).  sizes: {kernel:
     {level: {items per launch: launches}}} from a forward; B and K are the
     largest batch of the level, `default` where the forward has none.
@@ -568,7 +595,10 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
     bootstrapped configs take): the kernels' arithmetic does not depend on
     the key being a real one.  `done`, shared by configs with one chain
     (the bootstrapped ones), holds the (kernel, level, batch) cases run
-    already: the same shapes are not run twice."""
+    already: the same shapes are not run twice.  With `queries` = E (a
+    batched forward of E queries), ks_finish also runs grouped: K items
+    over K / E keys, item k reading ext k % E, as rotate_scan batches E
+    queries' baby steps."""
     from orion_tpu_torch.crypto.keyswitch import dev_level
     from orion_tpu_torch.kernels import keyswitch as kks
 
@@ -583,8 +613,10 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
         return max(sizes.get(kn[kernel], {}).get(level, {default: 0}))
 
     # the plain versions are timed once, at the config's largest batch
-    timed = {k: max(largest(k, lv) for lv in levels)
-             for k in ("ks_decompose", "ks_finish")}
+    # (not again for a batched forward's queries: its config's single
+    # forward timed them)
+    timed = {} if queries else {k: max(largest(k, lv) for lv in levels)
+                                for k in ("ks_decompose", "ks_finish")}
 
     def plain_once(kernel, size):
         if timed.get(kernel) == size:
@@ -627,19 +659,28 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
         # key slots out of order, as a transform's giants may have them
         idx = torch.randperm(k, generator=cs.gen, device="cuda")
         plain_iters = plain_once("ks_finish", k)
-        for ext, how in ((ext1, "shared"), (extk, "paired")):
+        variants = [(ext1, "shared", idx, 1, k), (extk, "paired", idx, k, k)]
+        if queries and k % queries == 0:
+            # each of K / E keys for E queries, key slot-major as
+            # rotate_scan orders them
+            ge = cs.device_residues((queries, dnum, n_t, n), dl.t.p)
+            gidx = torch.randperm(k // queries, generator=cs.gen,
+                                  device="cuda").repeat_interleave(queries)
+            variants.append((ge, f"grouped E={queries}", gidx, queries,
+                             k // queries))
+        for ext, how, kidx, exts, nkeys in variants:
             for fn, plain, raw in ((kks.ks_finish, kks.ks_finish_plain, ""),
                                    (kks.ks_finish_raw, kks.ks_inner,
                                     "raw ")):
                 cs.case(kn["ks_finish"], level,
                         f"{raw}pack K={k} {how} trimmed {keys}",
-                        lambda: fn(ext, dl, pack, pack_sh, True, idx),
-                        lambda: plain(ext, dl, pack, pack_sh, True, idx),
+                        lambda: fn(ext, dl, pack, pack_sh, True, kidx),
+                        lambda: plain(ext, dl, pack, pack_sh, True, kidx),
                         finish_work(nl, n_t, dnum, n, lean, items=k,
-                                    paired=how == "paired",
+                                    exts=exts, keys=nkeys,
                                     moddown=not raw, lift=lift),
                         iters=20, items=k, plain_iters=plain_iters)
-        del pack, pack_sh, ext1, extk
+        del pack, pack_sh, ext1, extk, variants
 
 
 # ------------------------------------------------------------------ #
@@ -1070,7 +1111,15 @@ def profile_device(fn):
     ours_by = {o: sum(v for k, v in by_name.items() if o in k)
                for o in OUR_KERNELS}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return dict(wall_ms=wall_ms, device_ms=dev_ms,
+    # host-to-device copies among the call's device records; the host's
+    # stream synchronisations (runtime calls) in the recorded step, less
+    # the harness's own torch.cuda.synchronize after the call (None: the
+    # profile recorded no runtime call)
+    h2d = sum("HtoD" in e.name for e in kept)
+    syncs = sum(e.device_type == torch.autograd.DeviceType.CPU
+                and "Synchronize" in e.name for e in prof.events())
+    return dict(wall_ms=wall_ms, device_ms=dev_ms, h2d_copies=h2d,
+                stream_syncs=syncs - 1 if syncs else None,
                 our_kernels_ms=sum(ours_by.values()),
                 our_kernels_by_name=ours_by, our_kernels_recorded=seen,
                 our_kernels_launched=launched, device_ops=len(kept),
@@ -1096,7 +1145,7 @@ def report_profile(pr, what):
              f"is not measured")
 
 
-def check_net(cfg, name, title, build):
+def check_net(cfg, name, title, build, batch=1):
     """One bootstrapped net through the user entry points on cuda, from a
     fresh scheme: `build()` makes the net after the weight generator is
     reset to the seed orion_tpu's examples start from, one synthetic
@@ -1107,7 +1156,9 @@ def check_net(cfg, name, title, build):
     and one steady forward, MAE vs cleartext (< 0.005 or the run fails),
     device memory after compile and the peaks of compile and the forwards,
     and a profiled forward that must record every port kernel the
-    wrappers launched."""
+    wrappers launched.  With batch = B > 1 the forward's ciphertext and
+    B - 1 more encryptions of its input then go through
+    make_batched_forward (phase 8): see `check_net_batch`."""
     import orion_tpu_torch as orion
     from orion_tpu_torch import kernels
     from orion_tpu_torch.nn import linear
@@ -1227,7 +1278,9 @@ def check_net(cfg, name, title, build):
                       pr["our_kernels_by_name"].items())
           + "); top: "
           + "; ".join(f"{k} {v:.1f} ms" for k, v in pr["top"])
-          + f" (profile read in {pr['read_s']:.1f} s)", flush=True)
+          + f" (profile read in {pr['read_s']:.1f} s); host-to-device "
+          f"copies {pr['h2d_copies']}, stream synchronisations "
+          f"{pr['stream_syncs']}", flush=True)
     report_profile(pr, name)
     if not err < 0.005:
         fail(f"{name}: MAE {err} >= 0.005")
@@ -1250,20 +1303,97 @@ def check_net(cfg, name, title, build):
            "forward_peak_mib": peak_mib, "launches": counts,
            "items": items, "launches_by_level": by_level,
            "batches": batches, "profile": pr}
+    if batch > 1:
+        rec["batched"] = check_net_batch(scheme, net, name, batch, ct, out,
+                                         inp, input_level, out_clear, boots,
+                                         rec)
     orion.delete_scheme()
     return rec
 
 
-def check_resnet(cfg, blocks=(3, 3, 3)):
+def check_net_batch(scheme, net, name, b, ct, out, inp, level, out_clear,
+                    boots, single):
+    """Phase 8 on a bootstrapped net: `ct` and b - 1 fresh encryptions of
+    its input through make_batched_forward as one forward.  Each output
+    must equal its serial forward bit for bit (`out` is ct's), MAE <
+    0.005.  Prints the batched wall, the device-memory peak beside the
+    single forward's, the bootstrap calls (each over the b queries) and
+    the key-switch launches and items of the batched forward; returns its
+    record."""
+    import orion_tpu_torch as orion
+    from orion_tpu_torch import kernels
+    from orion_tpu_torch.runtime.jit import make_batched_forward
+    from orion_tpu_torch.utils import mae
+
+    print(f"phase 8: {name} at B = {b} through make_batched_forward "
+          f"(the ciphertext above and {b - 1} more encryption(s) of its "
+          f"input)", flush=True)
+    cts = [ct] + [orion.encrypt(orion.encode(inp, level))
+                  for _ in range(b - 1)]
+    t0 = time.perf_counter()
+    serial = [out] + [net(c) for c in cts[1:]]
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    run = make_batched_forward(net, scheme)
+    torch.cuda.reset_peak_memory_stats()
+    boots["slots"].clear()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    outs = run(cts)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    items = kernels.item_counts()
+    batches = kernels.batch_sizes()
+    calls = sum(boots["slots"].values())
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    for i, (o, s) in enumerate(zip(outs, serial)):
+        if not all(x.level == y.level and x.scale == y.scale
+                   and torch.equal(x.data, y.data)
+                   for x, y in zip(o.cts, s.cts)) \
+                or len(o.cts) != len(s.cts):
+            fail(f"{name}: batched query {i} differs from its serial "
+                 f"forward")
+    maes = [mae(out_clear, o.decrypt().decode().reshape(-1)
+                [: out_clear.size]) for o in outs]
+    print(f"  batched forward {wall_s:.2f} s for {b} queries "
+          f"({wall_s / b:.2f} s per query; the {b - 1} serial forward(s) "
+          f"{(serial_s / max(b - 1, 1)):.2f} s each, the single forward "
+          f"above {single['steady_s']:.2f} s); outputs equal the serial "
+          f"forwards bit for bit; MAE {', '.join(f'{m:.3e}' for m in maes)}",
+          flush=True)
+    print(f"  device memory peak of the batched forward {peak_mib:.0f} MiB "
+          f"(single forward {single['forward_peak_mib']:.0f} MiB); "
+          f"{calls} bootstrap calls over the {b} queries ({calls * b} "
+          f"ciphertext bootstraps; single forward "
+          f"{single['ciphertext_bootstraps']}); launches {counts}; items "
+          f"{items}", flush=True)
+    if max(maes) >= 0.005:
+        fail(f"{name} at B = {b}: MAE {max(maes)} >= 0.005")
+    idle = [k for k in ring_kernels("standard") if counts[k] == 0]
+    if idle:
+        fail(f"kernels not launched by the batched {name} forward: {idle}")
+    return {"model": name, "batch": b, "wall_s": wall_s,
+            "serial_s_per_query": serial_s / max(b - 1, 1),
+            "mae": maes, "forward_peak_mib": peak_mib,
+            "bootstrap_calls": calls, "ciphertext_bootstraps": calls * b,
+            "launches": counts, "items": items,
+            "launches_by_level": kernels.launch_counts_by_level(),
+            "items_by_level": kernels.item_counts_by_level(),
+            "batches": batches}
+
+
+def check_resnet(cfg, blocks=(3, 3, 3), batch=1):
     """ResNet-20 (or, with blocks (1, 1, 1), the same widths with one
-    block per stage)."""
+    block per stage), and with batch > 1 its batched forward (phase 8)."""
     from orion_tpu_torch.models import resnet
 
     name = "ResNet-20" if tuple(blocks) == (3, 3, 3) else f"ResNet{blocks}"
     rec = check_net(
         cfg, name, f"phase 6: {name} (widths 16/32/64) on configs/resnet.yml",
         lambda: resnet._make("cifar10", resnet.BasicBlock, list(blocks),
-                             [16, 32, 64]))
+                             [16, 32, 64]), batch=batch)
     rec["blocks"] = list(blocks)
     return rec
 
@@ -1281,17 +1411,209 @@ def check_alexnet(cfg):
     return rec
 
 
-def check_vgg(cfg):
-    """VGG-11 at full width: its last stage fills half the slots, so a
-    2048-slot bootstrap circuit must run."""
-    from orion_tpu_torch.models import VGG11
+# phase 6c's VGG: VGG-11 at full width with one conv, not two, in its third
+# and fourth stages (6 convs, not 8), which keeps the whole run near its
+# time budget; its first stage (64 x 32 x 32, 16 ciphertexts) and its last
+# (two 512-channel convs at 2 x 2, half the slots) are VGG-11's
+VGG_LAYERS = [64, "M", 128, "M", 256, "M", 512, "M", 512, 512, "M"]
 
-    rec = check_net(cfg, "VGG-11", "phase 6c: VGG-11 (minimax ReLU "
-                    "(15, 15, 27)) on configs/vgg.yml", VGG11)
+
+def check_vgg(cfg):
+    """VGG at full width (`VGG_LAYERS`): its last stage fills half the
+    slots, so a 2048-slot bootstrap circuit must run."""
+    from orion_tpu_torch.models import VGG
+
+    rec = check_net(cfg, "VGG (6 convs)", "phase 6c: VGG at 6 convs "
+                    "(VGG-11's widths, minimax ReLU (15, 15, 27)) on "
+                    "configs/vgg.yml", lambda: VGG(VGG_LAYERS))
     if not rec["ciphertext_bootstraps_by_slots"].get(2048):
-        fail(f"VGG-11: no 2048-slot bootstrap ran "
+        fail(f"VGG (6 convs): no 2048-slot bootstrap ran "
              f"({rec['ciphertext_bootstraps_by_slots']})")
     return rec
+
+
+# ------------------------------------------------------------------ #
+#  Phase 8: batched serving; phase 8b: key and diagonal I/O          #
+# ------------------------------------------------------------------ #
+
+SERVE_STEADY = 5
+
+
+def check_serving(cfg, model, tag, sizes, title):
+    """Phase 8: B queries of `models.<model>` (weights from the port's
+    seeded generator, the first B synthetic MNIST test images) through
+    make_batched_forward on cuda, for each B in `sizes`.  Each batched
+    output must equal the query's serial forward of the same ciphertext
+    bit for bit, MAE < 0.005 per query, and every kernel of the path must
+    be launched.  Prints the first and steady walls (SERVE_STEADY calls,
+    each ending in torch.cuda.synchronize), inferences per second, device
+    time and busy share from one profiled batched forward, and key-switch
+    launches and items per level.  Returns {f"{tag}_b{B}": record}."""
+    import orion_tpu_torch as orion
+    from orion_tpu_torch import kernels, models
+    from orion_tpu_torch.nn import linear
+    from orion_tpu_torch.runtime.jit import make_batched_forward
+    from orion_tpu_torch.utils import get_mnist_datasets, mae
+
+    print(f"{title}, device cuda", flush=True)
+    scheme = orion.init_scheme(cfg, device="cuda")
+    linear._WEIGHT_RNG = np.random.default_rng(2024)
+    net = getattr(models, model)()
+    trainloader, testloader = get_mnist_datasets(batch_size=1)
+    inputs = [x for _, (x, _) in zip(range(max(sizes)), testloader)]
+    net.eval()
+    clear = [net(x).numpy().reshape(-1) for x in inputs]
+    orion.fit(net, trainloader)
+    level = orion.compile(net)
+    cts = [orion.encrypt(orion.encode(x, level)) for x in inputs]
+    net.he()
+    net(cts[0])  # the first forward after compile builds lazy tables
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serial = [net(ct) for ct in cts]
+    torch.cuda.synchronize()
+    serial_ms = (time.perf_counter() - t0) * 1e3 / len(cts)
+    ring = scheme.ctx.ring_type
+    run = make_batched_forward(net, scheme)
+    recs = {}
+    for b in sizes:
+        batch = cts[:b]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        outs = run(batch)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        counts = kernels.launch_counts()
+        by_level = {k: v for k, v in kernels.launch_counts_by_level().items()
+                    if k.startswith("ks_")}
+        items_by_level = {k: v for k, v in
+                          kernels.item_counts_by_level().items()
+                          if k.startswith("ks_")}
+        batches = kernels.batch_sizes()
+        for i, (o, ser) in enumerate(zip(outs, serial)):
+            if len(o.cts) != len(ser.cts) or not all(
+                    x.level == y.level and x.scale == y.scale
+                    and torch.equal(x.data, y.data)
+                    for x, y in zip(o.cts, ser.cts)):
+                fail(f"{model} B={b}: query {i} differs from its serial "
+                     f"forward")
+        maes = [mae(c, o.decrypt().decode().reshape(-1)[: c.size])
+                for c, o in zip(clear, outs)]
+        if max(maes) >= 0.005:
+            fail(f"{model} B={b}: MAE {max(maes)} >= 0.005")
+        idle = [k for k in ring_kernels(ring)
+                if counts[k] == 0 and k not in OFF_PATH[ring]]
+        if idle:
+            fail(f"kernels not launched by the batched {model} forward: "
+                 f"{idle}")
+        steady = []
+        for _ in range(SERVE_STEADY):
+            t0 = time.perf_counter()
+            run(batch)
+            torch.cuda.synchronize()
+            steady.append((time.perf_counter() - t0) * 1e3)
+        pr = profile_device(lambda: run(batch))
+        med = sorted(steady)[len(steady) // 2]
+        print(f"  B={b}: first {first_ms:.1f} ms, steady "
+              f"{', '.join(f'{x:.1f}' for x in steady)} ms (median "
+              f"{med:.1f} ms: {b / med * 1e3:.1f} inferences/s; serial "
+              f"forwards {serial_ms:.1f} ms each); outputs equal the serial "
+              f"forwards; max MAE {max(maes):.3e}; profiled: wall "
+              f"{pr['wall_ms']:.1f} ms, device {pr['device_ms']:.2f} ms in "
+              f"{pr['device_ops']} device ops (busy share "
+              f"{pr['busy_share']:.3f}), port kernels "
+              f"{pr['our_kernels_ms']:.2f} ms", flush=True)
+        print(f"    key-switch launches by level {by_level}; items by level "
+              f"{items_by_level}", flush=True)
+        report_profile(pr, f"{model} B={b}")
+        recs[f"{tag}_b{b}"] = {
+            "model": model, "batch": b, "ring": ring, "first_ms": first_ms,
+            "steady_ms": steady, "steady_median_ms": med,
+            "inferences_per_s": b / med * 1e3,
+            "serial_ms_per_query": serial_ms, "mae": maes,
+            "launches": counts, "ks_launches_by_level": by_level,
+            "ks_items_by_level": items_by_level, "batches": batches,
+            "profile": pr}
+    orion.delete_scheme()
+    return recs
+
+
+def check_io(cfg, model, tag, none_compile_s, title):
+    """Phase 8b: `models.<model>` compiled with io_mode save (keys and
+    diagonals written as numpy archives under the build directory), then
+    in a fresh scheme with io_mode load from them; the loaded forward of
+    the saved run's ciphertext must equal the saved run's forward bit for
+    bit.  Prints init_scheme and compile seconds for save and load beside
+    phase 3-4's compile with io_mode none (`none_compile_s`), and the
+    archives' sizes."""
+    import copy
+
+    import orion_tpu_torch as orion
+    from orion_tpu_torch import models
+    from orion_tpu_torch.native import build_dir
+    from orion_tpu_torch.nn import linear
+    from orion_tpu_torch.runtime.tensors import CipherTensor
+    from orion_tpu_torch.utils import get_mnist_datasets, mae
+
+    print(f"{title}, device cuda", flush=True)
+    d = build_dir() / "io"
+    keys, diags = d / f"{tag}_keys.npz", d / f"{tag}_diags.npz"
+    trainloader, testloader = get_mnist_datasets(batch_size=1)
+    inp, _ = next(iter(testloader))
+    runs = {}
+    ct = None
+    for mode in ("save", "load"):
+        c = copy.deepcopy(cfg)
+        c.setdefault("orion", {}).update(io_mode=mode, keys_path=str(keys),
+                                         diags_path=str(diags))
+        t0 = time.perf_counter()
+        scheme = orion.init_scheme(c, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        linear._WEIGHT_RNG = np.random.default_rng(2024)
+        net = getattr(models, model)()
+        net.eval()
+        clear = net(inp).numpy().reshape(-1)
+        orion.fit(net, trainloader)
+        t0 = time.perf_counter()
+        level = orion.compile(net)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        if ct is None:
+            ct = orion.encrypt(orion.encode(inp, level))
+        net.he()
+        out = net(CipherTensor(scheme, ct.cts, ct.shape, ct.on_shape))
+        torch.cuda.synchronize()
+        err = mae(clear, out.decrypt().decode().reshape(-1)[: clear.size])
+        runs[mode] = dict(init_s=init_s, compile_s=compile_s, mae=err,
+                          out=out, level=level)
+        orion.delete_scheme()
+    a, b = runs["save"]["out"], runs["load"]["out"]
+    if runs["save"]["level"] != runs["load"]["level"] \
+            or len(a.cts) != len(b.cts) or not all(
+                x.level == y.level and x.scale == y.scale
+                and torch.equal(x.data, y.data)
+                for x, y in zip(a.cts, b.cts)):
+        fail(f"{model}: the forward after io_mode load differs from the "
+             f"forward after io_mode save")
+    sizes = {"keys_mib": keys.stat().st_size / 2 ** 20,
+             "diagonals_mib": diags.stat().st_size / 2 ** 20}
+    print(f"  init_scheme + compile: save {runs['save']['init_s']:.2f} + "
+          f"{runs['save']['compile_s']:.2f} s, load "
+          f"{runs['load']['init_s']:.2f} + {runs['load']['compile_s']:.2f} "
+          f"s (compile with io_mode none, phase 3-4: {none_compile_s:.2f} "
+          f"s); archives: keys {sizes['keys_mib']:.1f} MiB, diagonals "
+          f"{sizes['diagonals_mib']:.1f} MiB; the loaded forward equals the "
+          f"saved one bit for bit; MAE {runs['load']['mae']:.3e}",
+          flush=True)
+    if runs["load"]["mae"] >= 0.005:
+        fail(f"{model} after io_mode load: MAE {runs['load']['mae']}")
+    return {"model": model,
+            "save": {k: runs["save"][k] for k in ("init_s", "compile_s")},
+            "load": {k: runs["load"][k] for k in ("init_s", "compile_s",
+                                                   "mae")},
+            "none_compile_s": none_compile_s, **sizes}
 
 
 def print_ptxas(libs):
@@ -1406,13 +1728,36 @@ def main():
     torch.cuda.empty_cache()
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    for tag, check in (("resnet", check_resnet), ("alexnet", check_alexnet),
-                       ("vgg", check_vgg)):
+    for tag, check in (("resnet", lambda c: check_resnet(c, batch=2)),
+                       ("alexnet", check_alexnet), ("vgg", check_vgg)):
         paths[tag] = check(cfgs[tag])
         gc.collect()
         torch.cuda.empty_cache()
         print(f"{tag} phase done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
+    # phase 8 on ResNet-20 ran inside its phase 6 (the compiled net reused)
+    paths["resnet_b2"] = paths["resnet"].pop("batched")
+
+    # phase 8: batched serving; 8b: key and diagonal I/O
+    paths.update(check_serving(
+        cfgs["mlp"], "MLP", "serve_mlp", (1, 2, 4, 8),
+        "phase 8: MLP 784-128-128-10 on configs/mlp.yml served in batches "
+        "of B = 1, 2, 4, 8"))
+    gc.collect()
+    paths.update(check_serving(
+        cfgs["lola"], "LoLA", "serve_lola_ci", (8,),
+        "phase 8: LoLA on configs/lola.yml (ConjugateInvariant) served in "
+        "a batch of B = 8"))
+    gc.collect()
+    io_recs = {tag: check_io(cfgs[tag], model, tag,
+                             paths[tag]["compile_s"],
+                             f"phase 8b: {model} on configs/{tag}.yml with "
+                             f"io_mode save, then load")
+               for tag, model in (("mlp", "MLP"), ("lenet", "LeNet"))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 8 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
     for tag, path in (("mlp", "mlp"), ("lenet", "lenet"), ("lola", "lola_ci"),
                       ("mlp_ci", "mlp_ci"), ("lola2", "lola14")):
@@ -1428,7 +1773,19 @@ def main():
                                      for lv in b.get(k, {})}))
         print(f"phase 7 {tag} done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
-    del ctx
+    # phase 8's batched forwards: the batches of ResNet-20 at B = 2 and of
+    # the MLP at B = 8, at the level of each one's largest ks_finish launch
+    for tag, ctx_b, rec, lean, q in (
+            ("resnet_b2", ctx, paths["resnet_b2"], True, 2),
+            ("mlp_b8", make_context(cfgs["mlp"]), paths["serve_mlp_b8"],
+             False, 8)):
+        fin = rec["batches"]["ks_finish"]
+        top = max(fin, key=lambda lv: max(fin[lv]))
+        check_batched(ctx_b, tag, stats, rec["batches"], levels=[top],
+                      lean=lean, queries=q)
+        print(f"phase 7 {tag} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+    del ctx, ctx_b
     # LogN 14: one key-switch per call, then a batch of 4, at the top level
     ctx14 = check_kernels(cfgs["mlp"], "mlp14", stats, logn=14, levels=[5])
     check_batched(ctx14, "mlp14", stats, {}, levels=[5])
@@ -1508,6 +1865,7 @@ def main():
     for p, rec in paths.items():
         print(json.dumps({p: rec}), flush=True)
     print(json.dumps({"bootstrap": bootstrap}), flush=True)
+    print(json.dumps({"io": io_recs}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -22,7 +22,9 @@ NTT pair in ModRaise, and the key-switch and rescale kernels in the
 transforms, the conjugation and EvalMod.  The port runs the phases
 eagerly, one after another (orion_tpu's per-phase program cache,
 `PhaseRunner`, has no counterpart), and evaluates EvalMod once over u and
-v stacked on a batch axis where orion_tpu makes two calls.
+v stacked on a batch axis where orion_tpu makes two calls.  A ciphertext
+whose data carry query axes, (..., 2, L, N), goes through every phase as
+one: B queries' bootstraps share each launch (u/v stacked to (2, ...)).
 
 Value bookkeeping (x = message values, c = Delta*x + q0*I after raise):
   CtS matrices carry alpha = 0.5 * Delta / (q0 (K+1))  => u, v hold
@@ -236,15 +238,18 @@ class Bootstrapper:
     def mod_raise(self, ct: Ciphertext) -> Ciphertext:
         """Lift residues mod the q0 block to the full chain (adds q0*I):
         one inverse NTT of the base rows of both polys, one basis
-        conversion of their 2N columns, one forward NTT of every Q row."""
+        conversion of their 2N columns (of every query of a batch), one
+        forward NTT of every Q row."""
         ctx = self.ctx
         base = self.scheme.params.base_level
         dl_b = dev_level(ctx, base)
         dl_t = dev_level(ctx, self.top)
-        coeff = ring_intt(ct.data[:, : base + 1], dl_b.q)  # (2, base+1, N)
-        cols = coeff.transpose(0, 1).reshape(base + 1, 2 * ctx.n)
+        # (..., 2, base+1, N), `...` the query axes of a batch
+        coeff = ring_intt(ct.data[..., : base + 1, :], dl_b.q)
+        cols = coeff.movedim(-2, 0).reshape(base + 1, -1)
         lifted = fbc(cols, self._raise_digit, dl_t.q.p[:, None])
-        lifted = lifted.reshape(ctx.n_q, 2, ctx.n).transpose(0, 1)
+        lifted = lifted.reshape((ctx.n_q,) + tuple(coeff.shape[:-2])
+                                + (ctx.n,)).movedim(0, -2)
         raised = ring_ntt(lifted, dl_t.q)
         return Ciphertext(raised, self.top, ct.scale)
 

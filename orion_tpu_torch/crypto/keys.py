@@ -74,6 +74,9 @@ class KeyChest:
             s2_ntt[i] = self.s_ntt[i] * self.s_ntt[i] % ctx.primes[i]
         self.relin_key = self._gen_ksk(s2_ntt)
         self.galois_keys: dict[int, KeySwitchKey] = {}
+        # io_mode load: saved Galois keys, read on first use
+        # (runtime/io.KeyArchive); a key it lacks is generated
+        self.stored = None
 
     # ----------------------------- sampling ----------------------------- #
 
@@ -124,8 +127,13 @@ class KeyChest:
         return KeySwitchKey(torch.stack([b, a], dim=1), p)
 
     def galois_key(self, k: int) -> KeySwitchKey:
-        """KSK from tau_k(s) to s, cached per Galois element."""
+        """KSK from tau_k(s) to s, cached per Galois element (read from
+        `stored` when it holds the element's key)."""
         k = k % self.ctx.gal_mod
+        if k not in self.galois_keys and self.stored is not None:
+            key = self.stored.galois_key(k)
+            if key is not None:
+                self.galois_keys[k] = key
         if k not in self.galois_keys:
             ctx = self.ctx
             # automorphism over signed coeffs, exact on the +-1 entries;

@@ -16,6 +16,15 @@ Structure per transform (diag idx = g*n1 + b):
 Rotation keys for a set of amounts are stacked once, pre-permuted by the
 inverse automorphism and trimmed to the level (KeyPack), cached per unique
 (amounts, level).
+
+Batches of queries: a ciphertext's data may carry leading query axes,
+(..., 2, L, N) (`runtime/jit.make_batched_forward`).  Every step then runs
+once over the batch: the queries' baby rotations of a pack are one
+`ks_finish` launch whose items pair each key with each query's
+decomposition, the giants of every query one `ks_decompose` and one
+`ks_finish` launch, each key read in place through `key_index` (not
+copied per query).  orion_tpu maps the same transform over the queries
+with `jax.vmap`; the residues agree query for query.
 """
 
 from __future__ import annotations
@@ -33,8 +42,9 @@ from .lintrans import choose_n1
 from .modops import add_mod
 from .ops import Evaluator
 
-# diagonals multiplied per batched product in the diagonal step: bounds
-# the (chunk, 2, L, N) temporary while keeping the loop short
+# diagonal products per batched product in the diagonal step, queries
+# included: bounds the (chunk, queries, 2, L, N) temporary while keeping
+# the loop short
 _DIAG_CHUNK = 32
 
 
@@ -68,8 +78,20 @@ class KeyPack:
 
 
 def _permute(x, perms):
-    """x[k][..., perms[k]] for each item k of x (K, 2, L, N)."""
-    return torch.gather(x, -1, perms[:, None, None, :].expand_as(x))
+    """x[k][..., perms[k]] for each item k of x (K, ..., 2, L, N)."""
+    shape = (perms.shape[0],) + (1,) * (x.dim() - 2) + (perms.shape[1],)
+    return torch.gather(x, -1, perms.view(shape).expand_as(x))
+
+
+def _queries(data) -> tuple:
+    """The leading query axes of ciphertext data (..., 2, L, N)."""
+    return tuple(data.shape[:-3])
+
+
+def _query_keys(pack: "KeyPack", slots, nq: int) -> torch.Tensor:
+    """The key_index of `slots` with each slot repeated for nq queries
+    (item k * nq + b is key slot k for query b)."""
+    return pack.slots_index(s for s in slots for _ in range(nq))
 
 
 def build_key_pack(ev: Evaluator, amounts, level: int | None = None) -> KeyPack:
@@ -124,7 +146,8 @@ def build_key_pack(ev: Evaluator, amounts, level: int | None = None) -> KeyPack:
 
 def rotate_scan(ev: Evaluator, ct: Ciphertext, pack: KeyPack):
     """All rotations of ct for the pack's amounts, sharing one hoisted
-    decomposition.  Returns (n_amounts, 2, L, N) in pack.amounts order."""
+    decomposition per query.  Returns (n_amounts, ..., 2, L, N) in
+    pack.amounts order, `...` the ciphertext's query axes."""
     if pack.level is not None and pack.level != ct.level:
         raise ValueError(
             f"KeyPack trimmed to level {pack.level} used at level {ct.level}")
@@ -132,13 +155,20 @@ def rotate_scan(ev: Evaluator, ct: Ciphertext, pack: KeyPack):
         return ct.data.new_zeros((0,) + tuple(ct.data.shape))
     dl = dev_level(ev.ctx, ct.level)
     qp = dl.q.p[:, None]
-    ext = ks_decompose(ct.data[1], dl)  # shared across all rotations
-    # one ks_finish over the whole pack
+    queries = _queries(ct.data)
+    nq = int(np.prod(queries, dtype=np.int64))
+    c1 = ct.data.select(-3, 1)
+    if queries:
+        c1 = c1.reshape((nq,) + tuple(c1.shape[-2:])).contiguous()
+    # one decomposition per query, shared by all its rotations, and one
+    # ks_finish over the whole pack (and every query)
+    ext = ks_decompose(c1, dl)
     ks = ks_finish(ext, dl, pack.ksk, pack.ksk_shoup,
                    trimmed=pack.level is not None,
-                   key_index=pack.slots_index(range(len(pack.amounts))))
-    t0 = add_mod(ct.data[0], ks[:, 0], qp)
-    return _permute(torch.stack([t0, ks[:, 1]], dim=1), pack.perms)
+                   key_index=_query_keys(pack, range(len(pack.amounts)), nq))
+    ks = ks.reshape((len(pack.amounts),) + tuple(ct.data.shape))
+    t0 = add_mod(ct.data.select(-3, 0), ks.select(-3, 0), qp)
+    return _permute(torch.stack([t0, ks.select(-3, 1)], dim=-3), pack.perms)
 
 
 @dataclass
@@ -223,39 +253,56 @@ def _check_level(tr: ScanTransform, ct: Ciphertext):
 
 
 def _diagonal_step(tr: ScanTransform, ct: Ciphertext, rots_cache: dict, qp):
-    """acc[g] = sum over the diagonals d of giant g of pt_d * rot_{b(d)}.
+    """acc[g] = sum over the diagonals d of giant g of pt_d * rot_{b(d)},
+    (n_giants, ..., 2, L, N) with the ciphertext's query axes.
 
     Residues are < 2^31, so up to _DIAG_CHUNK products add in int64
     before one reduction; the modular sum equals orion_tpu's sequential
     add_mod chain bit for bit."""
     nl = ct.level + 1
+    queries = _queries(ct.data)
     rot_stack = torch.stack([rots_cache[b] for b in tr.babies_full])
-    acc = ct.data.new_zeros((tr.n_giants, 2, nl, ct.data.shape[-1]))
-    for lo in range(0, tr.pts.shape[0], _DIAG_CHUNK):
-        hi = lo + _DIAG_CHUNK
-        prod = rot_stack[tr.b_pos[lo:hi]] * tr.pts[lo:hi, None, :nl] % qp
+    acc = ct.data.new_zeros((tr.n_giants,) + queries
+                            + (2, nl, ct.data.shape[-1]))
+    # the plaintexts broadcast over the query axes and both polys
+    bcast = (None,) * (len(queries) + 1)
+    chunk = max(1, _DIAG_CHUNK // int(np.prod(queries, dtype=np.int64)))
+    for lo in range(0, tr.pts.shape[0], chunk):
+        hi = lo + chunk
+        pts = tr.pts[(slice(lo, hi),) + bcast + (slice(None, nl),)]
+        prod = rot_stack[tr.b_pos[lo:hi]] * pts % qp
         acc.index_add_(0, tr.g_pos[lo:hi], prod)
         acc %= qp
     return acc
 
 
-def _giant_batch(ev: Evaluator, tr: ScanTransform, level: int):
-    """The nonzero giants as one batch: (pack, their accumulator rows,
-    their pack slots as a key_index), or None.  The slots are passed
-    explicitly: a giant's pack slot need not follow its row."""
+def _giant_batch(ev: Evaluator, tr: ScanTransform, level: int, nq: int):
+    """The nonzero giants of nq queries as one batch: (pack, their
+    accumulator rows, their pack slots, the key_index of the giants' items
+    giant-major), or None.  The slots are passed explicitly: a giant's
+    pack slot need not follow its row."""
     nonzero = [a for a in tr.giants if a != 0]
     if not nonzero:
         return None
     pack = build_key_pack(ev, nonzero, level=level)
     slot = {a: s for s, a in enumerate(pack.amounts)}
-    return pack, tr.giant_rows, pack.slots_index(slot[a] for a in nonzero)
+    slots = [slot[a] for a in nonzero]
+    return (pack, tr.giant_rows, pack.slots_index(slots),
+            _query_keys(pack, slots, nq))
+
+
+def _giant_items(sel):
+    """The c1 of every (giant, query) of `sel` (G, ..., 2, L, N) as items
+    (G * queries, L, N), giant-major, for one ks_decompose."""
+    c1 = sel.select(-3, 1)
+    return c1.reshape((-1,) + tuple(c1.shape[-2:])).contiguous()
 
 
 def eval_transform_scan(ev: Evaluator, tr: ScanTransform, ct: Ciphertext,
                         rots_cache: dict) -> Ciphertext:
     """Evaluate one block given a shared baby-rotation cache for this ct.
 
-    rots_cache maps baby amount -> (2, L, N); amount 0 is the ct.
+    rots_cache maps baby amount -> (..., 2, L, N); amount 0 is the ct.
     Returns the UN-rescaled accumulated ciphertext at scale Delta*q_level.
     """
     _check_level(tr, ct)
@@ -264,15 +311,17 @@ def eval_transform_scan(ev: Evaluator, tr: ScanTransform, ct: Ciphertext,
     acc = _diagonal_step(tr, ct, rots_cache, qp)
 
     out = acc[0] if tr.giants and tr.giants[0] == 0 else None
-    batch = _giant_batch(ev, tr, ct.level)
+    nq = int(np.prod(_queries(ct.data), dtype=np.int64))
+    batch = _giant_batch(ev, tr, ct.level, nq)
     if batch is not None:
-        pack, rows, slots = batch
+        pack, rows, slots, key_index = batch
         sel = acc.index_select(0, rows)
-        ks = ks_finish(ks_decompose(sel[:, 1].contiguous(), dl), dl,
+        ks = ks_finish(ks_decompose(_giant_items(sel), dl), dl,
                        pack.ksk, pack.ksk_shoup,
-                       trimmed=pack.level is not None, key_index=slots)
-        t0 = add_mod(sel[:, 0], ks[:, 0], qp)
-        rot = _permute(torch.stack([t0, ks[:, 1]], dim=1),
+                       trimmed=pack.level is not None, key_index=key_index)
+        ks = ks.reshape(sel.shape)
+        t0 = add_mod(sel.select(-3, 0), ks.select(-3, 0), qp)
+        rot = _permute(torch.stack([t0, ks.select(-3, 1)], dim=-3),
                        pack.perms.index_select(0, slots))
         # residues < 2^31: the int64 sum of the giants is exact
         part = rot.sum(0) % qp
@@ -298,9 +347,10 @@ def baby_rotation_cache(ev: Evaluator, ct: Ciphertext, amounts) -> dict:
 def eval_transform_scan_ext(ev: Evaluator, tr: ScanTransform,
                             ct: Ciphertext, rots_cache: dict):
     """eval_transform_scan with DEFERRED ModDown: returns the extended-basis
-    accumulator (2, n_t, N) in NTT domain, Q-basis contributions folded in
-    as P*x.  The caller sums accumulators across column blocks and divides
-    ONCE by P*q_l (mod_drop_rescale), all output rows in one call.
+    accumulator (..., 2, n_t, N) in NTT domain, Q-basis contributions
+    folded in as P*x.  The caller sums accumulators across column blocks
+    and divides ONCE by P*q_l (mod_drop_rescale), all output rows in one
+    call.
     """
     _check_level(tr, ct)
     dl = dev_level(ev.ctx, ct.level)
@@ -311,24 +361,28 @@ def eval_transform_scan_ext(ev: Evaluator, tr: ScanTransform,
     acc = _diagonal_step(tr, ct, rots_cache, qp)
 
     def fold_q(x_q):
-        """Q-basis (2, nl, N) value -> extended accumulator as P*x (special
-        rows of P*x vanish: P = 0 mod each special prime)."""
+        """Q-basis (..., nl, N) value -> extended accumulator as P*x
+        (special rows of P*x vanish: P = 0 mod each special prime)."""
         px = x_q * dl.p_mod_q % qp
-        return torch.cat([px, px.new_zeros((2, n_t - nl, px.shape[-1]))],
-                         dim=1)
+        zeros = px.new_zeros(tuple(px.shape[:-2]) + (n_t - nl, px.shape[-1]))
+        return torch.cat([px, zeros], dim=-2)
 
     out = fold_q(acc[0]) if tr.giants and tr.giants[0] == 0 else None
-    batch = _giant_batch(ev, tr, ct.level)
+    nq = int(np.prod(_queries(ct.data), dtype=np.int64))
+    batch = _giant_batch(ev, tr, ct.level, nq)
     if batch is not None:
-        pack, rows, slots = batch
+        pack, rows, slots, key_index = batch
         sel = acc.index_select(0, rows)
-        raw = ks_finish_raw(ks_decompose(sel[:, 1].contiguous(), dl), dl,
+        raw = ks_finish_raw(ks_decompose(_giant_items(sel), dl), dl,
                             pack.ksk, pack.ksk_shoup,
-                            trimmed=pack.level is not None, key_index=slots)
-        pc0 = sel[:, 0] * dl.p_mod_q % qp
-        r0 = torch.cat([add_mod(raw[:, 0, :nl], pc0, qp), raw[:, 0, nl:]],
-                       dim=1)
-        rot = _permute(torch.stack([r0, raw[:, 1]], dim=1),
+                            trimmed=pack.level is not None,
+                            key_index=key_index)
+        raw = raw.reshape(tuple(sel.shape[:-2]) + (n_t, sel.shape[-1]))
+        pc0 = sel.select(-3, 0) * dl.p_mod_q % qp
+        raw0 = raw.select(-3, 0)
+        r0 = torch.cat([add_mod(raw0[..., :nl, :], pc0, qp),
+                        raw0[..., nl:, :]], dim=-2)
+        rot = _permute(torch.stack([r0, raw.select(-3, 1)], dim=-3),
                        pack.perms.index_select(0, slots))
         part = rot.sum(0) % tp
         out = part if out is None else add_mod(out, part, tp)

@@ -39,6 +39,7 @@ class Evaluator:
         self.ctx = ctx
         self.keys = keys
         self._key_packs: dict = {}   # lintrans_scan.build_key_pack cache
+        self._perms: dict = {}       # Galois element -> device permutation
         # key packs without Shoup companions (bootstrapped configs)
         self.lean_keys = False
 
@@ -236,9 +237,17 @@ class Evaluator:
 
     # ------------------------- automorphisms ------------------------- #
 
+    def _galois_perm(self, k: int) -> torch.Tensor:
+        """The NTT-domain permutation of Galois element k on the device,
+        copied there once per element: a copy per rotation from pageable
+        host memory would synchronise the stream every time."""
+        if k not in self._perms:
+            self._perms[k] = self.ctx.to_device(
+                np.asarray(self.ctx.automorphism_perm(k), np.int64))
+        return self._perms[k]
+
     def _apply_galois(self, ct: Ciphertext, k: int) -> Ciphertext:
-        perm = torch.as_tensor(self.ctx.automorphism_perm(k),
-                               dtype=torch.long, device=ct.data.device)
+        perm = self._galois_perm(k)
         dl = self._dl(ct.level)
         qp = dl.q.p[:, None]
         c0, c1 = self._polys(ct.data)

@@ -1,6 +1,8 @@
 // ks_finish: the key inner product and ModDown of a hybrid key-switch,
-// over a batch of K items.  Item k takes ext[k] (or one shared ext) and
-// key key_idx[k] of a stacked pack, and gives (2, nl, N) in the NTT domain;
+// over a batch of K items.  Item k takes ext[k % ext_count] (ext_count = K:
+// paired; 1: one shared ext; E < K: E queries whose K / E rotations each
+// share their query's decomposition) and key key_idx[k] of a stacked pack,
+// and gives (2, nl, N) in the NTT domain;
 // with moddown = 0 it stops after the inner product and gives the
 // extended-basis accumulator (2, n_t, N) (ks_finish_raw).
 //
@@ -64,7 +66,7 @@ constexpr size_t inner_smem() {
 template <int LOGN, bool CI>
 __global__ void __launch_bounds__(Ring<LOGN>::T) ks_inner_intt(
         int64_t* __restrict__ work, const int64_t* __restrict__ ext,
-        int ext_item, const int64_t* __restrict__ ksk,
+        int ext_item, int ext_count, const int64_t* __restrict__ ksk,
         const int64_t* __restrict__ ksk_sh, const int64_t* key_idx,
         int kdig, int krows, const int64_t* row_map, int nl, int n_t,
         int dnum, int moddown, const int64_t* t_p, const int64_t* t_pinv,
@@ -86,7 +88,7 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) ks_inner_intt(
     const uint32_t rm = (uint32_t)t_rmod[t];
     const uint32_t rsh = (uint32_t)t_rsh[t];
     const bool special = moddown && t >= nl;
-    const int64_t* e_row = ext + k * ext_item + (int64_t)t * W;
+    const int64_t* e_row = ext + (k % ext_count) * ext_item + (int64_t)t * W;
     const int64_t e_dig = (int64_t)n_t * W;
     const int64_t k_off = key_idx[k] * ((int64_t)kdig * 2 * krows * W)
                           + ((int64_t)q * krows + row_map[t]) * W;
@@ -186,9 +188,10 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) moddown_rows(
 template <bool CI>
 static int finish_launch(
         int64_t* out, int64_t* work, const int64_t* ext, int ext_item,
-        const int64_t* ksk, const int64_t* ksk_sh, const int64_t* key_idx,
-        const int64_t* row_map, int items, int kdig, int krows, int nl,
-        int n_t, int dnum, int logn, int moddown, const int64_t* t_p,
+        int ext_count, const int64_t* ksk, const int64_t* ksk_sh,
+        const int64_t* key_idx, const int64_t* row_map, int items, int kdig,
+        int krows, int nl, int n_t, int dnum, int logn, int moddown,
+        const int64_t* t_p,
         const int64_t* t_pinv, const int64_t* t_rmod, const int64_t* t_rsh,
         const int64_t* t_twp, const int64_t* t_itwp, const int64_t* t_ninv,
         const int64_t* t_ninv_sh, const int64_t* md_qi,
@@ -207,9 +210,9 @@ static int finish_launch(
             e = allow_smem(moddown_rows<LOGN, CI>, RG::SMEM);
         if (e != cudaSuccess) return e;
         ks_inner_intt<LOGN, CI><<<dim3(n_t, 2, items), RG::T, smem_a, st>>>(
-            work, ext, ext_item, ksk, ksk_sh, key_idx, kdig, krows, row_map,
-            nl, n_t, dnum, moddown, t_p, t_pinv, t_rmod, t_rsh, t_itwp,
-            t_ninv, t_ninv_sh, ci_src);
+            work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx, kdig, krows,
+            row_map, nl, n_t, dnum, moddown, t_p, t_pinv, t_rmod, t_rsh,
+            t_itwp, t_ninv, t_ninv_sh, ci_src);
         e = cudaGetLastError();
         if (e != cudaSuccess || !moddown) return e;
         moddown_rows<LOGN, CI><<<dim3(nl, 2, items), RG::T, RG::SMEM, st>>>(
@@ -223,9 +226,10 @@ static int finish_launch(
 // ci_src, ci_pos: the CI ring's map (logn then the lift's), or both null.
 extern "C" int orion_ks_finish(
         int64_t* out, int64_t* work, const int64_t* ext, int ext_item,
-        const int64_t* ksk, const int64_t* ksk_sh, const int64_t* key_idx,
-        const int64_t* row_map, int items, int kdig, int krows, int nl,
-        int n_t, int dnum, int logn, int moddown, const int64_t* t_p,
+        int ext_count, const int64_t* ksk, const int64_t* ksk_sh,
+        const int64_t* key_idx, const int64_t* row_map, int items, int kdig,
+        int krows, int nl, int n_t, int dnum, int logn, int moddown,
+        const int64_t* t_p,
         const int64_t* t_pinv, const int64_t* t_rmod, const int64_t* t_rsh,
         const int64_t* t_twp, const int64_t* t_itwp, const int64_t* t_ninv,
         const int64_t* t_ninv_sh, const int64_t* md_qi,
@@ -237,9 +241,9 @@ extern "C" int orion_ks_finish(
         const int64_t* ci_pos, void* stream) {
     auto launch = ci_pos != nullptr ? finish_launch<true>
                                     : finish_launch<false>;
-    return launch(out, work, ext, ext_item, ksk, ksk_sh, key_idx, row_map,
-                  items, kdig, krows, nl, n_t, dnum, logn, moddown, t_p,
-                  t_pinv, t_rmod, t_rsh, t_twp, t_itwp, t_ninv, t_ninv_sh,
+    return launch(out, work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx,
+                  row_map, items, kdig, krows, nl, n_t, dnum, logn, moddown,
+                  t_p, t_pinv, t_rmod, t_rsh, t_twp, t_itwp, t_ninv, t_ninv_sh,
                   md_qi, md_qi_sh, md_srcp, md_srcq, md_conv, md_conv_sh,
                   md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, ci_src, ci_pos,
                   (cudaStream_t)stream);

@@ -13,7 +13,11 @@ are full-chain or level-trimmed, with Shoup companions or lean
     (dnum, n_t, N) gives one result;
   - key_index (K,) int64: `ksk` is a stacked pack (n_keys, kdig, 2, rows,
     N) and item k takes key key_index[k], read in place; ext is shared
-    (dnum, n_t, N) or paired (K, dnum, n_t, N).  Results are (K, ...).
+    (dnum, n_t, N), or (E, dnum, n_t, N) with E dividing K and item k
+    taking ext[k % E]: paired when E = K, and E queries' decompositions
+    each shared by K / E rotations otherwise (a batch of queries through
+    one key pack, the keys read once per item, not copied per query).
+    Results are (K, ...).
 The caller keeps key_index within the pack (the kernel does not check
 values, which would cost a device sync).
 
@@ -42,7 +46,7 @@ from ._launch import Kernel, check_residues
 from .ntt import ntt_fwd_plain, ntt_inv_plain, packed_twiddles
 
 _DECOMPOSE_SIG = "ppp" + "iiiiii" + "p" * 17
-_FINISH_SIG = "pppi" + "pppp" + "iiiiiiii" + "p" * 20
+_FINISH_SIG = "pppii" + "pppp" + "iiiiiiii" + "p" * 20
 KS_DECOMPOSE = Kernel(
     "ks_decompose", "ks_decompose.cu", "orion_ks_decompose", _DECOMPOSE_SIG,
     "orion_tpu/crypto/ks_pallas.py:717 ks_decompose_pallas "
@@ -105,9 +109,13 @@ def _items(ext, ksk, key_index):
             raise ValueError("a batch of ext items needs a key_index")
         return [(ext, ksk)], False
     idx = key_index.tolist()
-    exts = [ext] * len(idx) if ext.dim() == 3 else list(ext)
-    if len(exts) != len(idx):
-        raise ValueError(f"{len(exts)} paired ext items for {len(idx)} keys")
+    if ext.dim() == 3:
+        exts = [ext] * len(idx)
+    else:
+        if len(idx) % ext.shape[0]:
+            raise ValueError(f"{ext.shape[0]} ext items for {len(idx)} "
+                             f"keys")
+        exts = [ext[k % ext.shape[0]] for k in range(len(idx))]
     return [(e, ksk[i]) for e, i in zip(exts, idx)], True
 
 
@@ -259,7 +267,10 @@ def _finish(ext, dl, ksk_data, ksk_shoup, trimmed, key_index, moddown):
                              f"int64 tensor on {dev}")
     if k < 1:
         raise ValueError(f"{name}: no items")
-    check_residues(name, ext, ((k,) if paired else ()) + (dnum, n_t, n))
+    e = ext.shape[0] if paired else 1
+    if k % e:
+        raise ValueError(f"{name}: {e} ext items for {k} keys")
+    check_residues(name, ext, ((e,) if paired else ()) + (dnum, n_t, n))
     if pack.dim() != 5:
         raise ValueError(f"{name}: key shape {tuple(pack.shape)}")
     n_keys, kdig, krows = pack.shape[0], pack.shape[1], pack.shape[3]
@@ -279,8 +290,8 @@ def _finish(ext, dl, ksk_data, ksk_shoup, trimmed, key_index, moddown):
     out = (torch.empty((k, 2, nl, n), dtype=torch.int64, device=dev)
            if moddown else None)
     kernel.launch(
-        dev, out, work, ext, dnum * n_t * n if paired else 0, pack, pack_sh,
-        key_index, row_map, k, kdig, krows, nl, n_t, dnum, dl.t.logn,
+        dev, out, work, ext, dnum * n_t * n if paired else 0, e, pack,
+        pack_sh, key_index, row_map, k, kdig, krows, nl, n_t, dnum, dl.t.logn,
         int(moddown), *_finish_tables(dl), *_ci_maps(dl), level=dl.level,
         items=k, grids=2 if moddown else 1)
     res = out if moddown else work
@@ -301,7 +312,7 @@ def ks_finish(ext, dl, ksk_data, ksk_shoup=None, trimmed=False,
               key_index=None):
     """Inner-product the decomposed digits with key-switch keys and ModDown.
 
-    ext: (dnum, n_t, N), or (K, dnum, n_t, N) paired with key_index; keys
+    ext: (dnum, n_t, N), or (E, dnum, n_t, N) with key_index; keys
     and key_index as in the module docstring: full-chain (kdig, 2, n_all, N) or, with trimmed=True,
     sliced to this level's digits and prime rows (dnum, 2, n_t, N), one
     key or a stacked pack.  ksk_shoup=None is a lean key (Montgomery lift).

@@ -47,6 +47,20 @@ class LinearTransform(Module):
                         if self.bias is not None
                         else np.zeros(self.weight.shape[0], np.float32))
 
+    def _try_load_diagonals(self) -> bool:
+        """io_mode load: the packed diagonals from the archive."""
+        p = self.scheme.params
+        if p.io_mode != "load" or not p.diags_path:
+            return False
+        from ..runtime.io import load_layer_diagonals
+        return load_layer_diagonals(p, self, p.diags_path)
+
+    def _maybe_save_diagonals(self):
+        p = self.scheme.params
+        if p.io_mode == "save" and p.diags_path:
+            from ..runtime.io import save_layer_diagonals
+            save_layer_diagonals(p, self, p.diags_path)
+
     @timer
     def evaluate_transforms(self, x):
         out = self.scheme.lt_evaluator.evaluate_transforms(self, x)
@@ -78,7 +92,10 @@ class Linear(LinearTransform):
 
     def generate_diagonals(self, last):
         from ..compiler import packing
+        if self._try_load_diagonals():
+            return
         self.diagonals, self.output_rotations = packing.pack_linear(self, last)
+        self._maybe_save_diagonals()
 
     def compile(self):
         from ..compiler import packing
@@ -141,7 +158,10 @@ class Conv2d(LinearTransform):
 
     def generate_diagonals(self, last):
         from ..compiler import packing
+        if self._try_load_diagonals():
+            return
         self.diagonals, self.output_rotations = packing.pack_conv2d(self, last)
+        self._maybe_save_diagonals()
 
     def compile(self):
         from ..compiler import packing

@@ -9,11 +9,12 @@ below which ciphertexts never rescale.  `boot_params` appends the
 bootstrap circuit's primes above the user chain and its `LogP` joins the
 special primes, as orion_tpu does.
 
-`io_mode`: `none` and `stream` are accepted.  orion_tpu's stream mode
+`io_mode`: `none`, `stream`, `save` and `load`.  orion_tpu's stream mode
 spills compiled buffers to host memory between modules (made for a 16 GiB
-TPU); the port keeps every buffer on the card in both modes and says so
-once at `init_scheme`.  The key/diagonal I/O modes (`save`, `load`) are
-refused until their slice is ported.  `RingType: ConjugateInvariant` gives
+TPU); the port keeps every buffer on the card and says so once at
+`init_scheme`.  `save` and `load` write and read the keys (`keys_path`)
+and the packed diagonals (`diags_path`) as numpy archives
+(`runtime/io.py`).  `RingType: ConjugateInvariant` gives
 N real slots; bootstrapping on it is refused, as orion_tpu refuses it.
 """
 
@@ -52,6 +53,8 @@ class Params:
     fuse_modules: bool = True
     debug: bool = False
     io_mode: str = "none"
+    diags_path: str = ""
+    keys_path: str = ""
     seed: int = 0
 
     # derived
@@ -135,9 +138,13 @@ def parse_config(config: dict) -> Params:
     p.fuse_modules = bool(orion_cfg.get("fuse_modules", True))
     p.debug = bool(orion_cfg.get("debug", False))
     p.io_mode = str(orion_cfg.get("io_mode", "none"))
-    if p.io_mode not in ("none", "stream"):
-        raise NotImplementedError(
-            f"io_mode {p.io_mode!r}: key/diagonal I/O is not ported yet")
+    p.diags_path = str(orion_cfg.get("diags_path", "") or "")
+    p.keys_path = str(orion_cfg.get("keys_path", "") or "")
+    if p.io_mode in ("save", "load") and p.keys_path \
+            and p.keys_path == p.diags_path:
+        raise ValueError(
+            "keys_path and diags_path name one file: the port writes the "
+            "keys and the diagonals to one numpy archive each")
     p.seed = int(orion_cfg.get("seed", 0))
 
     # split wide moduli for the kernels' 32-bit arithmetic; q_0's extra

@@ -9,6 +9,9 @@ Device: `init_scheme(config, device=None)` puts every table, key and
 ciphertext on `cuda`, where the hand-written kernels run; without a CUDA
 device it raises unless the caller asks for `device="cpu"`, the plain
 PyTorch path.
+
+`io_mode: save` writes the keys and the packed diagonals during
+`init_scheme` and `compile`, `load` reads them back (`runtime/io.py`).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from ..compiler.tracer import Tracer
 from ..compiler.dag import NetworkDAG
 from ..compiler.fuser import Fuser
 from ..compiler.level_dag import BootstrapSolver, BootstrapPlacer
+from . import io
 from .config import Params, parse_config
 from .services import (BootstrapperService, EncoderService,
                        EncryptorService, LTEvaluatorService,
@@ -54,7 +58,15 @@ class Scheme:
             logscale=p.logscale, h=p.h, ring_type=p.ring_type, seed=p.seed,
             device=device)
         self.enc = Encoder(self.ctx)
-        self.keys = KeyChest(self.ctx)
+        self.keys = None
+        if p.io_mode == "load" and p.keys_path:
+            io.load_secret_key(self, p.keys_path)
+        if self.keys is None:
+            self.keys = KeyChest(self.ctx)
+        if p.io_mode == "load" and p.keys_path:
+            io.load_rotation_keys(self, p.keys_path)
+        elif p.io_mode == "save" and p.keys_path:
+            io.save_secret_key(self, p.keys_path)
         self.evaluator = Evaluator(self.ctx, self.keys)
         # deep bootstrapped chains: halve the key packs' memory (Montgomery
         # lift in the key inner product instead of stored Shoup companions)
@@ -171,6 +183,8 @@ class Scheme:
         if self.params.fuse_modules:
             Fuser(dag).fuse_modules()
             dag.remove_fused_batchnorms()
+        if self.params.io_mode == "save" and self.params.diags_path:
+            io.start_archive(self.params.diags_path)
 
         # pack diagonals; the last linear layer uses the square embedding so
         # no replicated partials leak
@@ -229,6 +243,8 @@ class Scheme:
         if freed:
             print(f"|-- freed {freed} original rotation keys "
                   "(retained in pre-permuted packs)", flush=True)
+        if self._saving_keys():
+            io.save_rotation_keys(self, self.params.keys_path)
         self.input_level = input_level
         return input_level
 
@@ -253,9 +269,16 @@ class Scheme:
                   for a in pack.amounts}
         drop = [k for k in self.keys.galois_keys
                 if k in packed and k not in needed]
+        if drop and self._saving_keys():
+            # io_mode save: a key is written before it is freed
+            io.save_galois_keys(self, self.params.keys_path,
+                                {k: self.keys.galois_keys[k] for k in drop})
         for k in drop:
             del self.keys.galois_keys[k]
         return len(drop)
+
+    def _saving_keys(self) -> bool:
+        return self.params.io_mode == "save" and bool(self.params.keys_path)
 
     def _check_init(self):
         if self.ctx is None:
