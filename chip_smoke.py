@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (orion_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --forward-copies DIR   (see `forward_copies`)
 
 Phases, each printing its own lines; a failure says why on stdout and
 stderr and exits 1:
@@ -72,9 +73,8 @@ stderr and exits 1:
      launched);
   6b. AlexNet at full width on configs/alexnet.yml the same way; a
      12-ciphertext tensor must be bootstrapped;
-  6c. VGG at full width on configs/vgg.yml the same way, VGG-11 with one
-     conv in its third and fourth stages (6 convs, `VGG_LAYERS`); a
-     bootstrap on the 2048-slot circuit must run;
+  6c. VGG-11 at full width on configs/vgg.yml the same way; a bootstrap
+     on the 2048-slot circuit must run;
   8. batched serving (runtime/jit.make_batched_forward: B queries stacked
      on a leading axis of every ciphertext, one forward): the MLP on
      configs/mlp.yml at B = 1, 2, 4, 8 and LoLA on configs/lola.yml (CI)
@@ -95,9 +95,9 @@ stderr and exits 1:
      batched as the forwards of phases 3, 4, 4b-4d, 6, 6b, 6c and 8 batch
      them: ks_decompose over B polys, ks_finish and ks_finish_raw over a
      pack of K keys (shared ext), over K paired items and, for phase 8's
-     MLP at B = 8 and ResNet-20 at B = 2, over K items grouped by query
-     (K / E keys, ext k % E), B and K the largest batch of that level in
-     that config's forward (4 where it has none; for the bootstrapped
+     MLP and LoLA-CI at B = 8 and ResNet-20 at B = 2, over K items grouped
+     by query (K / E keys, ext k % E), B and K the largest batch of that
+     level in that config's forward (4 where it has none; for the bootstrapped
      nets only the levels their forwards batch, a shape run for one of
      them not run again; for phase 8 the level of its largest ks_finish
      launch), bit-exact against the plain versions, with ms per launch,
@@ -1145,6 +1145,14 @@ def report_profile(pr, what):
              f"is not measured")
 
 
+def _same_cts(a, b):
+    """Two CipherTensors hold the same ciphertexts: levels, scales and
+    residues."""
+    return len(a.cts) == len(b.cts) and all(
+        x.level == y.level and x.scale == y.scale
+        and torch.equal(x.data, y.data) for x, y in zip(a.cts, b.cts))
+
+
 def check_net(cfg, name, title, build, batch=1):
     """One bootstrapped net through the user entry points on cuda, from a
     fresh scheme: `build()` makes the net after the weight generator is
@@ -1158,7 +1166,9 @@ def check_net(cfg, name, title, build, batch=1):
     and a profiled forward that must record every port kernel the
     wrappers launched.  With batch = B > 1 the forward's ciphertext and
     B - 1 more encryptions of its input then go through
-    make_batched_forward (phase 8): see `check_net_batch`."""
+    make_batched_forward (phase 8): see `check_net_batch`; the steady
+    forward then takes the second of them, and its output is that query's
+    serial forward."""
     import orion_tpu_torch as orion
     from orion_tpu_torch import kernels
     from orion_tpu_torch.nn import linear
@@ -1262,8 +1272,11 @@ def check_net(cfg, name, title, build, batch=1):
           f"{sum(ct_boots.values())} ciphertext bootstraps (by circuit "
           f"slots {ct_boots}; ciphertexts per bootstrapped tensor "
           f"{tensor_boots}); launches {counts}; items {items}", flush=True)
+    cts = [ct] + [orion.encrypt(orion.encode(inp, input_level))
+                  for _ in range(batch - 1)]
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    net(ct)
+    steady_out = net(cts[1 if batch > 1 else 0])
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t0
     pr = profile_device(lambda: net(ct))
@@ -1304,36 +1317,31 @@ def check_net(cfg, name, title, build, batch=1):
            "items": items, "launches_by_level": by_level,
            "batches": batches, "profile": pr}
     if batch > 1:
-        rec["batched"] = check_net_batch(scheme, net, name, batch, ct, out,
-                                         inp, input_level, out_clear, boots,
+        rec["batched"] = check_net_batch(scheme, net, name, cts,
+                                         [out, steady_out], out_clear, boots,
                                          rec)
     orion.delete_scheme()
     return rec
 
 
-def check_net_batch(scheme, net, name, b, ct, out, inp, level, out_clear,
-                    boots, single):
-    """Phase 8 on a bootstrapped net: `ct` and b - 1 fresh encryptions of
-    its input through make_batched_forward as one forward.  Each output
-    must equal its serial forward bit for bit (`out` is ct's), MAE <
-    0.005.  Prints the batched wall, the device-memory peak beside the
-    single forward's, the bootstrap calls (each over the b queries) and
-    the key-switch launches and items of the batched forward; returns its
-    record."""
-    import orion_tpu_torch as orion
+def check_net_batch(scheme, net, name, cts, serial, out_clear, boots,
+                    single):
+    """Phase 8 on a bootstrapped net: the B encryptions `cts` of one input
+    through make_batched_forward as one forward.  Each output must equal
+    its serial forward bit for bit (`serial` holds those of the first
+    queries, the rest are run here), MAE < 0.005.  Prints the batched
+    wall, the device-memory peak beside the single forward's, the
+    bootstrap calls (each over the B queries) and the key-switch launches
+    and items of the batched forward; returns its record."""
     from orion_tpu_torch import kernels
     from orion_tpu_torch.runtime.jit import make_batched_forward
     from orion_tpu_torch.utils import mae
 
+    b = len(cts)
     print(f"phase 8: {name} at B = {b} through make_batched_forward "
           f"(the ciphertext above and {b - 1} more encryption(s) of its "
           f"input)", flush=True)
-    cts = [ct] + [orion.encrypt(orion.encode(inp, level))
-                  for _ in range(b - 1)]
-    t0 = time.perf_counter()
-    serial = [out] + [net(c) for c in cts[1:]]
-    torch.cuda.synchronize()
-    serial_s = time.perf_counter() - t0
+    serial = serial + [net(c) for c in cts[len(serial):]]
     run = make_batched_forward(net, scheme)
     torch.cuda.reset_peak_memory_stats()
     boots["slots"].clear()
@@ -1349,19 +1357,15 @@ def check_net_batch(scheme, net, name, b, ct, out, inp, level, out_clear,
     calls = sum(boots["slots"].values())
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     for i, (o, s) in enumerate(zip(outs, serial)):
-        if not all(x.level == y.level and x.scale == y.scale
-                   and torch.equal(x.data, y.data)
-                   for x, y in zip(o.cts, s.cts)) \
-                or len(o.cts) != len(s.cts):
+        if not _same_cts(o, s):
             fail(f"{name}: batched query {i} differs from its serial "
                  f"forward")
     maes = [mae(out_clear, o.decrypt().decode().reshape(-1)
                 [: out_clear.size]) for o in outs]
     print(f"  batched forward {wall_s:.2f} s for {b} queries "
-          f"({wall_s / b:.2f} s per query; the {b - 1} serial forward(s) "
-          f"{(serial_s / max(b - 1, 1)):.2f} s each, the single forward "
-          f"above {single['steady_s']:.2f} s); outputs equal the serial "
-          f"forwards bit for bit; MAE {', '.join(f'{m:.3e}' for m in maes)}",
+          f"({wall_s / b:.2f} s per query; the steady single forward above "
+          f"{single['steady_s']:.2f} s); outputs equal the serial forwards "
+          f"bit for bit; MAE {', '.join(f'{m:.3e}' for m in maes)}",
           flush=True)
     print(f"  device memory peak of the batched forward {peak_mib:.0f} MiB "
           f"(single forward {single['forward_peak_mib']:.0f} MiB); "
@@ -1374,9 +1378,8 @@ def check_net_batch(scheme, net, name, b, ct, out, inp, level, out_clear,
     idle = [k for k in ring_kernels("standard") if counts[k] == 0]
     if idle:
         fail(f"kernels not launched by the batched {name} forward: {idle}")
-    return {"model": name, "batch": b, "wall_s": wall_s,
-            "serial_s_per_query": serial_s / max(b - 1, 1),
-            "mae": maes, "forward_peak_mib": peak_mib,
+    return {"model": name, "batch": b, "wall_s": wall_s, "mae": maes,
+            "forward_peak_mib": peak_mib,
             "bootstrap_calls": calls, "ciphertext_bootstraps": calls * b,
             "launches": counts, "items": items,
             "launches_by_level": kernels.launch_counts_by_level(),
@@ -1411,23 +1414,15 @@ def check_alexnet(cfg):
     return rec
 
 
-# phase 6c's VGG: VGG-11 at full width with one conv, not two, in its third
-# and fourth stages (6 convs, not 8), which keeps the whole run near its
-# time budget; its first stage (64 x 32 x 32, 16 ciphertexts) and its last
-# (two 512-channel convs at 2 x 2, half the slots) are VGG-11's
-VGG_LAYERS = [64, "M", 128, "M", 256, "M", 512, "M", 512, 512, "M"]
-
-
 def check_vgg(cfg):
-    """VGG at full width (`VGG_LAYERS`): its last stage fills half the
-    slots, so a 2048-slot bootstrap circuit must run."""
-    from orion_tpu_torch.models import VGG
+    """VGG-11 at full width: its last stage fills half the slots, so a
+    2048-slot bootstrap circuit must run."""
+    from orion_tpu_torch.models import VGG11
 
-    rec = check_net(cfg, "VGG (6 convs)", "phase 6c: VGG at 6 convs "
-                    "(VGG-11's widths, minimax ReLU (15, 15, 27)) on "
-                    "configs/vgg.yml", lambda: VGG(VGG_LAYERS))
+    rec = check_net(cfg, "VGG-11", "phase 6c: VGG-11 (minimax ReLU "
+                    "(15, 15, 27)) on configs/vgg.yml", VGG11)
     if not rec["ciphertext_bootstraps_by_slots"].get(2048):
-        fail(f"VGG (6 convs): no 2048-slot bootstrap ran "
+        fail(f"VGG-11: no 2048-slot bootstrap ran "
              f"({rec['ciphertext_bootstraps_by_slots']})")
     return rec
 
@@ -1492,10 +1487,7 @@ def check_serving(cfg, model, tag, sizes, title):
                           if k.startswith("ks_")}
         batches = kernels.batch_sizes()
         for i, (o, ser) in enumerate(zip(outs, serial)):
-            if len(o.cts) != len(ser.cts) or not all(
-                    x.level == y.level and x.scale == y.scale
-                    and torch.equal(x.data, y.data)
-                    for x, y in zip(o.cts, ser.cts)):
+            if not _same_cts(o, ser):
                 fail(f"{model} B={b}: query {i} differs from its serial "
                      f"forward")
         maes = [mae(c, o.decrypt().decode().reshape(-1)[: c.size])
@@ -1591,10 +1583,7 @@ def check_io(cfg, model, tag, none_compile_s, title):
         orion.delete_scheme()
     a, b = runs["save"]["out"], runs["load"]["out"]
     if runs["save"]["level"] != runs["load"]["level"] \
-            or len(a.cts) != len(b.cts) or not all(
-                x.level == y.level and x.scale == y.scale
-                and torch.equal(x.data, y.data)
-                for x, y in zip(a.cts, b.cts)):
+            or not _same_cts(a, b):
         fail(f"{model}: the forward after io_mode load differs from the "
              f"forward after io_mode save")
     sizes = {"keys_mib": keys.stat().st_size / 2 ** 20,
@@ -1773,13 +1762,17 @@ def main():
                                      for lv in b.get(k, {})}))
         print(f"phase 7 {tag} done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
-    # phase 8's batched forwards: the batches of ResNet-20 at B = 2 and of
-    # the MLP at B = 8, at the level of each one's largest ks_finish launch
+    # phase 8's batched forwards: the batches of ResNet-20 at B = 2, of
+    # the MLP at B = 8 and of LoLA-CI at B = 8 (the CI kernels, items
+    # grouped by query), at the level of each one's largest ks_finish
+    # launch
     for tag, ctx_b, rec, lean, q in (
             ("resnet_b2", ctx, paths["resnet_b2"], True, 2),
             ("mlp_b8", make_context(cfgs["mlp"]), paths["serve_mlp_b8"],
-             False, 8)):
-        fin = rec["batches"]["ks_finish"]
+             False, 8),
+            ("lola_b8", make_context(cfgs["lola"]),
+             paths["serve_lola_ci_b8"], False, 8)):
+        fin = rec["batches"][kernel_names(ctx_b)["ks_finish"]]
         top = max(fin, key=lambda lv: max(fin[lv]))
         check_batched(ctx_b, tag, stats, rec["batches"], levels=[top],
                       lean=lean, queries=q)
@@ -1876,5 +1869,40 @@ def main():
     return 0
 
 
+def forward_copies(tree):
+    """`python3 chip_smoke.py --forward-copies DIR`: phase 6's ResNet-20
+    alone, with the orion_tpu_torch package of DIR (an unpacked copy of
+    another commit, `git archive <commit> | tar -x -C DIR`) and its
+    kernels built from DIR.  Prints the profiled forward's host-to-device
+    copies and stream synchronisations as its last line, which phase 6 of
+    a whole run prints for this checkout: two commits compare in one call
+    on one card."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 1
+    tree = Path(tree).resolve()
+    sys.path.insert(0, str(tree))
+    import orion_tpu_torch
+    from orion_tpu_torch.kernels import _build
+
+    if Path(orion_tpu_torch.__file__).resolve().parents[1] != tree:
+        fail(f"orion_tpu_torch imported from {orion_tpu_torch.__file__}, "
+             f"not from {tree}")
+    _build.build_all()
+    with open(CONFIGS["resnet"]) as f:
+        rec = check_resnet(yaml.safe_load(f))
+    pr = rec["profile"]
+    print(json.dumps({"tree": str(tree), "model": rec["model"],
+                      "h2d_copies": pr["h2d_copies"],
+                      "stream_syncs": pr["stream_syncs"],
+                      "device_ops": pr["device_ops"]}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--forward-copies":
+        sys.exit(forward_copies(sys.argv[2]))
+    if len(sys.argv) > 1:
+        sys.exit(f"usage: {sys.argv[0]} [--forward-copies DIR]")
     sys.exit(main())

@@ -23,10 +23,8 @@ cfg = {
 
 class VGG(on.Module):
     def __init__(self, vgg_name):
-        """`vgg_name` names a layer list of `cfg`, or is such a list."""
         super().__init__()
-        layers = cfg[vgg_name] if isinstance(vgg_name, str) else vgg_name
-        self.features = self._make_layers(layers)
+        self.features = self._make_layers(cfg[vgg_name])
         self.classifier = on.Linear(512, 10)
         self.flatten = on.Flatten()
 

@@ -11,7 +11,10 @@
   forward at B = 2 runs the transforms, the rescales and the bootstrap
   over the stacked queries, and equals the serial forwards bit for bit.
   Serial forwards of the port equal orion_tpu's (test_torch_resnet.py,
-  test_torch_bootstrap.py).
+  test_torch_bootstrap.py), and so does the port's bootstrap of two
+  stacked queries (test_torch_bootstrap.py).  orion_tpu's forward of this
+  net is not run here: its per-module compiles take about two minutes on
+  the CPU.
 * Queries at different levels are refused.
 """
 

@@ -19,6 +19,9 @@ against orion_tpu's.
   bootstrap is then too coarse to decrypt well, but every step of the
   circuit runs, and the chunked hi-scale evaluation of degree >= 32 is
   held against orion_tpu in tests/test_torch_polyeval.py.
+* Two queries stacked on a leading axis go through one bootstrap of the
+  port, and each equals orion_tpu's bootstrap of that query alone, for
+  both circuits.
 """
 
 import jax
@@ -103,6 +106,11 @@ def _phases(slots_div):
     assert np.array_equal(np.asarray(cts[0].data).astype(np.int64),
                           cts[1].data.numpy())
     rec = {"in": cts[1]}
+    # a second query for the batched bootstrap
+    x2 = np.zeros(tsch.ctx.slots)
+    x2[:slots] = np.random.default_rng(6).uniform(-1, 1, slots)
+    rec["in2"] = tsch.encryptor.encrypt(
+        tsch.encoder.encode(x2, level=tsch.params.base_level)).cts[0]
     t = rec["pre"] = tbtp._pre(cts[1])
     rec["cts"] = []
     for tr in tbtp.cts_transforms:
@@ -117,7 +125,7 @@ def _phases(slots_div):
     for tr in tbtp.stc_transforms:
         a0 = tbtp._one_chain(a0, tr)
         rec["stc"].append(a0)
-    out = tbtp.bootstrap(cts[1])
+    out = rec["out"] = tbtp.bootstrap(cts[1])
     assert torch.equal(out.data, rec["stc"][-1].data)
     prev = jax.config.read("jax_disable_most_optimizations")
     jax.config.update("jax_disable_most_optimizations", True)
@@ -140,7 +148,10 @@ def half_phases():
 
 
 def _run(jsch, jbtp, name, fn, *cts):
-    tag = ("btp", jbtp.slots, name)
+    # tagged as orion_tpu's own bootstrap tags its phase programs, which
+    # it then reuses (test_batched_bootstrap_equals_orion_tpu)
+    tag = ("btp", jbtp.slots) + (name if isinstance(name, tuple) else
+                                 (name,))
     return jsch.phase_runner.run(tag, jbtp._phase_swaps(), fn,
                                  *[_to_jax(c) for c in cts])
 
@@ -213,6 +224,29 @@ def test_evalmod_pair_equals_single_calls(phases):
     for i, want in enumerate(rec["evalmod"]):
         assert (pair.level, pair.scale) == (want.level, want.scale)
         assert torch.equal(pair.data[i], want.data)
+
+
+@pytest.mark.parametrize("slots", ["full", "half"])
+def test_batched_bootstrap_equals_orion_tpu(request, slots):
+    """Two queries stacked on a leading axis, data (2, 2, L, N), through
+    one bootstrap of the port: ModRaise (and the subring trace of the
+    half-slot circuit), the CtS and StC chains and EvalMod over the query
+    axis.  Each query's output equals orion_tpu's bootstrap of that query
+    alone bit for bit (its jitted phase programs, which the phase tests
+    above compiled), and the first query's equals the port's single
+    bootstrap of it."""
+    jsch, jbtp, tbtp, rec = request.getfixturevalue(
+        "phases" if slots == "full" else "half_phases")
+    queries = (rec["in"], rec["in2"])
+    out = tbtp.bootstrap(
+        rec["in"].with_(data=torch.stack([q.data for q in queries])))
+    assert out.data.shape[0] == len(queries)
+    single = rec["out"]
+    assert (out.level, out.scale) == (single.level, single.scale)
+    assert torch.equal(out.data[0], single.data)
+    for i, q in enumerate(queries):
+        assert _equal(jbtp.bootstrap(_to_jax(q)),
+                      out.with_(data=out.data[i])), f"query {i}"
 
 
 def _flow(cfg, net, data):
