@@ -37,7 +37,10 @@ stderr and exits 1:
      ks_finish; one profiled CI rescale_poly must record exactly its two
      kernels, both the CI instantiations;
   3. the full-width MLP 784-128-128-10 on configs/mlp.yml through the
-     user entry points on `cuda`: MAE vs cleartext < 0.005, every kernel
+     user entry points on `cuda` (then once more with io_mode: stream,
+     whose output must equal this one bit for bit, with its compile peak,
+     memory after compile, bytes spilled, promoted and uploaded): MAE vs
+     cleartext < 0.005, every kernel
      of the path launched during the encrypted forward (the generic
      transforms and rescale_poly's second launch serve PallasNTT, ring_ntt
      and Evaluator.rescale, which neither forward calls), the rescale
@@ -46,9 +49,9 @@ stderr and exits 1:
      profiled forward (device time by kernel; the port's kernels it
      recorded must be those their wrappers launched); the same flow with
      device="cpu" (plain path) must give equal output ciphertexts;
-  4. the full-width LeNet on configs/lenet.yml the same way, with the
-     host seconds of fit and compile, the rotation keys made and the peak
-     device memory;
+  4. the full-width LeNet on configs/lenet.yml the same way (streamed
+     too), with the host seconds of fit and compile, the rotation keys
+     made and the peak device memory;
   4b. LoLA at full width on configs/lola.yml (ConjugateInvariant, LogN
      13, 8192 real slots) the same way as phase 3: every CI kernel of the
      path launched, no standard one; the standalone ntt_fwd_ci / ntt_inv_ci
@@ -70,7 +73,15 @@ stderr and exits 1:
      < 0.005, device memory after compile, at the compile peak and at the
      forward peak, and a profiled forward (device time by kernel, busy
      share, the port's kernels recorded against those the wrappers
-     launched);
+     launched).  The config's io_mode: stream spills every module's
+     buffers but the pinned ones to pinned host memory at compile: the
+     bytes spilled beside the hbm_report total, promoted by the first
+     forward under the residency budget and uploaded by the steady one.
+     Then the noise profile of the compiled net on the first forward's
+     ciphertext (every stage finite, its output equal to that forward's;
+     the worst stage and each bootstrap stage's error), and a forward with
+     a budget that holds every buffer and a steady one with every buffer
+     resident, both equal to the streamed forward;
   6b. AlexNet at full width on configs/alexnet.yml the same way; a
      12-ciphertext tensor must be bootstrapped;
   6c. VGG-11 at full width on configs/vgg.yml the same way; a bootstrap
@@ -84,13 +95,27 @@ stderr and exits 1:
      key-switch launches and items per level.  ResNet-20 at B = 2 runs
      inside phase 6 on its compiled net: phase 6's ciphertext and a
      second encryption of its input, equal to their serial forwards, with
-     the wall, the memory peak beside the single forward's, the
-     bootstraps and key-switch items;
+     the wall, a profiled batched forward (device time, busy share), the
+     memory peak beside the single forward's, the bootstraps and
+     key-switch items;
   8b. the MLP and LeNet compiled with io_mode save (numpy archives under
      the build directory), then in a fresh scheme with io_mode load: the
      loaded forward of the saved run's ciphertext equal to the saved
      forward; init_scheme and compile seconds of both beside phases 3-4's
      compile, the archives' sizes;
+  9. training (orion_tpu_torch/train.py): LeNet, one epoch of 4 SGD
+     steps at batch 128 on cuda and on cpu from the same weights, the
+     largest relative parameter difference against its TF32 tolerance; a
+     checkpoint round trip and write_back; the trained net fitted,
+     compiled and served encrypted (MAE < 0.005 against its clear output)
+     and its noise profile (9b); ResNet-20 at full width, 4 steps on one
+     batch, whose loss must fall;
+  9b. the noise profile of TinyVGG (SiLU(15), LogN 11): its error per
+     module;
+  10. the naive BSGS oracle (crypto/lintrans.py) on the MLP's first layer
+     on configs/mlp.yml, cuda ciphertexts equal to cpu ones and decrypting
+     to the scan transform's within the MAE bound; ModMatmulPlan (int8
+     digit planes through torch._int_mm) equal to the exact product;
   7. (run after phase 8, whose batches it takes) the key-switch kernels
      batched as the forwards of phases 3, 4, 4b-4d, 6, 6b, 6c and 8 batch
      them: ks_decompose over B polys, ks_finish and ks_finish_raw over a
@@ -104,9 +129,10 @@ stderr and exits 1:
      per key-switch and the bound per launch; then every kernel once at
      LogN 14 (configs/mlp.yml's chain on a ring of 2^14), the
      instantiation that needs more than 48 KB of shared memory;
-  9. one JSON line per path (phase 8's batches among them), one for the
-     bootstrap, one for phase 8b, one describing each kernel, the card's
-     line, then the result line.
+  11. one JSON line per path (phase 8's batches among them), one for the
+     bootstrap, one for phase 8b, one for each of phases 6's noise and
+     resident forwards, 9, 9b and 10, one describing each kernel, the
+     card's line, then the result line.
 
 Every profiled forward also counts its host-to-device copies (device
 records) and the host's stream synchronisations (runtime calls).
@@ -120,6 +146,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -740,9 +767,12 @@ def run_model(cfg, model, device, params=None, steady=0):
     `load_jax_params`), the input from the synthetic MNIST set."""
     import orion_tpu_torch as orion
     from orion_tpu_torch import kernels, models
+    from orion_tpu_torch.runtime.buffers import hbm_report
     from orion_tpu_torch.utils import get_mnist_datasets, mae
 
     scheme = orion.init_scheme(cfg, device=device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     trainloader, testloader = get_mnist_datasets(batch_size=1)
     net = getattr(models, model)()
     if params is not None:
@@ -762,10 +792,16 @@ def run_model(cfg, model, device, params=None, steady=0):
     ct = orion.encrypt(orion.encode(inp, input_level))
     net.he()
 
-    dev_mib = None
+    dev_mib = compile_peak_mib = None
     if cuda:
         dev_mib = torch.cuda.memory_allocated() / 2 ** 20
+        compile_peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
         torch.cuda.reset_peak_memory_stats()
+    runner = scheme.module_runner
+    stream = None
+    if runner is not None:
+        stream = {"spilled_bytes": scheme.spilled_bytes,
+                  "hbm_report_bytes": hbm_report(scheme, net)["total"]}
     sync()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -777,12 +813,19 @@ def run_model(cfg, model, device, params=None, steady=0):
     items = kernels.item_counts()
     items_by_level = kernels.item_counts_by_level()
     batches = kernels.batch_sizes()
+    if runner is not None:
+        stream["resident_bytes"] = runner.resident_bytes
+        stream["uploaded_bytes"] = []
     steady_s = []
     for _ in range(steady):
+        if runner is not None:
+            runner.uploaded_bytes = 0
         t0 = time.perf_counter()
         net(ct)
         sync()
         steady_s.append(time.perf_counter() - t0)
+        if runner is not None:
+            stream["uploaded_bytes"].append(runner.uploaded_bytes)
     prof = profile_device(lambda: net(ct)) if cuda else None
     out_fhe = out.decrypt().decode().reshape(-1)[: out_clear.size]
     err = mae(out_clear, out_fhe)
@@ -797,13 +840,16 @@ def run_model(cfg, model, device, params=None, steady=0):
         key_packs=len(scheme.evaluator._key_packs),
         peak_mib=(torch.cuda.max_memory_allocated() / 2 ** 20 if cuda
                   else None),
-        dev_mib=dev_mib, ring=scheme.ctx.ring_type, n=scheme.ctx.n,
-        slots=scheme.ctx.slots)
+        dev_mib=dev_mib, compile_peak_mib=compile_peak_mib,
+        ring=scheme.ctx.ring_type, n=scheme.ctx.n,
+        slots=scheme.ctx.slots, stream=stream)
 
 
-def check_model(cfg, model, title):
+def check_model(cfg, model, title, stream=False):
     """One path on cuda, then on cpu with the same weights: MAE, launches,
-    equal output ciphertexts.  Returns the path's JSON record."""
+    equal output ciphertexts.  With `stream`, the same path once more on
+    cuda with io_mode: stream, whose output must equal the first (see
+    `check_stream`).  Returns the path's JSON record."""
     print(f"{title}, device cuda", flush=True)
     gpu = run_model(cfg, model, "cuda", steady=3)
     steady_ms = [s * 1e3 for s in gpu["steady_s"]]
@@ -875,7 +921,9 @@ def check_model(cfg, model, title):
                 and torch.equal(a.data.cpu(), b.data)):
             fail(f"{model}: cuda and cpu output ciphertexts differ")
     print("  cuda and cpu output ciphertexts are equal", flush=True)
+    rec_stream = check_stream(cfg, model, title, gpu) if stream else None
     return {"ring": ring, "n": gpu["n"], "slots": gpu["slots"],
+            "stream": rec_stream,
             "first_ms": gpu["first_s"] * 1e3, "steady_ms": steady_ms,
             "mae": gpu["mae"], "launches": gpu["counts"],
             "launches_by_level": gpu["by_level"], "items": gpu["items"],
@@ -885,6 +933,54 @@ def check_model(cfg, model, title):
             "rotation_keys": gpu["rotations"], "key_packs": gpu["key_packs"],
             "peak_device_mib": gpu["peak_mib"],
             "cpu_forward_s": cpu["first_s"], "profile": gpu["prof"]}
+
+
+def stream_line(st):
+    """The streaming numbers of one path, for its printed line."""
+    up = ", ".join(f"{b / 2 ** 20:.1f}" for b in st["uploaded_bytes"])
+    return (f"spilled at compile {st['spilled_bytes'] / 2 ** 20:.1f} MiB "
+            f"(hbm_report total {st['hbm_report_bytes'] / 2 ** 20:.1f} "
+            f"MiB), resident after the first forward "
+            f"{st['resident_bytes'] / 2 ** 20:.1f} MiB, uploaded per "
+            f"steady forward {up} MiB")
+
+
+def check_stream(cfg, model, title, gpu):
+    """The path of `gpu` (a run_model record on cuda) compiled again with
+    io_mode: stream, from the same weights and seed: its output
+    ciphertexts must equal the first run's bit for bit.  Prints the
+    compile peak and the memory after compile beside the first run's,
+    the bytes spilled and the hbm_report total, what the first forward
+    promoted and what each steady forward uploaded."""
+    from orion_tpu_torch.nn import linear
+
+    cfg = {**cfg, "orion": {**cfg.get("orion", {}), "io_mode": "stream"}}
+    print(f"{title}, again with io_mode stream (device cuda)", flush=True)
+    gc.collect()
+    # the net built here draws from the port's weight generator: put its
+    # state back, so the later phases' nets get the weights they had
+    # before this run was added
+    rng = linear._WEIGHT_RNG
+    state = rng.bit_generator.state
+    run = run_model(cfg, model, "cuda", params=gpu["params"], steady=2)
+    rng.bit_generator.state = state
+    st = run["stream"]
+    print(f"  compile peak {run['compile_peak_mib']:.0f} MiB, device memory "
+          f"after compile {run['dev_mib']:.0f} MiB (io_mode none "
+          f"{gpu['compile_peak_mib']:.0f} and {gpu['dev_mib']:.0f} MiB); "
+          f"{stream_line(st)}; forwards {run['first_s'] * 1e3:.1f} ms, "
+          f"steady {', '.join(f'{s * 1e3:.1f}' for s in run['steady_s'])} "
+          f"ms (io_mode none first {gpu['first_s'] * 1e3:.1f} ms)",
+          flush=True)
+    if not _same_cts(run["out"], gpu["out"]):
+        fail(f"{model}: the io_mode stream output differs from io_mode "
+             f"none's")
+    print("  the streamed output ciphertexts equal io_mode none's",
+          flush=True)
+    return {**st, "compile_peak_mib": run["compile_peak_mib"],
+            "device_mib_after_compile": run["dev_mib"],
+            "first_ms": run["first_s"] * 1e3,
+            "steady_ms": [s * 1e3 for s in run["steady_s"]]}
 
 
 # ------------------------------------------------------------------ #
@@ -1026,25 +1122,42 @@ def profiled(fn, activities):
     return prof, wall_ms, launched
 
 
-def call_records(prof):
-    """The recorded call's device records: those that run between the two
-    marker sleep kernels (the port runs on one stream, so its records of
-    the call lie between them and those of the warm-up call before the
-    first).  Returns them with the records left out, counted as the
-    port's kernels or other, and as overlapping the call's span (a record
-    of another stream, or one the profiler misplaced); None if the
-    markers were not both recorded."""
-    recs = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.name.startswith("ProfilerStep")]
+class Record(NamedTuple):
+    """One profiler record: name, start and end (ns), on the device."""
+    name: str
+    start: int
+    end: int
+    device: bool
+
+
+def records(prof):
+    """The profile's records, read from its raw kineto events: building
+    torch's FunctionEvent list (`prof.events()`) takes tens of seconds
+    for the 230k device records of a ResNet-20 forward."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [Record(e.name(), e.start_ns(), e.start_ns() + e.duration_ns(),
+                   e.device_type() == cuda)
+            for e in prof.profiler.kineto_results.events()]
+
+
+def call_records(recs):
+    """The recorded call's device records among a profile's `records`:
+    those that run between the two marker sleep kernels (the port runs on
+    one stream, so its records of the call lie between them and those of
+    the warm-up call before the first).  Returns them with the records
+    left out, counted as the port's kernels or other, and as overlapping
+    the call's span (a record of another stream, or one the profiler
+    misplaced); None if the markers were not both recorded."""
+    recs = [e for e in recs
+            if e.device and not e.name.startswith("ProfilerStep")]
     marks = sorted((e for e in recs if "spin_kernel" in e.name),
-                   key=lambda e: e.time_range.start)
+                   key=lambda e: e.start)
     if len(marks) != 2:
         return None
-    lo, hi = marks[0].time_range.end, marks[1].time_range.start
+    lo, hi = marks[0].end, marks[1].start
     kept, left = [], {"port": 0, "other": 0, "overlapping": 0}
     for e in recs:
-        start, end = e.time_range.start, e.time_range.end
+        start, end = e.start, e.end
         if any(e is m for m in marks):
             continue
         if lo <= start and end <= hi:
@@ -1066,14 +1179,13 @@ def device_kernels(fn):
     from torch.profiler import ProfilerActivity
 
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        prof = profiled(fn, [ProfilerActivity.CUDA])[0]
-        got = call_records(prof)
+        recs = records(profiled(fn, [ProfilerActivity.CUDA])[0])
+        got = call_records(recs)
         if got is not None:
             return [e.name for e in got[0]]
         print(f"  profile {attempt} of {PROFILE_ATTEMPTS}: the markers "
               f"around the call were not recorded; device records: "
-              + ", ".join(e.name[:40] for e in prof.events()
-                          if e.device_type == torch.autograd.DeviceType.CUDA),
+              + ", ".join(e.name[:40] for e in recs if e.device),
               flush=True)
     fail("the profiler did not record the two marker kernels around a call")
 
@@ -1093,12 +1205,13 @@ def profile_device(fn):
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         prof, wall_ms, launched = profiled(fn, [ProfilerActivity.CUDA])
         t0 = time.perf_counter()
-        got = call_records(prof)
+        recs = records(prof)
+        got = call_records(recs)
         kept, left = got if got else ([], None)
         by_name, seen = {}, dict.fromkeys(OUR_KERNELS, 0)
         for e in kept:
             by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
+                               + (e.end - e.start) / 1e6)
             for o in OUR_KERNELS:
                 seen[o] += o in e.name
         if seen == launched and left and not left["overlapping"]:
@@ -1116,8 +1229,7 @@ def profile_device(fn):
     # the harness's own torch.cuda.synchronize after the call (None: the
     # profile recorded no runtime call)
     h2d = sum("HtoD" in e.name for e in kept)
-    syncs = sum(e.device_type == torch.autograd.DeviceType.CPU
-                and "Synchronize" in e.name for e in prof.events())
+    syncs = sum(not e.device and "Synchronize" in e.name for e in recs)
     return dict(wall_ms=wall_ms, device_ms=dev_ms, h2d_copies=h2d,
                 stream_syncs=syncs - 1 if syncs else None,
                 our_kernels_ms=sum(ours_by.values()),
@@ -1153,7 +1265,7 @@ def _same_cts(a, b):
         and torch.equal(x.data, y.data) for x, y in zip(a.cts, b.cts))
 
 
-def check_net(cfg, name, title, build, batch=1):
+def check_net(cfg, name, title, build, batch=1, extra=False):
     """One bootstrapped net through the user entry points on cuda, from a
     fresh scheme: `build()` makes the net after the weight generator is
     reset to the seed orion_tpu's examples start from, one synthetic
@@ -1168,7 +1280,11 @@ def check_net(cfg, name, title, build, batch=1):
     B - 1 more encryptions of its input then go through
     make_batched_forward (phase 8): see `check_net_batch`; the steady
     forward then takes the second of them, and its output is that query's
-    serial forward."""
+    serial forward.  With io_mode: stream (the three bootstrapped configs)
+    it prints the bytes spilled at compile beside the hbm_report total,
+    the bytes promoted by the first forward and uploaded by the steady
+    one.  With `extra` (ResNet-20), `check_noise_and_resident` then runs
+    the noise profile and the forwards with every buffer resident."""
     import orion_tpu_torch as orion
     from orion_tpu_torch import kernels
     from orion_tpu_torch.nn import linear
@@ -1229,6 +1345,14 @@ def check_net(cfg, name, title, build, batch=1):
           f"{dev_mib / 1024:.1f} GiB", flush=True)
     if not lean:
         fail(f"{name}: key packs keep Shoup companions under boot_params")
+    # io_mode stream (absent from packages before it: --forward-copies)
+    runner = getattr(scheme, "module_runner", None)
+    stream = None
+    if runner is not None:
+        from orion_tpu_torch.runtime.buffers import hbm_report
+        stream = {"spilled_bytes": scheme.spilled_bytes,
+                  "hbm_report_bytes": hbm_report(scheme, net)["total"],
+                  "budget_bytes": runner.budget}
 
     # ciphertext bootstraps of a forward, by circuit slot count, and the
     # ciphertexts of each tensor bootstrapped
@@ -1274,11 +1398,23 @@ def check_net(cfg, name, title, build, batch=1):
           f"{tensor_boots}); launches {counts}; items {items}", flush=True)
     cts = [ct] + [orion.encrypt(orion.encode(inp, input_level))
                   for _ in range(batch - 1)]
+    if runner is not None:
+        stream["resident_bytes"] = runner.resident_bytes
+        stream["device_mib_after_first"] = \
+            torch.cuda.memory_allocated() / 2 ** 20
+        runner.uploaded_bytes = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     steady_out = net(cts[1 if batch > 1 else 0])
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t0
+    if runner is not None:
+        stream["uploaded_bytes"] = [runner.uploaded_bytes]
+        print(f"  io_mode stream: {stream_line(stream)} (budget "
+              f"{runner.budget / 2 ** 20:.0f} MiB); device memory after "
+              f"the first forward "
+              f"{stream['device_mib_after_first'] / 1024:.1f} GiB",
+              flush=True)
     pr = profile_device(lambda: net(ct))
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     print(f"  steady forward {steady_s:.2f} s; peak device memory over the "
@@ -1315,12 +1451,131 @@ def check_net(cfg, name, title, build, batch=1):
            "compile_peak_mib": compile_peak_mib,
            "forward_peak_mib": peak_mib, "launches": counts,
            "items": items, "launches_by_level": by_level,
-           "batches": batches, "profile": pr}
+           "batches": batches, "profile": pr, "stream": stream}
     if batch > 1:
         rec["batched"] = check_net_batch(scheme, net, name, cts,
                                          [out, steady_out], out_clear, boots,
                                          rec)
+    if extra:
+        rec["extra"] = check_noise_and_resident(scheme, net, name, inp,
+                                                input_level, ct, out,
+                                                steady_s)
     orion.delete_scheme()
+    return rec
+
+
+def profile_with_output(net, scheme, inp, level, ct):
+    """noise_profile of `net` on ciphertext `ct`, and the encrypted
+    forward's output (the top-level forward's result, captured around
+    it): (records, output, seconds)."""
+    from orion_tpu_torch.diagnostics import noise_profile
+
+    seen = []
+    forward = net.forward
+
+    def recorded(x):
+        seen.append(forward(x))
+        return seen[-1]
+
+    net.forward = recorded
+    t0 = time.perf_counter()
+    try:
+        records = noise_profile(net, scheme, inp, level, ctxt=ct)
+    finally:
+        del net.forward
+    return records, seen[-1], time.perf_counter() - t0
+
+
+def print_profile(name, records, stages=True):
+    """The worst stage, the final error, each bootstrap stage's error and,
+    with `stages`, one line per stage; fails on a stage that is not
+    finite."""
+    bad = [r["name"] for r in records
+           if not (np.isfinite(r["max_err"]) and np.isfinite(r["rms_err"]))]
+    if bad:
+        fail(f"{name}: noise profile stages not finite: {bad}")
+    worst = max(records, key=lambda r: r["max_err"])
+    # a linear stage followed by a BatchNorm stage has the BatchNorm fused
+    # into it: its ciphertext holds both while its clear record is the
+    # linear map alone, so the like-for-like worst leaves it out
+    fused = {a["name"] for a, b in zip(records, records[1:])
+             if b["kind"].startswith("BatchNorm")}
+    like = max((r for r in records if r["name"] not in fused),
+               key=lambda r: r["max_err"])
+    boots = [r for r in records if r["kind"] == "Bootstrap"]
+    print(f"  noise profile of {name}: {len(records)} stages, every stage "
+          f"finite; worst {worst['name']} ({worst['kind']}) max "
+          f"{worst['max_err']:.3e}, worst leaving out the {len(fused)} "
+          f"stages with a BatchNorm fused in {like['name']} "
+          f"({like['kind']}) max {like['max_err']:.3e}; final max "
+          f"{records[-1]['max_err']:.3e} rms {records[-1]['rms_err']:.3e}; "
+          f"{len(boots)} bootstrap stages", flush=True)
+    if boots:
+        print("  bootstrap stages (max / rms error): " + "; ".join(
+            f"{r['name']} {r['max_err']:.3e} / {r['rms_err']:.3e}"
+            for r in boots), flush=True)
+    if stages:
+        for r in records:
+            print(f"    {r['name']:32s} {r['kind']:12s} L{r['ct_level']:>2} "
+                  f"max {r['max_err']:.3e} rms {r['rms_err']:.3e} "
+                  f"|clear| {r['clear_absmax']:.3e}", flush=True)
+    return {"stages": len(records), "worst": worst["name"],
+            "worst_max_err": worst["max_err"],
+            "worst_unfused": like["name"],
+            "worst_unfused_max_err": like["max_err"],
+            "final_max_err": records[-1]["max_err"],
+            "final_rms_err": records[-1]["rms_err"],
+            "bootstraps": {r["name"]: [r["max_err"], r["rms_err"]]
+                           for r in boots}}
+
+
+def check_noise_and_resident(scheme, net, name, inp, level, ct, out,
+                             steady_s):
+    """On a compiled bootstrapped net (phase 6's ResNet-20): its noise
+    profile on the first forward's ciphertext `ct` (every stage finite,
+    the profiled forward's output equal to `out` bit for bit), then, under
+    io_mode stream, a forward with a budget that holds every buffer (it
+    promotes what stayed on the host) and a steady forward with every
+    buffer resident, both equal to `out`; their walls beside the streamed
+    steady forward's `steady_s`."""
+    print(f"phase 6: noise profile of {name} on the ciphertext of its first "
+          f"forward", flush=True)
+    records, prof_out, prof_s = profile_with_output(net, scheme, inp,
+                                                    level, ct)
+    if not _same_cts(prof_out, out):
+        fail(f"{name}: the profiled forward's output differs from the "
+             f"forward's")
+    print(f"  profiled forward {prof_s:.1f} s; its output equals the first "
+          f"forward's bit for bit", flush=True)
+    rec = {"noise": print_profile(name, records), "noise_s": prof_s}
+    runner = scheme.module_runner
+    if runner is None:
+        return rec
+    runner.budget = float("inf")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    promoted = net(ct)
+    torch.cuda.synchronize()
+    promote_s = time.perf_counter() - t0
+    runner.uploaded_bytes = 0
+    t0 = time.perf_counter()
+    resident = net(ct)
+    torch.cuda.synchronize()
+    resident_s = time.perf_counter() - t0
+    if not (_same_cts(promoted, out) and _same_cts(resident, out)):
+        fail(f"{name}: the forward with every buffer resident differs from "
+             f"the streamed one")
+    if runner.host or runner.uploaded_bytes:
+        fail(f"{name}: buffers still streamed with an unbounded budget")
+    print(f"  every buffer resident (budget unbounded): the promoting "
+          f"forward {promote_s:.2f} s, then a steady forward "
+          f"{resident_s:.2f} s against {steady_s:.2f} s streamed; "
+          f"{runner.resident_bytes / 2 ** 30:.2f} GiB promoted, device "
+          f"memory {torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB; "
+          f"outputs equal the streamed forward's", flush=True)
+    rec.update(promote_s=promote_s, resident_steady_s=resident_s,
+               streamed_steady_s=steady_s,
+               resident_bytes_all=runner.resident_bytes)
     return rec
 
 
@@ -1354,6 +1609,8 @@ def check_net_batch(scheme, net, name, cts, serial, out_clear, boots,
     counts = kernels.launch_counts()
     items = kernels.item_counts()
     batches = kernels.batch_sizes()
+    by_level = kernels.launch_counts_by_level()
+    items_by_level = kernels.item_counts_by_level()
     calls = sum(boots["slots"].values())
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     for i, (o, s) in enumerate(zip(outs, serial)):
@@ -1362,6 +1619,14 @@ def check_net_batch(scheme, net, name, cts, serial, out_clear, boots,
                  f"forward")
     maes = [mae(out_clear, o.decrypt().decode().reshape(-1)
                 [: out_clear.size]) for o in outs]
+    pr = profile_device(lambda: run(cts))
+    print(f"  profiled batched forward: wall {pr['wall_ms']:.0f} ms, "
+          f"device {pr['device_ms']:.1f} ms in {pr['device_ops']} device "
+          f"ops (busy share {pr['busy_share']:.3f}), port kernels "
+          f"{pr['our_kernels_ms']:.1f} ms; single forward above: device "
+          f"{single['profile']['device_ms']:.1f} ms, busy share "
+          f"{single['profile']['busy_share']:.3f}", flush=True)
+    report_profile(pr, f"{name} at B = {b}")
     print(f"  batched forward {wall_s:.2f} s for {b} queries "
           f"({wall_s / b:.2f} s per query; the steady single forward above "
           f"{single['steady_s']:.2f} s); outputs equal the serial forwards "
@@ -1382,21 +1647,22 @@ def check_net_batch(scheme, net, name, cts, serial, out_clear, boots,
             "forward_peak_mib": peak_mib,
             "bootstrap_calls": calls, "ciphertext_bootstraps": calls * b,
             "launches": counts, "items": items,
-            "launches_by_level": kernels.launch_counts_by_level(),
-            "items_by_level": kernels.item_counts_by_level(),
-            "batches": batches}
+            "launches_by_level": by_level, "items_by_level": items_by_level,
+            "batches": batches, "profile": pr}
 
 
-def check_resnet(cfg, blocks=(3, 3, 3), batch=1):
+def check_resnet(cfg, blocks=(3, 3, 3), batch=1, extra=False):
     """ResNet-20 (or, with blocks (1, 1, 1), the same widths with one
-    block per stage), and with batch > 1 its batched forward (phase 8)."""
+    block per stage), with batch > 1 its batched forward (phase 8), with
+    `extra` its noise profile and its forwards with every buffer
+    resident."""
     from orion_tpu_torch.models import resnet
 
     name = "ResNet-20" if tuple(blocks) == (3, 3, 3) else f"ResNet{blocks}"
     rec = check_net(
         cfg, name, f"phase 6: {name} (widths 16/32/64) on configs/resnet.yml",
         lambda: resnet._make("cifar10", resnet.BasicBlock, list(blocks),
-                             [16, 32, 64]), batch=batch)
+                             [16, 32, 64]), batch=batch, extra=extra)
     rec["blocks"] = list(blocks)
     return rec
 
@@ -1605,6 +1871,304 @@ def check_io(cfg, model, tag, none_compile_s, title):
             "none_compile_s": none_compile_s, **sizes}
 
 
+# ------------------------------------------------------------------ #
+#  Phase 9: training; 9b: noise profiles; 10: the naive BSGS oracle  #
+# ------------------------------------------------------------------ #
+
+# largest difference between the parameters trained on cuda and on cpu,
+# relative to each tensor's largest entry: cuDNN's convolutions run in
+# TF32 on the card (PyTorch's default, which the trainer leaves as it is)
+TRAIN_TOL = 1e-2
+
+
+def check_training(cfg):
+    """Phase 9: LeNet (port's seeded weights) trained for one epoch of the
+    synthetic MNIST set at batch 128 (4 SGD steps) on cuda and on cpu
+    from the same weights, the largest relative parameter difference
+    against TRAIN_TOL; a checkpoint round trip into a fresh LeNet through
+    write_back; fit, compile (configs/lenet.yml) and an encrypted forward
+    of it on cuda, MAE < 0.005 against the trained net's clear output, and
+    its noise profile.  Then ResNet-20 at full width, 4 steps on cuda on
+    one batch of 128 synthetic CIFAR-10 images: the training loss on that
+    batch must be finite and fall.  Returns the phase's record."""
+    import orion_tpu_torch as orion
+    from orion_tpu_torch import models
+    from orion_tpu_torch import train as tr
+    from orion_tpu_torch.native import build_dir
+    from orion_tpu_torch.nn import linear
+    from orion_tpu_torch.utils import (get_cifar_datasets, get_mnist_datasets,
+                                       mae)
+
+    print("phase 9: LeNet trained for one epoch at batch 128 (4 steps) on "
+          "cuda and on cpu from the same weights", flush=True)
+    linear._WEIGHT_RNG = np.random.default_rng(2024)
+    net = models.LeNet()
+    ref = models.LeNet()
+    ref.load_state_dict(net.state_dict())
+    walls = {}
+    for dev, m in (("cuda", net), ("cpu", ref)):
+        t0 = time.perf_counter()
+        tr.train_on_mnist(m, epochs=1, batch_size=128, device=dev,
+                          log_every=1)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        walls[dev] = time.perf_counter() - t0
+    a, b = net.state_dict(), ref.state_dict()
+    rel = {k: float((a[k] - b[k]).abs().max() / b[k].abs().max())
+           for k in b}
+    worst = max(rel, key=rel.get)
+    print(f"  train wall cuda {walls['cuda']:.2f} s, cpu {walls['cpu']:.2f} "
+          f"s (tracing and the test pass included); largest relative "
+          f"parameter difference cuda vs cpu {rel[worst]:.3e} ({worst}), "
+          f"tolerance {TRAIN_TOL} (TF32 convolutions on the card; cuDNN "
+          f"allow_tf32 {torch.backends.cudnn.allow_tf32}, matmul "
+          f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32})",
+          flush=True)
+    if not rel[worst] <= TRAIN_TOL:
+        fail(f"LeNet trained on cuda differs from cpu by {rel[worst]} "
+             f"({worst})")
+
+    trainloader, testloader = get_mnist_datasets(batch_size=1)
+    inp, _ = next(iter(testloader))
+    apply, params, state, _ = tr.build_functional(net, inp, device="cuda")
+    path = build_dir() / "lenet_trained.npz"
+    tr.save_checkpoint(params, path)
+    fresh = models.LeNet()
+    _, _, _, mods = tr.build_functional(fresh, inp, device="cuda")
+    tr.write_back(fresh, tr.load_checkpoint(path), state, mods)
+    if not all(torch.equal(fresh.state_dict()[k], v)
+               for k, v in net.state_dict().items()):
+        fail("LeNet: checkpoint round trip and write_back changed the net")
+    print(f"  checkpoint round trip ({path.name}, "
+          f"{path.stat().st_size / 2 ** 20:.1f} MiB) and write_back into a "
+          f"fresh LeNet: parameters and statistics equal", flush=True)
+
+    scheme = orion.init_scheme(cfg, device="cuda")
+    fresh.eval()
+    out_clear = fresh(inp).numpy().reshape(-1)
+    orion.fit(fresh, trainloader)
+    level = orion.compile(fresh)
+    ct = orion.encrypt(orion.encode(inp, level))
+    fresh.he()
+    out = fresh(ct)
+    torch.cuda.synchronize()
+    err = mae(out_clear, out.decrypt().decode().reshape(-1)[: out_clear.size])
+    print(f"  trained LeNet served encrypted on cuda: MAE vs its clear "
+          f"output {err:.3e}", flush=True)
+    if not err < 0.005:
+        fail(f"trained LeNet: MAE {err} >= 0.005")
+    print("phase 9b: noise profile of the trained LeNet", flush=True)
+    records, prof_out, prof_s = profile_with_output(fresh, scheme, inp,
+                                                    level, ct)
+    if not _same_cts(prof_out, out):
+        fail("LeNet: the profiled forward's output differs")
+    rec = {"lenet": {"rel_param_diff": rel[worst], "worst_param": worst,
+                     "tolerance": TRAIN_TOL, "train_s": walls, "mae": err,
+                     "noise": print_profile("LeNet", records),
+                     "noise_s": prof_s}}
+    orion.delete_scheme()
+    gc.collect()
+
+    print("phase 9: ResNet-20 at full width, 4 SGD steps on cuda on one "
+          "batch of 128 synthetic CIFAR-10 images", flush=True)
+    linear._WEIGHT_RNG = np.random.default_rng(2024)
+    rnet = models.ResNet20()
+    x, y = next(iter(get_cifar_datasets(batch_size=128)[0]))
+    labels = torch.as_tensor(y, device="cuda")
+
+    def batch_loss():
+        apply, params, state, _ = tr.build_functional(rnet, x,
+                                                      device="cuda")
+        with torch.no_grad():
+            logits, _ = apply(params, state, x, train=True)
+            return float(torch.nn.functional.cross_entropy(logits, labels))
+
+    before = batch_loss()
+    t0 = time.perf_counter()
+    tr.train(rnet, [(x, y)] * 4, epochs=1, device="cuda", log_every=1)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    after = batch_loss()
+    print(f"  loss on the batch {before:.4f} -> {after:.4f} after 4 steps "
+          f"({train_s:.2f} s, tracing included)", flush=True)
+    if not (np.isfinite(after) and after < before):
+        fail(f"ResNet-20 training: loss {before} -> {after}")
+    rec["resnet20"] = {"loss_before": before, "loss_after": after,
+                       "train_s": train_s}
+    return rec
+
+
+TINY_VGG_CONFIG = {
+    "ckks_params": {"LogN": 11, "LogQ": [29] + [26] * 19, "LogP": [29, 29],
+                    "LogScale": 26, "H": 64, "RingType": "Standard"},
+    "orion": {"margin": 2, "backend": "tpu", "fuse_modules": True,
+              "embedding_method": "hybrid"},
+}
+
+
+def check_tiny_vgg_noise():
+    """Phase 9b: the per-module error of `TinyVGG` (two conv blocks with
+    SiLU(15), tests/test_torch_models.py) on its LogN-11 config, with the
+    weights a fresh process draws and the test's input, on cuda."""
+    import orion_tpu_torch as orion
+    import orion_tpu_torch.nn as on
+    from orion_tpu_torch.nn import linear
+    from orion_tpu_torch.utils import ArrayLoader, mae
+
+    class TinyVGG(on.Module):
+        def __init__(self):
+            super().__init__()
+            self.features = on.Sequential(
+                on.Conv2d(3, 4, kernel_size=3, padding=1),
+                on.BatchNorm2d(4),
+                on.SiLU(degree=15),
+                on.AvgPool2d(kernel_size=2, stride=2),
+                on.Conv2d(4, 8, kernel_size=3, padding=1),
+                on.BatchNorm2d(8),
+                on.SiLU(degree=15),
+                on.AdaptiveAvgPool2d(output_size=2),
+            )
+            self.flatten = on.Flatten()
+            self.classifier = on.Linear(8 * 2 * 2, 4)
+
+        def forward(self, x):
+            return self.classifier(self.flatten(self.features(x)))
+
+    print("phase 9b: noise profile of TinyVGG (SiLU(15), LogN 11)",
+          flush=True)
+    linear._WEIGHT_RNG = np.random.default_rng(2024)
+    net = TinyVGG()
+    data = np.random.default_rng(3).uniform(
+        0, 1, (32, 3, 8, 8)).astype(np.float32)
+    inp = data[:1]
+    scheme = orion.init_scheme(TINY_VGG_CONFIG, device="cuda")
+    net.eval()
+    out_exact = net(inp).numpy().reshape(-1)
+    orion.fit(net, ArrayLoader(data, np.zeros(len(data)), batch_size=1))
+    level = orion.compile(net)
+    ct = orion.encrypt(orion.encode(inp, level))
+    records, out, prof_s = profile_with_output(net, scheme, inp, level, ct)
+    err = mae(out_exact, out.decrypt().decode().reshape(-1)[: out_exact.size])
+    print(f"  MAE vs the exact net {err:.4e}; profiled forward "
+          f"{prof_s:.1f} s", flush=True)
+    rec = {"noise": print_profile("TinyVGG", records), "mae_exact": err}
+    orion.delete_scheme()
+    return rec
+
+
+def check_oracle(cfg):
+    """Phase 10: the naive BSGS oracle (crypto/lintrans.py) on the first
+    layer of the MLP on configs/mlp.yml: its diagonals from a compile on
+    cuda, then in fresh contexts on cuda and on cpu (keys from the
+    config's seed, made in one order) eval_transform_blocked of one
+    encrypted input; the cuda ciphertexts must equal the cpu ones, and
+    their decryption the scan transform's (crypto/lintrans_scan.py, on the
+    same cuda keys) within the MAE bound.  Then ModMatmulPlan on cuda
+    (torch._int_mm) against the exact product."""
+    import orion_tpu_torch as orion
+    from orion_tpu_torch import models
+    from orion_tpu_torch.crypto import (CKKSContext, Encoder, Evaluator,
+                                        KeyChest, lintrans, lintrans_scan)
+    from orion_tpu_torch.crypto.ciphertext import Ciphertext
+    from orion_tpu_torch.crypto.mxu_modmatmul import ModMatmulPlan
+    from orion_tpu_torch.utils import get_mnist_datasets, mae
+
+    print("phase 10: the naive BSGS oracle on the MLP's first layer "
+          "(configs/mlp.yml), cuda and cpu, against the scan transform",
+          flush=True)
+    scheme = orion.init_scheme(cfg, device="cuda")
+    trainloader, testloader = get_mnist_datasets(batch_size=1)
+    net = models.MLP()
+    net.eval()
+    orion.fit(net, trainloader)
+    orion.compile(net)
+    fc1 = net.fc1
+    diags, level, ratio = fc1.diagonals, fc1.level, fc1.bsgs_ratio
+    p = scheme.params
+    orion.delete_scheme()
+    inp, _ = next(iter(testloader))
+    vec = np.asarray(inp, np.float64).reshape(-1)
+    rows = 1 + max(i for i, _ in diags)
+
+    def oracle(dev):
+        """A fresh context on `dev` (keys from the config's seed, made in
+        one order), one encryption of the input, eval_transform_blocked:
+        (outputs, the input ciphertext, encoder, keys, evaluator, wall)."""
+        ctx = CKKSContext(logn=p.logn, logq=p.split_logq, logp=p.logp,
+                          logscale=p.logscale, h=p.h, ring_type=p.ring_type,
+                          seed=p.seed, device=dev)
+        enc, keys = Encoder(ctx), KeyChest(ctx)
+        ev = Evaluator(ctx, keys)
+        grid = {blk: lintrans.compile_transform(enc, d, level, ctx.slots,
+                                                ratio)
+                for blk, d in diags.items()}
+        for r in sorted(set().union(*(tr.rotations_needed()
+                                      for tr in grid.values()))):
+            keys.galois_key(ctx.galois_element(r))
+        pt, scale = enc.encode(vec, level=level)
+        ct = Ciphertext(ctx.to_device(keys.encrypt_rns(pt)), level, scale)
+        t0 = time.perf_counter()
+        out = lintrans.eval_transform_blocked(ev, grid, [ct], rows)
+        torch.cuda.synchronize()
+        return out, ct, enc, keys, ev, time.perf_counter() - t0
+
+    outs, walls = {}, {}
+    outs["cuda"], ct, enc, keys, ev, walls["oracle"] = oracle("cuda")
+    scan = {blk: lintrans_scan.compile_transform_scan(enc, d, level,
+                                                      ev.ctx.slots, ratio)
+            for blk, d in diags.items()}
+    t0 = time.perf_counter()
+    scan_out = lintrans_scan.eval_transform_blocked_scan(ev, scan, [ct],
+                                                         rows)
+    torch.cuda.synchronize()
+    walls["scan"] = time.perf_counter() - t0
+
+    def dec(c):
+        return enc.decode(keys.decrypt_rns(c.data.cpu().numpy()), c.scale)
+
+    oracle_dec = np.concatenate([dec(c) for c in outs["cuda"]])
+    scan_dec = np.concatenate([dec(c) for c in scan_out])
+    outs["cpu"], *_, walls["oracle_cpu"] = oracle("cpu")
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        if not (a.level == b.level and a.scale == b.scale
+                and torch.equal(a.data.cpu(), b.data)):
+            fail("oracle: cuda and cpu ciphertexts differ")
+    err = mae(oracle_dec, scan_dec)
+    same = all(torch.equal(a.data, b.data) and a.scale == b.scale
+               for a, b in zip(outs["cuda"], scan_out))
+    n_diags = sum(len(d) for d in diags.values())
+    print(f"  {len(diags)} block(s), {n_diags} diagonals at level {level}; "
+          f"oracle on cuda {walls['oracle']:.2f} s, on cpu "
+          f"{walls['oracle_cpu']:.2f} s, scan transform on cuda "
+          f"{walls['scan']:.3f} s; cuda and cpu oracle ciphertexts equal; "
+          f"MAE oracle vs scan decryption {err:.3e} (ciphertexts equal: "
+          f"{same})", flush=True)
+    if not err < 0.005:
+        fail(f"oracle: MAE {err} against the scan transform")
+    rec = {"blocks": len(diags), "diagonals": n_diags, "level": level,
+           "walls_s": walls, "mae_vs_scan": err, "equal_to_scan": same,
+           "modmatmul": []}
+
+    q = 1073741789
+    for m, n in ((64, 128), (128, 256)):
+        rng = np.random.default_rng(m)
+        W = rng.integers(0, q, (m, m), dtype=np.int64)
+        X = rng.integers(0, q, (m, n), dtype=np.int64)
+        plan = ModMatmulPlan(W, q, device="cuda")
+        xd = torch.as_tensor(X, device="cuda")
+        got = plan(xd).cpu().numpy()
+        exact = (W.astype(object) @ X.astype(object)) % q
+        ok = np.array_equal(got, exact.astype(np.int64))
+        ms = cuda_ms(lambda: plan(xd), 20)
+        print(f"  ModMatmulPlan on cuda, p = {q}, (m, n) = ({m}, {n}): "
+              f"equal to the exact product {ok}; {ms:.3f} ms per call",
+              flush=True)
+        if not ok:
+            fail(f"ModMatmulPlan ({m}, {n}) differs from the exact product")
+        rec["modmatmul"].append({"m": m, "n": n, "exact": ok, "ms": ms})
+    return rec
+
+
 def print_ptxas(libs):
     """Registers and spills of each kernel at LogN 13 and 14, from ptxas'
     report beside each library (`, CI`: the ConjugateInvariant form)."""
@@ -1690,9 +2254,11 @@ def main():
 
     paths = {
         "mlp": check_model(cfgs["mlp"], "MLP",
-                           "phase 3: MLP 784-128-128-10 on configs/mlp.yml"),
+                           "phase 3: MLP 784-128-128-10 on configs/mlp.yml",
+                           stream=True),
         "lenet": check_model(cfgs["lenet"], "LeNet",
-                             "phase 4: LeNet on configs/lenet.yml"),
+                             "phase 4: LeNet on configs/lenet.yml",
+                             stream=True),
     }
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -1717,7 +2283,8 @@ def main():
     torch.cuda.empty_cache()
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    for tag, check in (("resnet", lambda c: check_resnet(c, batch=2)),
+    for tag, check in (("resnet",
+                        lambda c: check_resnet(c, batch=2, extra=True)),
                        ("alexnet", check_alexnet), ("vgg", check_vgg)):
         paths[tag] = check(cfgs[tag])
         gc.collect()
@@ -1726,6 +2293,7 @@ def main():
               flush=True)
     # phase 8 on ResNet-20 ran inside its phase 6 (the compiled net reused)
     paths["resnet_b2"] = paths["resnet"].pop("batched")
+    extra = {"resnet_noise_resident": paths["resnet"].pop("extra")}
 
     # phase 8: batched serving; 8b: key and diagonal I/O
     paths.update(check_serving(
@@ -1746,6 +2314,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase 8 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    # phase 9: training, 9b: noise profiles, 10: the naive BSGS oracle
+    extra["training"] = check_training(cfgs["lenet"])
+    extra["tiny_vgg_noise"] = check_tiny_vgg_noise()
+    gc.collect()
+    extra["oracle"] = check_oracle(cfgs["mlp"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phases 9-10 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     for tag, path in (("mlp", "mlp"), ("lenet", "lenet"), ("lola", "lola_ci"),
@@ -1859,6 +2436,8 @@ def main():
         print(json.dumps({p: rec}), flush=True)
     print(json.dumps({"bootstrap": bootstrap}), flush=True)
     print(json.dumps({"io": io_recs}), flush=True)
+    for k, rec in extra.items():
+        print(json.dumps({k: rec}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -185,18 +185,22 @@ class Bootstrapper:
         rotations |= set(self.trace_amounts)
 
         # rotation + conjugation keys, and the level-trimmed key packs the
-        # circuit uses (built here so evaluation never makes a key)
+        # circuit uses (built here so evaluation never makes a key); their
+        # cache keys scope the circuit's buffers (runtime/buffers.py)
         scheme.lt_evaluator.generate_rotation_keys(rotations)
         scheme.keys.galois_key(ctx.galois_element_conj())
         self.trace_packs = [build_key_pack(self.ev, [amt], level=self.top)
                             for amt in self.trace_amounts]
+        packs = list(self.trace_packs)
         for tr in self.cts_transforms + self.stc_transforms:
-            babies = [a for a in tr.babies if a != 0]
-            if babies:
-                build_key_pack(self.ev, babies, level=tr.level)
-            giants = [a for a in tr.giants if a != 0]
-            if giants:
-                build_key_pack(self.ev, giants, level=tr.level)
+            for steps in (tr.babies, tr.giants):
+                amounts = [a for a in steps if a != 0]
+                if amounts:
+                    packs.append(build_key_pack(self.ev, amounts,
+                                                level=tr.level))
+        self.pack_keys = tuple(sorted(
+            {pk.cache_key for pk in packs},
+            key=lambda k: (k[0], -1 if k[1] is None else k[1])))
 
         # conjugation-split constants.  mod_depth is an upper BOUND on
         # EvalMod's consumption; _recombine mod-drops to this planned level

@@ -125,7 +125,8 @@ def build_key_pack(ev: Evaluator, amounts, level: int | None = None) -> KeyPack:
         inv_perm = torch.as_tensor(
             ctx.automorphism_perm(pow(k, -1, ctx.gal_mod)),
             dtype=torch.long, device=dev)
-        kd, ksd = gk.data, gk.shoup
+        # a key that io_mode stream spilled to the host comes back here
+        kd, ksd = gk.data.to(dev), gk.shoup.to(dev)
         if level is not None:
             kd = kd[:dnum_l][:, :, rows]
             ksd = ksd[:dnum_l][:, :, rows]

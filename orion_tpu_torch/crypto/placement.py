@@ -1,11 +1,11 @@
 """Buffer placement: which device the port runs on, and where compiled
 buffers live.
 
-Counterpart of `orion_tpu/crypto/placement.py`.  orion_tpu can hold compiled
-buffers (encoded diagonals, KeyPacks, key-switch keys) in host memory and
-stream them into each jitted program; the port runs eagerly and keeps every
-buffer as an int64 tensor on the scheme's device.  Host-side streaming is a
-later slice (ROADMAP, buffers and I/O).
+Counterpart of `orion_tpu/crypto/placement.py`.  Every buffer is built as
+an int64 tensor on the scheme's device; with `io_mode: stream` the
+scheme spills each module's buffers to pinned host memory after it
+compiles and brings them back around its forward (`runtime/buffers.py`),
+where orion_tpu builds them in host memory from the start.
 """
 
 from __future__ import annotations

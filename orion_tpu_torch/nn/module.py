@@ -9,9 +9,13 @@ from a numpy dict.
 
 `__call__` is orion's, not torch's: under the compiler's tracer a leaf
 call becomes a DAG node, in he mode ciphertext inputs are first dropped
-to the solver-assigned level, and a bootstrap the placer attached
-(`post_bootstrap`) runs after the module's forward.  `compile()` is the
-FHE compile of the module (it replaces torch.nn.Module.compile).
+to the solver-assigned level, a leaf's forward goes through the scheme's
+`module_runner` where one is set (`io_mode: stream` brings the module's
+spilled buffers back to the device around it, `runtime/buffers.py`), a
+bootstrap the placer attached (`post_bootstrap`) runs after the module's
+forward, and then `Module.output_hook`, if set, sees the leaf's output.
+`compile()` is the FHE compile of the module (it replaces
+torch.nn.Module.compile).
 `Sequential` and `ModuleList` are orion's containers (never leaves, so an
 empty `Sequential` is an identity shortcut of a residual block).
 """
@@ -43,6 +47,11 @@ def to_tensor(x) -> torch.Tensor:
 class Module(torch.nn.Module):
     scheme = None
     margin = None
+    # optional observer called as hook(module, out) after every leaf call,
+    # in clear and in he mode, after the leaf's post_bootstrap (whose own
+    # call fires first): the noise profiler (diagnostics.py) decrypts and
+    # compares there without changing the execution path
+    output_hook = None
 
     def __init__(self):
         super().__init__()
@@ -112,10 +121,19 @@ class Module(torch.nn.Module):
                                                                None))
                 and a.level() > self.level else a
                 for a in args)
-        out = self.forward(*args)
+        runner = (getattr(self.scheme, "module_runner", None)
+                  if self.he_mode and self.scheme is not None else None)
+        if runner is not None and self.is_leaf() and \
+                any(hasattr(a, "cts") for a in args):
+            out = runner(self, args)
+        else:
+            out = self.forward(*args)
         pb = self._modules.get("post_bootstrap")
         if pb is not None and self.he_mode:
             out = pb(out)
+        hook = Module.output_hook
+        if hook is not None and self.is_leaf():
+            hook(self, out)
         return out
 
     def __repr__(self):

@@ -9,13 +9,14 @@ below which ciphertexts never rescale.  `boot_params` appends the
 bootstrap circuit's primes above the user chain and its `LogP` joins the
 special primes, as orion_tpu does.
 
-`io_mode`: `none`, `stream`, `save` and `load`.  orion_tpu's stream mode
-spills compiled buffers to host memory between modules (made for a 16 GiB
-TPU); the port keeps every buffer on the card and says so once at
-`init_scheme`.  `save` and `load` write and read the keys (`keys_path`)
-and the packed diagonals (`diags_path`) as numpy archives
-(`runtime/io.py`).  `RingType: ConjugateInvariant` gives
-N real slots; bootstrapping on it is refused, as orion_tpu refuses it.
+`io_mode`: `none`, `stream`, `save` and `load`.  `stream` spills each
+module's compiled buffers to pinned host memory after it compiles and
+brings them back around its forward under a residency budget
+(`runtime/buffers.py`), as orion_tpu's stream mode does.  `save` and
+`load` write and read the keys (`keys_path`) and the packed diagonals
+(`diags_path`) as numpy archives (`runtime/io.py`).  `RingType:
+ConjugateInvariant` gives N real slots; bootstrapping on it is refused,
+as orion_tpu refuses it.
 """
 
 from __future__ import annotations

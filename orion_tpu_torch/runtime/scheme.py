@@ -12,6 +12,9 @@ PyTorch path.
 
 `io_mode: save` writes the keys and the packed diagonals during
 `init_scheme` and `compile`, `load` reads them back (`runtime/io.py`).
+`io_mode: stream` spills each module's compiled buffers to pinned host
+memory right after the module compiles, and brings them back around each
+leaf module's forward under a residency budget (`runtime/buffers.py`).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from ..compiler.tracer import Tracer
 from ..compiler.dag import NetworkDAG
 from ..compiler.fuser import Fuser
 from ..compiler.level_dag import BootstrapSolver, BootstrapPlacer
-from . import io
+from . import buffers, io
 from .config import Params, parse_config
 from .services import (BootstrapperService, EncoderService,
                        EncryptorService, LTEvaluatorService,
@@ -41,6 +44,8 @@ class Scheme:
         self.ctx = None
         self.tracer = None
         self.params: Params | None = None
+        # runs each leaf module's he forward when set (io_mode stream)
+        self.module_runner = None
 
     # ----------------- lifecycle ----------------- #
 
@@ -72,11 +77,8 @@ class Scheme:
         # lift in the key inner product instead of stored Shoup companions)
         self.evaluator.lean_keys = bool(p.boot)
         self.input_level_default = self.ctx.max_level
-        if p.io_mode == "stream":
-            print("[orion_tpu_torch] io_mode stream: every compiled buffer "
-                  f"(keys, diagonals, bootstrap circuits) stays on "
-                  f"{self.ctx.device}; nothing is spilled to host memory",
-                  flush=True)
+        self.module_runner = (buffers.StreamRunner(self)
+                              if p.io_mode == "stream" else None)
 
         self.encoder = EncoderService(self)
         self.encryptor = EncryptorService(self)
@@ -227,7 +229,13 @@ class Scheme:
         freed = self._free_packed_keys(keep, pending)
         BootstrapPlacer(net, dag, solver).place_bootstraps()
 
+        # per-module compile in topological order.  With io_mode stream,
+        # each module's buffers (and its post_bootstrap's) are spilled to
+        # host memory right after its compile, so the card holds one
+        # module's working set instead of the whole net's
         print("\n{5} Compiling network layers...", flush=True)
+        stream = self.params.io_mode == "stream"
+        spilled = 0
         for node in topo:
             if node not in dag.nodes:
                 continue  # removed fused BN
@@ -238,11 +246,19 @@ class Scheme:
                 pb = getattr(module, "post_bootstrap", None)
                 if pb is not None:
                     pb.compile()
+                if stream:
+                    spilled += buffers.spill_module_to_host(self, module)
+                    if pb is not None:
+                        spilled += buffers.spill_module_to_host(self, pb)
             pending.pop(node, None)
             freed += self._free_packed_keys(keep, pending)
         if freed:
             print(f"|-- freed {freed} original rotation keys "
                   "(retained in pre-permuted packs)", flush=True)
+        if stream:
+            self.spilled_bytes = spilled
+            print(f"|-- streamed {spilled / 1e9:.2f} GB of compiled buffers "
+                  "to host (io_mode: stream)", flush=True)
         if self._saving_keys():
             io.save_rotation_keys(self, self.params.keys_path)
         self.input_level = input_level

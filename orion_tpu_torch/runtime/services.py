@@ -119,25 +119,33 @@ class LTEvaluatorService:
             for block, diags in layer.diagonals.items()}
         self.generate_rotation_keys(self.layer_rotations(layer))
         layer.compiled = compiled
-        self._prewarm_key_packs(compiled)
+        self._prewarm_key_packs(compiled, layer)
         return compiled
 
-    def _prewarm_key_packs(self, compiled):
+    def _prewarm_key_packs(self, compiled, layer):
         """Build the level-trimmed KeyPacks evaluation will request, at
-        compile time, so evaluation never regenerates keys."""
+        compile time, so evaluation never regenerates keys.  Records the
+        packs' cache keys on the layer (`_pack_keys`) for the scoped
+        buffer collection of `runtime/buffers.py`."""
         ev = self.scheme.evaluator
+        packs = []
         cols = {}
         for (i, j), tr in compiled.items():
             cols.setdefault(j, set()).update(set(tr.babies) | {0})
             giants = [a for a in tr.giants if a != 0]
             if giants:
-                lintrans_scan.build_key_pack(ev, giants, level=tr.level)
+                packs.append(lintrans_scan.build_key_pack(ev, giants,
+                                                          level=tr.level))
         for j, babies in cols.items():
             todo = [a for a in sorted(babies) if a != 0]
             if todo:
                 level = next(tr.level for (i, jj), tr in compiled.items()
                              if jj == j)
-                lintrans_scan.build_key_pack(ev, todo, level=level)
+                packs.append(lintrans_scan.build_key_pack(ev, todo,
+                                                          level=level))
+        layer._pack_keys = tuple(sorted(
+            {pk.cache_key for pk in packs},
+            key=lambda k: (k[0], -1 if k[1] is None else k[1])))
 
     def generate_rotation_keys(self, rotations):
         # sorted: the generation order fixes every later RNG draw
