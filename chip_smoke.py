@@ -123,16 +123,39 @@ stderr and exits 1:
      MLP and LoLA-CI at B = 8 and ResNet-20 at B = 2, over K items grouped
      by query (K / E keys, ext k % E), B and K the largest batch of that
      level in that config's forward (4 where it has none; for the bootstrapped
-     nets only the levels their forwards batch, a shape run for one of
-     them not run again; for phase 8 the level of its largest ks_finish
-     launch), bit-exact against the plain versions, with ms per launch,
+     nets only the levels of their largest ks_decompose and ks_finish
+     launches, a shape run for one of them not run again; for phase 8 the
+     level of its largest ks_finish launch), bit-exact against the plain versions, with ms per launch,
      per key-switch and the bound per launch; then every kernel once at
      LogN 14 (configs/mlp.yml's chain on a ring of 2^14), the
      instantiation that needs more than 48 KB of shared memory;
+  12. (run after phase 7) the parallel layer on torch.distributed, in
+     worlds of processes spawned on cuda:0 and joined by gloo (NCCL
+     refuses two ranks on one device; gloo carries the CUDA tensors
+     through host memory), each rank loading the libraries phase 1 built:
+     the limb-sharded key-switch (parallel/limbshard.py) at M = 2, 4, 8
+     at every level of configs/mlp.yml where M divides n_t and at M = 2
+     at levels 1, 7, 17, 43 of configs/resnet.yml, bit-exact against the
+     unsharded key-switch on the card, through ShardedKS.fn and through
+     the forward's seam; the sharded C entries (ks_convert_rows,
+     ks_inner_rows, ks_moddown_rows: one launch of ks_decompose's or
+     ks_finish's kernels on a rank's rows) each against its plain version
+     on every rank's block, timed at mlp level 5 and resnet level 43 with
+     each rank alone on the card, beside the rank's kernels of one
+     sharded key-switch and the unsharded one (device ms), the sharded
+     key-switch's wall and the bytes of its collectives; the full-width
+     MLP through make_sharded_forward at (dp = 2, limb = 2), equal to
+     make_batched_forward's outputs bit for bit, MAE < 0.005, its
+     per-rank launches (the sharded entries and ntt_inv, no ks_decompose
+     or ks_finish) and walls; the dp x mp step (parallel/mesh.py) and
+     dryrun_boot_mesh at limb = 2; a 1-rank world on init_multihost's
+     defaults (NCCL): M = 1 and dryrun_model_mesh (`check_parallel`);
   11. one JSON line per path (phase 8's batches among them), one for the
      bootstrap, one for phase 8b, one for each of phases 6's noise and
-     resident forwards, 9, 9b and 10, one describing each kernel, the
-     card's line, then the result line.
+     resident forwards, 9, 9b and 10, one for phase 12, one describing
+     each kernel (the sharded entries with their launches in phase 12's
+     sharded MLP forward by rank), the card's line, then the result
+     line.
 
 Every profiled forward also counts its host-to-device copies (device
 records) and the host's stream synchronisations (runtime calls).
@@ -730,18 +753,21 @@ OFF_PATH = {"standard": ("ntt_fwd", "ntt_inv", "rescale_ntt"),
 
 
 def ring_kernels(ring):
-    """Names of the kernels a forward on this ring may launch."""
+    """Names of the kernels a forward on this ring may launch (the sharded
+    entries only run under a limb group, phase 12)."""
     from orion_tpu_torch import kernels
 
     ci = ring == "conjugate_invariant"
-    return [k.name for k in kernels.KERNELS if k.name.endswith("_ci") == ci]
+    return [k.name for k in kernels.KERNELS if k.name.endswith("_ci") == ci
+            and k not in kernels.SHARDED]
 
 
 def launched_grids():
     """Device kernels by name that the port's wrappers launched since the
     counts were last set to 0: ntt_inv_rows is ks_decompose's first grid,
-    moddown_rows ks_finish's second (ks_finish_raw has none).  A kernel's
-    CI form is the same device kernel (its `CI = true` instantiation)."""
+    moddown_rows ks_finish's second (ks_finish_raw has none); the sharded
+    entries launch one of these grids each.  A kernel's CI form is the
+    same device kernel (its `CI = true` instantiation)."""
     from orion_tpu_torch import kernels as k
 
     dec = (k.KS_DECOMPOSE.grids + k.KS_DECOMPOSE_CI.grids,
@@ -751,9 +777,9 @@ def launched_grids():
     return {"ntt_fwd_cluster": k.NTT_FWD.grids + k.NTT_FWD_CI.grids,
             "ntt_inv_cluster": k.NTT_INV.grids + k.NTT_INV_CI.grids,
             "ntt_inv_rows": dec[0] - dec[1],
-            "fbc_ntt_digits": dec[1],
-            "ks_inner_intt": fin[1],
-            "moddown_rows": fin[0] - fin[1],
+            "fbc_ntt_digits": dec[1] + k.KS_CONVERT_ROWS.grids,
+            "ks_inner_intt": fin[1] + k.KS_INNER_ROWS.grids,
+            "moddown_rows": fin[0] - fin[1] + k.KS_MODDOWN_ROWS.grids,
             "drop_intt_rows": k.DROP_INTT.grids + k.DROP_INTT_CI.grids,
             "drop_lift_ntt": k.DROP_NTT.grids,
             "rescale_lift_ntt": k.RESCALE_NTT.grids + k.RESCALE_NTT_CI.grids}
@@ -2169,6 +2195,531 @@ def check_oracle(cfg):
     return rec
 
 
+# ------------------------------------------------------------------ #
+#  Phase 12: the parallel layer (torch.distributed worlds on cuda:0) #
+# ------------------------------------------------------------------ #
+
+# (tag, ranks, backend): the one-card worlds are processes on cuda:0 joined
+# by gloo, which carries CUDA tensors through host memory (NCCL refuses two
+# ranks on one device); the 1-rank world takes init_multihost's default,
+# NCCL on the rank's card
+PARALLEL_WORLDS = (("ks2", 2, "gloo"), ("ks4", 4, "gloo"),
+                   ("ks8", 8, "gloo"), ("nccl1", 1, None))
+PARALLEL_TIMEOUT_S = 300
+SHARDED_STEADY = 10
+
+
+def convert_rows_work(nl, rows, dnum, alpha, n):
+    """ks_convert_rows: the coefficients of the nl Q rows read, the
+    block's ext and its forward tables; per target coefficient the
+    conversion, then the NTT."""
+    nbytes = 8 * n * (nl + dnum * rows + rows)
+    ops = dnum * rows * (n * (6 * alpha + 3) + 3 * (n // 2) * _lg(n))
+    return nbytes, ops
+
+
+def inner_rows_work(rows, sp_rows, dnum, n, lean):
+    """ks_inner_rows: the block's ext and key rows read, the work buffer
+    written; the inverse NTT of its special rows."""
+    nbytes = 8 * n * (dnum * rows + dnum * 2 * rows * (1 if lean else 2)
+                      + 2 * rows + sp_rows)
+    ops = (2 * dnum * rows * n * (7 if lean else 3)
+           + 2 * sp_rows * (3 * (n // 2) * _lg(n) + 3 * n))
+    return nbytes, ops
+
+
+def moddown_rows_work(nq, n_sp, n):
+    """ks_moddown_rows: the block's Q rows and the summed special rows
+    read, the Q rows written, their forward tables."""
+    nbytes = 8 * n * (2 * (nq + n_sp) + 2 * nq + nq)
+    ops = 2 * nq * (n * (6 * n_sp + 3) + 3 * (n // 2) * _lg(n) + 3 * n)
+    return nbytes, ops
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _in_turn(fn):
+    """Run fn on each rank of the world in turn, the others waiting at a
+    barrier: times taken on the shared card see no other rank's work."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            out = fn()
+            torch.cuda.synchronize()
+        dist.barrier()
+    return out
+
+
+def _sharded_cases(cfg, tag, levels, stats, entries=False, timed=()):
+    """The limb-sharded key-switch over the whole world (M ranks) at each
+    level of `cfg`: ShardedKS.fn on the key's row blocks and the forward's
+    seam on replicated keys must both equal the unsharded `keyswitch` on
+    the card.  With `entries`, each new C entry on this rank's block
+    against its plain version (its own case line); at the `timed` levels,
+    each rank alone in turn: the entries' times, the rank's kernels of one
+    sharded key-switch and the unsharded key-switch (device ms), then the
+    whole sharded key-switch's wall with every rank in it."""
+    import torch.distributed as dist
+    from collections import Counter
+
+    from orion_tpu_torch.crypto import KeyChest
+    from orion_tpu_torch.crypto.keyswitch import (dev_level, keyswitch,
+                                                  set_limb_group)
+    from orion_tpu_torch.kernels import keyswitch as kks
+    from orion_tpu_torch.kernels.ntt import ntt_inv
+    from orion_tpu_torch.parallel import limbshard as ls
+
+    m, rank = dist.get_world_size(), dist.get_rank()
+    ctx = make_context(cfg)
+    rk = KeyChest(ctx).relin_key
+    group = ls.LimbGroup()
+    out = []
+    for lvl in levels:
+        dl = dev_level(ctx, lvl)
+        rng = np.random.default_rng(lvl)
+        x = ctx.to_device(np.stack([
+            rng.integers(0, ctx.primes[i], ctx.n, dtype=np.int64)
+            for i in range(lvl + 1)]))
+        want = keyswitch(x, dl, rk.data, rk.shoup)
+        sks = ls.make_sharded_keyswitch(ctx, lvl)
+        kd, kss = sks.shard_ksk(rk.data, rk.shoup, ctx)
+        got = sks.gather(sks.fn(sks.put(sks.pad_poly(x)), sks.put(kd),
+                                sks.put(kss)))[:, : lvl + 1]
+        before = Counter(ls.COLLECTIVES)
+        prev = set_limb_group(group)
+        try:
+            seam = keyswitch(x, dl, rk.data, rk.shoup)
+        finally:
+            set_limb_group(prev)
+        moved = dict(Counter(ls.COLLECTIVES) - before)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want) and torch.equal(seam, want)
+        err = max(int((got - want).abs().max()), int((seam - want).abs()
+                                                     .max()))
+        blk = sks.blk
+        case = {"config": tag, "level": lvl, "m": m, "rank": rank,
+                "n_t": sks.nl + sks.n_sp, "rows": [blk.lo, blk.hi],
+                "q_rows": blk.nq, "bit_exact": ok, "max_abs_err": err,
+                "collectives": moved}
+        print(f"  {tag} level {lvl} M={m} rank {rank}: rows {blk.lo}.."
+              f"{blk.hi - 1} ({blk.nq} Q); sharded key-switch bit-exact="
+              f"{ok} (ShardedKS.fn and the seam); collectives of one "
+              f"key-switch {moved}", flush=True)
+        if not ok:
+            fail(f"sharded key-switch {tag} level {lvl} M={m} rank {rank} "
+                 f"differs from keyswitch (max abs err {err})")
+        if entries:
+            _entry_cases(ctx, dl, blk, rk, x, tag, lvl, stats, lvl in timed)
+        if lvl in timed:
+            case["timing"] = _sharded_timing(ctx, dl, blk, rk, x, group)
+        out.append(case)
+    return out
+
+
+def _entry_cases(ctx, dl, blk, rk, x, tag, lvl, stats, timed):
+    """Each new C entry on this rank's block against its plain version on
+    the same inputs (Cases: bit-exact, -1-poisoned memory); at a timed
+    level each rank takes its turn alone (every rank passes the
+    barriers, one with no rows too)."""
+    import torch.distributed as dist
+
+    from orion_tpu_torch.kernels import keyswitch as kks
+    from orion_tpu_torch.kernels.ntt import ntt_inv
+
+    rank = dist.get_rank()
+    rows, n, dnum = blk.hi - blk.lo, ctx.n, len(dl.digits)
+
+    def run():
+        if rows == 0:
+            return
+        coeff = ntt_inv(x, dl.q)[None]
+        rm = dl.kernel_row_map(False)[blk.lo:blk.hi]
+        ext = kks.ks_convert_rows_plain(coeff, dl, blk)[0]
+        work = kks.ks_inner_rows_plain(ext, dl, blk, rk.data, rk.shoup, rm)
+        alpha = max(dg.src_hi - dg.src_lo for dg in dl.digits)
+        n_sp = dl.s.p.shape[0]
+        gen = torch.Generator(device="cuda").manual_seed(lvl)
+        sp = torch.randint(0, 1 << 62, (2, n_sp, n), generator=gen,
+                           device="cuda") % dl.s.p[:, None]
+        x_md = torch.cat([work[:, :blk.nq], sp], dim=1)[None].contiguous()
+        label = f"rank {rank} rows {blk.lo}..{blk.hi - 1}"
+        cs = Cases(ctx, f"{tag}/r{rank}", stats,
+                   iters=50 if timed else 2, plain_iters=3 if timed else 0)
+        cs.case("ks_convert_rows", lvl, label,
+                lambda: kks.ks_convert_rows(coeff, dl, blk),
+                lambda: kks.ks_convert_rows_plain(coeff, dl, blk),
+                convert_rows_work(dl.level + 1, rows, dnum, alpha, n))
+        cs.case("ks_inner_rows", lvl, label + " full-chain Shoup",
+                lambda: kks.ks_inner_rows(ext, dl, blk, rk.data, rk.shoup,
+                                          rm),
+                lambda: kks.ks_inner_rows_plain(ext, dl, blk, rk.data,
+                                                rk.shoup, rm),
+                inner_rows_work(rows, rows - blk.nq, dnum, n, False))
+        if blk.nq:
+            cs.case("ks_moddown_rows", lvl, label,
+                    lambda: kks.ks_moddown_rows(x_md, dl, blk),
+                    lambda: kks.ks_moddown_rows_plain(x_md, dl, blk),
+                    moddown_rows_work(blk.nq, n_sp, n))
+
+    if timed:
+        _in_turn(run)
+    else:
+        run()
+
+
+def _sharded_timing(ctx, dl, blk, rk, x, group):
+    """Device ms of the unsharded key-switch and of this rank's kernels of
+    one sharded key-switch (each rank alone in turn), then the sharded
+    key-switch's wall (median of SHARDED_STEADY calls, every rank in
+    them, each call ending in a synchronisation)."""
+    import torch.distributed as dist
+
+    from orion_tpu_torch.crypto.keyswitch import keyswitch, set_limb_group
+    from orion_tpu_torch.kernels import keyswitch as kks
+    from orion_tpu_torch.kernels.ntt import ntt_inv
+
+    rm = dl.kernel_row_map(False)[blk.lo:blk.hi]
+    coeff = ntt_inv(x, dl.q)[None]
+    # the ModDown's input: the block's Q rows and n_sp special rows
+    x_md = torch.zeros((1, 2, blk.nq + dl.s.p.shape[0], ctx.n),
+                       dtype=torch.int64, device="cuda")
+    q_rows = x[blk.lo:blk.lo + blk.nq].contiguous()
+
+    def rank_kernels():
+        if blk.nq:
+            ntt_inv(q_rows, blk.q_rows)
+        if blk.hi > blk.lo:
+            e = kks.ks_convert_rows(coeff, dl, blk)[0]
+            kks.ks_inner_rows(e, dl, blk, rk.data, rk.shoup, rm)
+        if blk.nq:
+            kks.ks_moddown_rows(x_md, dl, blk)
+
+    def alone():
+        return {"unsharded_device_ms": device_ms(
+                    lambda: keyswitch(x, dl, rk.data, rk.shoup), 50),
+                "unsharded_ms": cuda_ms(
+                    lambda: keyswitch(x, dl, rk.data, rk.shoup), 50),
+                "rank_kernels_device_ms": device_ms(rank_kernels, 50)}
+
+    rec = _in_turn(alone)
+    walls = []
+    prev = set_limb_group(group)
+    try:
+        for _ in range(SHARDED_STEADY + 2):
+            dist.barrier()
+            t0 = time.perf_counter()
+            keyswitch(x, dl, rk.data, rk.shoup)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        set_limb_group(prev)
+    walls = sorted(walls[2:])
+    rec["sharded_wall_ms"] = walls[len(walls) // 2]
+    print(f"  level {dl.level} rank {dist.get_rank()} of "
+          f"{dist.get_world_size()}: unsharded key-switch "
+          f"{rec['unsharded_device_ms']:.4f} device ms "
+          f"({rec['unsharded_ms']:.4f} ms back to back); this rank's "
+          f"kernels of a sharded one {rec['rank_kernels_device_ms']:.4f} "
+          f"device ms; sharded key-switch wall {rec['sharded_wall_ms']:.3f} "
+          f"ms (median of {SHARDED_STEADY}, gloo through host memory)",
+          flush=True)
+    return rec
+
+
+def _rank_mlp(cfg, batch=4):
+    """The full-width MLP 784-128-128-10 on configs/mlp.yml, B queries
+    through make_sharded_forward on a (dp = 2, limb = 2) mesh
+    (make_dcn_mesh, one host): equal to make_batched_forward's outputs
+    on this rank bit for bit, MAE < 0.005; the launches of the first
+    sharded forward (counts set to 0 just before it) must include every
+    sharded entry and ntt_inv and no ks_decompose or ks_finish; first and
+    steady walls of both forwards."""
+    import torch.distributed as dist
+
+    import orion_tpu_torch as orion
+    from orion_tpu_torch import kernels, models
+    from orion_tpu_torch.nn import linear
+    from orion_tpu_torch.parallel import limbshard as ls
+    from orion_tpu_torch.parallel.multihost import (make_dcn_mesh,
+                                                    mesh_report)
+    from orion_tpu_torch.runtime.jit import make_batched_forward
+    from orion_tpu_torch.runtime.mesh import (encrypt_batch,
+                                              make_sharded_forward)
+    from orion_tpu_torch.utils import get_mnist_datasets, mae
+
+    rank = dist.get_rank()
+    mesh = make_dcn_mesh(limb=2)
+    scheme = orion.init_scheme(cfg, device="cuda")
+    linear._WEIGHT_RNG = np.random.default_rng(2024)
+    net = models.MLP()
+    trainloader, testloader = get_mnist_datasets(batch_size=1)
+    inputs = [x for _, (x, _) in zip(range(batch), testloader)]
+    net.eval()
+    clear = [net(x).numpy().reshape(-1) for x in inputs]
+    orion.fit(net, trainloader)
+    level = orion.compile(net)
+    cts = encrypt_batch(scheme, inputs, level)
+    net.he()
+    batched = make_batched_forward(net, scheme)
+    want = batched(cts)
+    run = make_sharded_forward(net, scheme, mesh)
+    before = ls.COLLECTIVES.copy()
+    torch.cuda.synchronize()
+    dist.barrier()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    outs = run(cts)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    moved = dict(ls.COLLECTIVES - before)
+    same = all(_same_cts(a, b) for a, b in zip(outs, want))
+    maes = [mae(c, o.decrypt().decode().reshape(-1)[: c.size])
+            for c, o in zip(clear, outs)]
+    walls = {"sharded": [], "batched": []}
+    for _ in range(3):
+        for tag, fn in (("sharded", run), ("batched", batched)):
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn(cts)
+            torch.cuda.synchronize()
+            walls[tag].append((time.perf_counter() - t0) * 1e3)
+    rec = {"model": "MLP", "batch": batch, "mesh": mesh_report(mesh),
+           "equal_to_batched": same, "mae": maes, "first_ms": first_ms,
+           "steady_ms": walls, "launches": counts, "collectives": moved,
+           "dp_row": mesh.index("dp"), "limb_index": mesh.index("limb")}
+    print(f"  MLP rank {rank} (dp row {rec['dp_row']}, limb "
+          f"{rec['limb_index']}): B = {batch} sharded outputs equal to "
+          f"make_batched_forward's: {same}; max MAE {max(maes):.3e}; first "
+          f"{first_ms:.1f} ms, steady sharded "
+          f"{', '.join(f'{w:.1f}' for w in walls['sharded'])} ms against "
+          f"batched {', '.join(f'{w:.1f}' for w in walls['batched'])} ms; "
+          f"launches {counts}; collectives {moved}", flush=True)
+    if not same:
+        fail(f"MLP rank {rank}: sharded outputs differ from the batched "
+             f"forward's")
+    if not max(maes) < 0.005:
+        fail(f"MLP rank {rank}: sharded MAE {max(maes)}")
+    sharded = [k.name for k in kernels.SHARDED] + ["ntt_inv"]
+    idle = [k for k in sharded if not counts.get(k)]
+    if idle or counts.get("ks_decompose") or counts.get("ks_finish"):
+        fail(f"MLP rank {rank}: the sharded forward launched {counts}")
+    orion.delete_scheme()
+    return rec
+
+
+def _rank_dp_mp():
+    """encrypted_dp_mp_step at dp = 2, mp = 2 on __graft_entry__'s shapes
+    (LogN 8, two member transforms over one diagonal index set) on cuda:
+    equal to the same step computed on this rank alone."""
+    import torch.distributed as dist
+
+    from orion_tpu_torch.crypto import (CKKSContext, Encoder, Evaluator,
+                                        KeyChest, lintrans_scan)
+    from orion_tpu_torch.crypto.ciphertext import Ciphertext
+    from orion_tpu_torch.crypto.keyswitch import dev_level
+    from orion_tpu_torch.crypto.modops import add_mod
+    from orion_tpu_torch.parallel.mesh import Mesh, encrypted_dp_mp_step
+
+    ctx = CKKSContext(logn=8, logq=[29, 26, 26, 26], logp=[29, 29],
+                      logscale=26, h=64, seed=3, device="cuda")
+    enc, keys = Encoder(ctx), KeyChest(ctx)
+    ev = Evaluator(ctx, keys)
+    rng = np.random.default_rng(0)
+    diags = (0, 1, 2, 5, 17, 40)
+    trs = [lintrans_scan.compile_transform_scan(
+               enc, {d: rng.uniform(-0.3, 0.3, ctx.slots) for d in diags},
+               ctx.max_level, ctx.slots) for _ in range(2)]
+    lintrans_scan.build_key_pack(ev, set(trs[0].babies) | set(
+        a for a in trs[0].giants if a))
+    x = torch.stack([torch.stack([
+        ctx.to_device(keys.encrypt_rns(enc.encode(
+            rng.uniform(-1, 1, ctx.slots))[0])) for _ in range(2)])
+        for _ in range(2)])
+    got = encrypted_dp_mp_step(ev, trs, Mesh(np.arange(4).reshape(2, 2),
+                                             ("dp", "mp")))(x)
+    lvl, scale = ctx.max_level, ctx.default_scale
+    qp = dev_level(ctx, lvl).q.p[:, None]
+    want = []
+    for b in range(2):
+        acc = None
+        for c, tr in enumerate(trs):
+            ct = Ciphertext(x[b, c], lvl, scale)
+            rots = lintrans_scan.baby_rotation_cache(
+                ev, ct, set(tr.babies) | {0})
+            part = lintrans_scan.eval_transform_scan(ev, tr, ct, rots).data
+            acc = part if acc is None else add_mod(acc, part, qp)
+        ct = ev.rescale(Ciphertext(acc, lvl, scale * ctx.q_primes[lvl]))
+        want.append(ev.mul_relin(ct, ct).data)
+    same = torch.equal(got, torch.stack(want))
+    print(f"  dp x mp step rank {dist.get_rank()}: output "
+          f"{tuple(got.shape)} equal to the step on one rank: {same}",
+          flush=True)
+    if not same:
+        fail("the dp x mp step differs from the step on one rank")
+    return {"shape": list(got.shape), "equal": same}
+
+
+def parallel_rank(tag, rank, world, port, backend, out_dir, go):
+    """One rank of a phase-12 world (a spawned process): imports, waits for
+    its world's turn (`go`), joins the world on cuda:0 (or, with backend
+    None, on init_multihost's defaults), loads the kernel libraries phase
+    1 built, runs the world's cases and writes its record to
+    out_dir/<tag>_rank<rank>.json."""
+    import torch.distributed as dist
+
+    from orion_tpu_torch.kernels import _build
+    from orion_tpu_torch.parallel.multihost import init_multihost
+
+    if not go.wait(PARALLEL_TIMEOUT_S * len(PARALLEL_WORLDS)):
+        sys.exit(f"phase 12 world {tag} rank {rank}: its turn never came")
+    t0 = time.perf_counter()
+    kw = {} if backend is None else {"backend": backend, "device": "cuda:0"}
+    dev = init_multihost(("127.0.0.1", port), world, rank,
+                         timeout_s=PARALLEL_TIMEOUT_S, **kw)
+    for src in _build.SOURCES:
+        _build.load(src)
+    cfgs = {t: yaml.safe_load(open(CONFIGS[t])) for t in ("mlp", "resnet")}
+    stats = {}
+    rec = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+           "up_s": time.perf_counter() - t0}
+    mlp_levels = [lv for lv in range(6) if (lv + 3) % world == 0]
+    if tag == "ks2":
+        rec["cases"] = (
+            _sharded_cases(cfgs["mlp"], "mlp", mlp_levels, stats,
+                           entries=True, timed=(5,))
+            + _sharded_cases(cfgs["resnet"], "resnet", (1, 7, 17, 43),
+                             stats, entries=True, timed=(43,)))
+    elif tag == "ks4":
+        rec["cases"] = _sharded_cases(cfgs["mlp"], "mlp", mlp_levels, stats)
+        rec["mlp"] = _rank_mlp(cfgs["mlp"])
+        rec["dp_mp"] = _rank_dp_mp()
+        from orion_tpu_torch.parallel.mesh import dryrun_boot_mesh
+        rec["boot"] = dryrun_boot_mesh(device="cuda")
+    elif tag == "ks8":
+        rec["cases"] = _sharded_cases(cfgs["mlp"], "mlp", mlp_levels, stats)
+    else:
+        rec["cases"] = _sharded_cases(cfgs["mlp"], "mlp", (5,), stats)
+        from orion_tpu_torch.parallel.mesh import dryrun_model_mesh
+        rec["model"] = dryrun_model_mesh(device="cuda")
+    rec["stats"] = stats
+    rec["wall_s"] = time.perf_counter() - t0
+    dist.destroy_process_group()
+    with open(Path(out_dir) / f"{tag}_rank{rank}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def check_parallel():
+    """Phase 12: the parallel layer on torch.distributed, worlds of
+    processes spawned on the card (`PARALLEL_WORLDS`), each joined with a
+    timeout, stragglers killed; any non-zero exit or mismatch fails.
+      ks2: the sharded key-switch at M = 2 at every level of
+           configs/mlp.yml where 2 | n_t and at levels 1, 7, 17, 43 of
+           configs/resnet.yml, each rank's new C entries against their
+           plain versions, device times against the unsharded key-switch
+           at mlp level 5 and resnet level 43, and the collectives' bytes;
+      ks4: M = 4 on configs/mlp.yml; the full-width MLP through
+           make_sharded_forward at (dp = 2, limb = 2); the dp x mp step;
+           dryrun_boot_mesh at limb = 2;
+      ks8: M = 8 on configs/mlp.yml (level 5, 8 extended rows);
+      nccl1: one rank on init_multihost's defaults (NCCL, the rank's
+           card): M = 1 at mlp level 5 and dryrun_model_mesh.
+    Every world's processes are spawned at the start, and import while
+    the worlds before them run; a world touches the card only in its
+    turn.  Returns ({tag: {"ranks": [rank records], ...}}, the merged
+    case records)."""
+    import multiprocessing
+
+    print("phase 12: the parallel layer, worlds of processes on cuda:0",
+          flush=True)
+    out_dir = ROOT / "build" / "orion_tpu_torch" / "parallel"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.glob("*_rank*.json"):
+        f.unlink()
+    mpc = multiprocessing.get_context("spawn")
+    worlds = []
+    for tag, world, backend in PARALLEL_WORLDS:
+        go, port = mpc.Event(), _free_port()
+        procs = [mpc.Process(target=parallel_rank, daemon=True,
+                             args=(tag, r, world, port, backend,
+                                   str(out_dir), go))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        worlds.append((tag, world, go, procs))
+    try:
+        return _run_worlds(worlds, out_dir)
+    finally:
+        for *_, procs in worlds:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+
+
+def _run_worlds(worlds, out_dir):
+    """Give each world of check_parallel its turn, in order."""
+    recs, stats = {}, {}
+    for tag, world, go, procs in worlds:
+        t0 = time.perf_counter()
+        go.set()
+        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        stuck = [r for r, p in enumerate(procs) if p.is_alive()]
+        codes = [p.exitcode for p in procs]
+        if stuck:
+            fail(f"phase 12 world {tag}: ranks {stuck} still running after "
+                 f"{PARALLEL_TIMEOUT_S} s")
+        if any(codes):
+            fail(f"phase 12 world {tag}: exit codes {codes}")
+        ranks = [json.loads((out_dir / f"{tag}_rank{r}.json").read_text())
+                 for r in range(world)]
+        for r in ranks:
+            for k, v in r.pop("stats").items():
+                stats.setdefault(k, []).extend(v)
+        recs[tag] = {"world": world, "backend": ranks[0]["backend"],
+                     "wall_s": time.perf_counter() - t0, "ranks": ranks}
+        print(f"phase 12 world {tag}: {world} rank(s), backend "
+              f"{ranks[0]['backend']}, {recs[tag]['wall_s']:.1f} s",
+              flush=True)
+    return recs, stats
+
+
+def sharded_kernel_line(k, recs, parallel):
+    """The kernels-line entry of a sharded C entry: its case at resnet.yml
+    level 43 on rank 0 of the 2-rank world (25 of 50 rows; mlp.yml level 5
+    beside it), its launches in the sharded MLP forward of phase 12 by
+    rank (the main path of the slice)."""
+    def pick(cfg, level):
+        r = next(r for r in recs if r["config"] == cfg
+                 and r["level"] == level)
+        return {"shape": r["label"], "ms": r["ms"],
+                "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+
+    by_rank = [r["mlp"]["launches"].get(k.name, 0)
+               for r in parallel["ks4"]["ranks"]]
+    top = pick("resnet/r0", 43)
+    return {"name": k.name, "route": "cuda",
+            "source": f"orion_tpu_torch/kernels/csrc/{k.source}",
+            "replaces": k.replaces, "launches": sum(by_rank),
+            "launches_by_path": {"mlp_sharded_dp2_limb2": by_rank},
+            "max_abs_err": max(r["err"] for r in recs),
+            "bit_exact": all(r["ok"] for r in recs), "cases": len(recs),
+            **top, "library_ms": None, "mlp_top": pick("mlp/r0", 5)}
+
+
 def print_ptxas(libs):
     """Registers and spills of each kernel at LogN 13 and 14, from ptxas'
     report beside each library (`, CI`: the ConjugateInvariant form)."""
@@ -2331,12 +2882,16 @@ def main():
                       paths[path]["batches"])
         print(f"phase 7 {tag} done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
+    # the bootstrapped nets at the levels of their largest ks_decompose and
+    # ks_finish launches (every level their forwards batch ran until phase
+    # 12 took the time; phase 2 holds every level one key-switch at a time)
     ctx, done = make_context(cfgs["resnet"]), set()
     for tag in BOOTSTRAPPED:
         b = paths[tag]["batches"]
         check_batched(ctx, tag, stats, b, lean=True, done=done,
-                      levels=sorted({lv for k in ("ks_decompose", "ks_finish")
-                                     for lv in b.get(k, {})}))
+                      levels=sorted({max(b[k], key=lambda lv: max(b[k][lv]))
+                                     for k in ("ks_decompose", "ks_finish")
+                                     if b.get(k)}))
         print(f"phase 7 {tag} done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
     # phase 8's batched forwards: the batches of ResNet-20 at B = 2, of
@@ -2362,10 +2917,21 @@ def main():
     del ctx14
     print(f"phase 7 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    # phase 12: the parallel layer, in worlds of processes on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel, pstats = check_parallel()
+    for k, v in pstats.items():
+        stats.setdefault(k, []).extend(v)
+    print(f"phase 12 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
     line = []
     for k in kernels.KERNELS:
         recs = stats[k.name]
+        if k in kernels.SHARDED:
+            line.append(sharded_kernel_line(k, recs, parallel))
+            continue
         ci = k.name.endswith("_ci")
         # the first case at the top level of this slice's config: the 2-D
         # transforms, full-chain Shoup keys for ks_finish, one ciphertext
@@ -2374,6 +2940,9 @@ def main():
         top = next(r for r in recs if r["config"] == home
                    and r["level"] == home_level)
         by_path = {p: rec["launches"][k.name] for p, rec in paths.items()}
+        by_path["mlp_sharded_dp2_limb2"] = sum(
+            r["mlp"]["launches"].get(k.name, 0)
+            for r in parallel["ks4"]["ranks"])
         line.append({
             "name": k.name, "route": "cuda",
             "source": f"orion_tpu_torch/kernels/csrc/{k.source}",
@@ -2438,6 +3007,7 @@ def main():
     print(json.dumps({"io": io_recs}), flush=True)
     for k, rec in extra.items():
         print(json.dumps({k: rec}), flush=True)
+    print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -15,6 +15,15 @@ any leading batch shape, its elementwise glue fused into the transforms'
 launches (`kernels/rescale.py`), where orion_tpu computes it in jnp
 outside Pallas.
 
+Limb sharding: while a limb group is set (`set_limb_group`, which
+`runtime/mesh.make_sharded_forward` does around a forward), `ks_decompose`,
+`ks_finish` and `ks_finish_raw` run limb-sharded through the group
+(`parallel/limbshard.py`): each rank of the group switches its block of
+extended rows with the key-switch kernels' launches apart, and the Q rows
+(or, for `ks_finish_raw`, the extended rows) are all-gathered back, so
+every caller above sees the unsharded result, bit for bit.  With no group
+set the seam costs one `is None` test.
+
 Float32 v-correction: the HPS correction term only needs to be within +-1
 of round(sum z_m / q_m); an off-by-one adds a multiple of the digit
 modulus, which ModDown's division by P absorbs.  Both packages compute it
@@ -28,8 +37,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..kernels.keyswitch import (fbc, ks_decompose, ks_finish,
-                                 ks_finish_raw, mod_down)
+from ..kernels import keyswitch as _kks
+from ..kernels.keyswitch import fbc, mod_down
 from ..kernels import rescale as _rescale
 from ..kernels.ntt import (cluster_twiddles, ntt_fwd, ntt_inv,
                            packed_twiddles)
@@ -38,7 +47,8 @@ from .ntt import CIMap
 
 __all__ = ["DevDigit", "RingRows", "DevLevel", "dev_level", "ring_ntt",
            "ring_intt", "fbc", "ks_decompose", "ks_finish", "keyswitch",
-           "ks_finish_raw", "mod_down", "mod_drop_rescale", "rescale_poly"]
+           "ks_finish_raw", "mod_down", "mod_drop_rescale", "rescale_poly",
+           "set_limb_group"]
 
 
 @dataclass
@@ -253,6 +263,49 @@ def ring_intt(a, rr: RingRows):
 # ------------------------------------------------------------------ #
 #  Key switching                                                     #
 # ------------------------------------------------------------------ #
+
+# the limb group the key-switches run sharded over, or None
+_limb_group = None
+
+
+def set_limb_group(group):
+    """Run the key-switches of this process limb-sharded over `group` (a
+    `parallel.limbshard.LimbGroup`), or on the device alone with None.
+    Returns the group set before."""
+    global _limb_group
+    prev, _limb_group = _limb_group, group
+    return prev
+
+
+def ks_decompose(c_ntt, dl: DevLevel):
+    """The `ks_decompose` kernel (kernels/keyswitch.py); under a limb group
+    the rank's block of the decomposition, (..., dnum, rows, N)."""
+    if _limb_group is None:
+        return _kks.ks_decompose(c_ntt, dl)
+    return _limb_group.decompose(c_ntt, dl)
+
+
+def ks_finish(ext, dl: DevLevel, ksk_data, ksk_shoup=None, trimmed=False,
+              key_index=None):
+    """The `ks_finish` kernel (kernels/keyswitch.py); under a limb group
+    from the rank's block of the decomposition, the Q rows gathered."""
+    if _limb_group is None:
+        return _kks.ks_finish(ext, dl, ksk_data, ksk_shoup, trimmed,
+                              key_index)
+    return _limb_group.finish(ext, dl, ksk_data, ksk_shoup, trimmed,
+                              key_index, raw=False)
+
+
+def ks_finish_raw(ext, dl: DevLevel, ksk_data, ksk_shoup=None,
+                  trimmed=False, key_index=None):
+    """`ks_finish` without ModDown; under a limb group the extended rows
+    gathered."""
+    if _limb_group is None:
+        return _kks.ks_finish_raw(ext, dl, ksk_data, ksk_shoup, trimmed,
+                                  key_index)
+    return _limb_group.finish(ext, dl, ksk_data, ksk_shoup, trimmed,
+                              key_index, raw=True)
+
 
 def keyswitch(c_ntt, dl: DevLevel, ksk_data, ksk_shoup, raw=False):
     """Switch poly c (level+1, N, NTT domain), or a batch (..., level+1,

@@ -6,17 +6,22 @@ Every wrapper launches its kernel on a CUDA tensor (or raises) and runs
 its plain PyTorch version on a CPU tensor.  `KERNELS` lists them with
 their launch and item counts (in all, and per level for the key-switch
 kernels); the `*_ci` entries are the same kernels run with the
-ConjugateInvariant ring's map, counted apart.
+ConjugateInvariant ring's map, counted apart.  `SHARDED` are the
+key-switch kernels' launches apart on one rank's rows, which only a
+limb-sharded key-switch (`parallel/limbshard.py`) runs.
 """
 
-from .keyswitch import KS_DECOMPOSE, KS_DECOMPOSE_CI, KS_FINISH, KS_FINISH_CI
+from .keyswitch import (KS_CONVERT_ROWS, KS_DECOMPOSE, KS_DECOMPOSE_CI,
+                        KS_FINISH, KS_FINISH_CI, KS_INNER_ROWS,
+                        KS_MODDOWN_ROWS)
 from .ntt import NTT_FWD, NTT_FWD_CI, NTT_INV, NTT_INV_CI
 from .rescale import (DROP_INTT, DROP_INTT_CI, DROP_NTT, RESCALE_NTT,
                       RESCALE_NTT_CI)
 
+SHARDED = (KS_CONVERT_ROWS, KS_INNER_ROWS, KS_MODDOWN_ROWS)
 KERNELS = (NTT_FWD, NTT_INV, KS_DECOMPOSE, KS_FINISH, DROP_INTT, DROP_NTT,
            RESCALE_NTT, NTT_FWD_CI, NTT_INV_CI, KS_DECOMPOSE_CI,
-           KS_FINISH_CI, DROP_INTT_CI, RESCALE_NTT_CI)
+           KS_FINISH_CI, DROP_INTT_CI, RESCALE_NTT_CI) + SHARDED
 
 
 def reset_launches() -> None:

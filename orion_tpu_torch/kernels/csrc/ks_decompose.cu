@@ -86,6 +86,28 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) fbc_ntt_digits(
         });
 }
 
+// Launch B alone: the conversion of every digit onto the n_t target rows
+// whose tables are given, from coefficients (B, nl, N) in hand.  With a
+// row block's tables (n_t its row count) this is a limb-sharded
+// key-switch's conversion onto one rank's rows (parallel/limbshard.py).
+template <int LOGN, bool CI>
+static cudaError_t convert_grid(
+        int64_t* ext, const int64_t* coeff, int batch, int nl, int n_t,
+        int dnum, int amax, const int64_t* dig_lo, const int64_t* dig_alpha,
+        const int64_t* qi, const int64_t* qi_sh, const int64_t* srcp,
+        const float* srcq, const int64_t* conv, const int64_t* conv_sh,
+        const int64_t* dmod, const int64_t* dmod_sh, const int64_t* t_p,
+        const int64_t* t_twp, const int64_t* ci_pos, cudaStream_t st) {
+    using RG = Ring<LOGN>;
+    cudaError_t e = allow_smem(fbc_ntt_digits<LOGN, CI>, RG::SMEM);
+    if (e != cudaSuccess) return e;
+    fbc_ntt_digits<LOGN, CI><<<dim3(n_t, dnum, batch), RG::T, RG::SMEM,
+                               st>>>(
+        ext, coeff, nl, n_t, dnum, amax, dig_lo, dig_alpha, qi, qi_sh, srcp,
+        srcq, conv, conv_sh, dmod, dmod_sh, t_p, t_twp, ci_pos);
+    return cudaGetLastError();
+}
+
 template <bool CI>
 static int decompose_launch(
         int64_t* ext, int64_t* coeff, const int64_t* c, int batch, int nl,
@@ -100,8 +122,6 @@ static int decompose_launch(
         constexpr int LOGN = decltype(cst)::value;
         using RG = Ring<LOGN>;
         cudaError_t e = allow_smem(ntt_inv_rows<LOGN, CI>, RG::SMEM);
-        if (e == cudaSuccess)
-            e = allow_smem(fbc_ntt_digits<LOGN, CI>, RG::SMEM);
         if (e != cudaSuccess) return e;
         // A: the Q rows are the first nl rows of the target tables
         ntt_inv_rows<LOGN, CI><<<dim3(nl, batch), RG::T, RG::SMEM, st>>>(
@@ -109,11 +129,10 @@ static int decompose_launch(
         e = cudaGetLastError();
         if (e != cudaSuccess) return e;
         // B
-        fbc_ntt_digits<LOGN, CI><<<dim3(n_t, dnum, batch), RG::T, RG::SMEM,
-                                   st>>>(
-            ext, coeff, nl, n_t, dnum, amax, dig_lo, dig_alpha, qi, qi_sh,
-            srcp, srcq, conv, conv_sh, dmod, dmod_sh, t_p, t_twp, ci_pos);
-        return cudaGetLastError();
+        return convert_grid<LOGN, CI>(
+            ext, coeff, batch, nl, n_t, dnum, amax, dig_lo, dig_alpha, qi,
+            qi_sh, srcp, srcq, conv, conv_sh, dmod, dmod_sh, t_p, t_twp,
+            ci_pos, st);
     });
 }
 
@@ -133,4 +152,24 @@ extern "C" int orion_ks_decompose(
                   dig_alpha, qi, qi_sh, srcp, srcq, conv, conv_sh, dmod,
                   dmod_sh, t_p, t_twp, t_itwp, t_ninv, t_ninv_sh, ci_src,
                   ci_pos, (cudaStream_t)stream);
+}
+
+// Launch B of orion_ks_decompose alone, standard ring only: ext (batch,
+// dnum, n_t, N) from the coefficients coeff (batch, nl, N) of every Q row,
+// onto the n_t rows of the tables given (conv, conv_sh (dnum, amax, n_t),
+// dmod, dmod_sh (dnum, n_t), t_p (n_t), t_twp (n_t, N)).
+extern "C" int orion_ks_convert(
+        int64_t* ext, const int64_t* coeff, int batch, int nl, int n_t,
+        int dnum, int amax, int logn, const int64_t* dig_lo,
+        const int64_t* dig_alpha, const int64_t* qi, const int64_t* qi_sh,
+        const int64_t* srcp, const float* srcq, const int64_t* conv,
+        const int64_t* conv_sh, const int64_t* dmod, const int64_t* dmod_sh,
+        const int64_t* t_p, const int64_t* t_twp, void* stream) {
+    return (int)with_logn(logn, [&](auto cst) {
+        constexpr int LOGN = decltype(cst)::value;
+        return convert_grid<LOGN, false>(
+            ext, coeff, batch, nl, n_t, dnum, amax, dig_lo, dig_alpha, qi,
+            qi_sh, srcp, srcq, conv, conv_sh, dmod, dmod_sh, t_p, t_twp,
+            nullptr, (cudaStream_t)stream);
+    });
 }

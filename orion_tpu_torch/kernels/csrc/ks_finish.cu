@@ -185,6 +185,50 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) moddown_rows(
         });
 }
 
+// Launch A: grid (n_t, 2, K).  Rows t >= nl get their inverse NTT when
+// moddown is set (the special rows: with a row block's tables, nl is the
+// block's first special row).
+template <int LOGN, bool CI>
+static cudaError_t inner_grid(
+        int64_t* work, const int64_t* ext, int ext_item, int ext_count,
+        const int64_t* ksk, const int64_t* ksk_sh, const int64_t* key_idx,
+        const int64_t* row_map, int items, int kdig, int krows, int nl,
+        int n_t, int dnum, int moddown, const int64_t* t_p,
+        const int64_t* t_pinv, const int64_t* t_rmod, const int64_t* t_rsh,
+        const int64_t* t_itwp, const int64_t* t_ninv,
+        const int64_t* t_ninv_sh, const int64_t* ci_src, cudaStream_t st) {
+    constexpr size_t smem_a = inner_smem<LOGN, CI>();
+    cudaError_t e = allow_smem(ks_inner_intt<LOGN, CI>, smem_a);
+    if (e != cudaSuccess) return e;
+    ks_inner_intt<LOGN, CI><<<dim3(n_t, 2, items), Ring<LOGN>::T, smem_a,
+                              st>>>(
+        work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx, kdig, krows,
+        row_map, nl, n_t, dnum, moddown, t_p, t_pinv, t_rmod, t_rsh, t_itwp,
+        t_ninv, t_ninv_sh, ci_src);
+    return cudaGetLastError();
+}
+
+// Launch B: grid (nl, 2, K) over work (K, 2, n_t, N), whose rows nl.. are
+// the special rows in the coefficient domain.
+template <int LOGN, bool CI>
+static cudaError_t moddown_grid(
+        int64_t* out, const int64_t* work, int items, int nl, int n_t,
+        const int64_t* md_qi, const int64_t* md_qi_sh,
+        const int64_t* md_srcp, const float* md_srcq,
+        const int64_t* md_conv, const int64_t* md_conv_sh,
+        const int64_t* md_dmod, const int64_t* md_dmod_sh,
+        const int64_t* pinv_q, const int64_t* pinv_q_sh, const int64_t* t_p,
+        const int64_t* t_twp, const int64_t* ci_pos, cudaStream_t st) {
+    using RG = Ring<LOGN>;
+    cudaError_t e = allow_smem(moddown_rows<LOGN, CI>, RG::SMEM);
+    if (e != cudaSuccess) return e;
+    moddown_rows<LOGN, CI><<<dim3(nl, 2, items), RG::T, RG::SMEM, st>>>(
+        out, work, nl, n_t, n_t - nl, md_qi, md_qi_sh, md_srcp, md_srcq,
+        md_conv, md_conv_sh, md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, t_p,
+        t_twp, ci_pos);
+    return cudaGetLastError();
+}
+
 template <bool CI>
 static int finish_launch(
         int64_t* out, int64_t* work, const int64_t* ext, int ext_item,
@@ -203,23 +247,15 @@ static int finish_launch(
         const int64_t* ci_pos, cudaStream_t st) {
     return (int)with_logn(logn, [&](auto c) {
         constexpr int LOGN = decltype(c)::value;
-        using RG = Ring<LOGN>;
-        constexpr size_t smem_a = inner_smem<LOGN, CI>();
-        cudaError_t e = allow_smem(ks_inner_intt<LOGN, CI>, smem_a);
-        if (e == cudaSuccess)
-            e = allow_smem(moddown_rows<LOGN, CI>, RG::SMEM);
-        if (e != cudaSuccess) return e;
-        ks_inner_intt<LOGN, CI><<<dim3(n_t, 2, items), RG::T, smem_a, st>>>(
-            work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx, kdig, krows,
-            row_map, nl, n_t, dnum, moddown, t_p, t_pinv, t_rmod, t_rsh,
-            t_itwp, t_ninv, t_ninv_sh, ci_src);
-        e = cudaGetLastError();
+        cudaError_t e = inner_grid<LOGN, CI>(
+            work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx, row_map,
+            items, kdig, krows, nl, n_t, dnum, moddown, t_p, t_pinv, t_rmod,
+            t_rsh, t_itwp, t_ninv, t_ninv_sh, ci_src, st);
         if (e != cudaSuccess || !moddown) return e;
-        moddown_rows<LOGN, CI><<<dim3(nl, 2, items), RG::T, RG::SMEM, st>>>(
-            out, work, nl, n_t, n_t - nl, md_qi, md_qi_sh, md_srcp, md_srcq,
+        return moddown_grid<LOGN, CI>(
+            out, work, items, nl, n_t, md_qi, md_qi_sh, md_srcp, md_srcq,
             md_conv, md_conv_sh, md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, t_p,
-            t_twp, ci_pos);
-        return cudaGetLastError();
+            t_twp, ci_pos, st);
     });
 }
 
@@ -247,4 +283,45 @@ extern "C" int orion_ks_finish(
                   md_qi, md_qi_sh, md_srcp, md_srcq, md_conv, md_conv_sh,
                   md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, ci_src, ci_pos,
                   (cudaStream_t)stream);
+}
+
+// The two launches of orion_ks_finish apart, standard ring only, for a
+// limb-sharded key-switch (parallel/limbshard.py), whose all-reduce of the
+// special rows sits between them.  Every table is that of the rows the
+// grid covers: orion_ks_inner over a rank's n_t extended rows (row_map[t]
+// the key row of row t, rows t >= nl special when moddown is set);
+// orion_ks_moddown over work (K, 2, nl + n_sp, N): a rank's nl Q rows, then
+// the n_sp special rows of the whole basis, summed over the ranks.
+extern "C" int orion_ks_inner(
+        int64_t* work, const int64_t* ext, int ext_item, int ext_count,
+        const int64_t* ksk, const int64_t* ksk_sh, const int64_t* key_idx,
+        const int64_t* row_map, int items, int kdig, int krows, int nl,
+        int n_t, int dnum, int logn, int moddown, const int64_t* t_p,
+        const int64_t* t_pinv, const int64_t* t_rmod, const int64_t* t_rsh,
+        const int64_t* t_itwp, const int64_t* t_ninv,
+        const int64_t* t_ninv_sh, void* stream) {
+    return (int)with_logn(logn, [&](auto c) {
+        constexpr int LOGN = decltype(c)::value;
+        return inner_grid<LOGN, false>(
+            work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx, row_map,
+            items, kdig, krows, nl, n_t, dnum, moddown, t_p, t_pinv, t_rmod,
+            t_rsh, t_itwp, t_ninv, t_ninv_sh, nullptr, (cudaStream_t)stream);
+    });
+}
+
+extern "C" int orion_ks_moddown(
+        int64_t* out, const int64_t* work, int items, int nl, int n_t,
+        int logn, const int64_t* md_qi, const int64_t* md_qi_sh,
+        const int64_t* md_srcp, const float* md_srcq,
+        const int64_t* md_conv, const int64_t* md_conv_sh,
+        const int64_t* md_dmod, const int64_t* md_dmod_sh,
+        const int64_t* pinv_q, const int64_t* pinv_q_sh, const int64_t* t_p,
+        const int64_t* t_twp, void* stream) {
+    return (int)with_logn(logn, [&](auto c) {
+        constexpr int LOGN = decltype(c)::value;
+        return moddown_grid<LOGN, false>(
+            out, work, items, nl, n_t, md_qi, md_qi_sh, md_srcp, md_srcq,
+            md_conv, md_conv_sh, md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, t_p,
+            t_twp, nullptr, (cudaStream_t)stream);
+    });
 }

@@ -21,6 +21,18 @@ are full-chain or level-trimmed, with Shoup companions or lean
 The caller keeps key_index within the pack (the kernel does not check
 values, which would cost a device sync).
 
+A limb-sharded key-switch (`parallel/limbshard.py`) runs the launches of
+the two kernels apart, on one rank's block of extended rows (`row_block`),
+with a collective between them: `ks_convert_rows` is `ks_decompose`'s
+conversion grid, from the gathered coefficients of every Q row;
+`ks_inner_rows` is `ks_finish`'s inner-product grid, whose special rows
+leave it in the coefficient domain; `ks_moddown_rows` is its ModDown grid
+onto the block's Q rows, from the special rows summed over the ranks.
+Each has a C entry point of its own (`orion_ks_convert`, `orion_ks_inner`,
+`orion_ks_moddown`) and a count of its own; the arithmetic is the
+kernels', so a sharded key-switch equals the unsharded one bit for bit.
+Standard ring only.
+
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version in this module, which is the port of
 orion_tpu's jnp key-switch (`orion_tpu/crypto/keyswitch.py`), looped over
@@ -41,6 +53,8 @@ from __future__ import annotations
 
 import torch
 
+from dataclasses import dataclass, replace
+
 from ..crypto.modops import add_mod, sub_mod
 from ._launch import Kernel, check_residues
 from .ntt import ntt_fwd_plain, ntt_inv_plain, packed_twiddles
@@ -55,6 +69,24 @@ KS_FINISH = Kernel(
     "ks_finish", "ks_finish.cu", "orion_ks_finish", _FINISH_SIG,
     "orion_tpu/crypto/ks_pallas.py:740 ks_finish_pallas (_finish_k :217), "
     ":592 ks_finish_pallas_grid")
+KS_CONVERT_ROWS = Kernel(
+    "ks_convert_rows", "ks_decompose.cu", "orion_ks_convert",
+    "pp" + "iiiiii" + "p" * 12,
+    "orion_tpu/crypto/ks_pallas.py:717 ks_decompose_pallas's conversion "
+    "(_fbc_k :174) onto one rank's rows, as orion_tpu/parallel/limbshard.py"
+    ":193 fbc_local and the ntt after its all-gather")
+KS_INNER_ROWS = Kernel(
+    "ks_inner_rows", "ks_finish.cu", "orion_ks_inner",
+    "ppii" + "pppp" + "iiiiiiii" + "p" * 7,
+    "orion_tpu/crypto/ks_pallas.py:740 ks_finish_pallas's inner product "
+    "(_finish_k :217) on one rank's rows, as orion_tpu/parallel/limbshard.py"
+    ":218 and the intt of the special rows before its psum")
+KS_MODDOWN_ROWS = Kernel(
+    "ks_moddown_rows", "ks_finish.cu", "orion_ks_moddown",
+    "pp" + "iiii" + "p" * 12,
+    "orion_tpu/crypto/ks_pallas.py:740 ks_finish_pallas's ModDown "
+    "(_finish_k :217) onto one rank's Q rows, as orion_tpu/parallel/"
+    "limbshard.py:239 after its psum")
 KS_DECOMPOSE_CI = Kernel(
     "ks_decompose_ci", "ks_decompose.cu", "orion_ks_decompose",
     _DECOMPOSE_SIG,
@@ -331,3 +363,200 @@ def ks_finish_raw(ext, dl, ksk_data, ksk_shoup=None, trimmed=False,
     if ext.device.type == "cpu":
         return ks_inner(ext, dl, ksk_data, ksk_shoup, trimmed, key_index)
     return _finish(ext, dl, ksk_data, ksk_shoup, trimmed, key_index, False)
+
+
+# ------------------------------------------------------------------ #
+#  One rank's row block (limb-sharded key-switching)                 #
+# ------------------------------------------------------------------ #
+
+@dataclass
+class RowBlock:
+    """Extended rows lo..hi-1 of a level and the level's tables cut to
+    them: what one rank of a limb-sharded key-switch reads.  Q rows come
+    first in the extended basis, so the block's first nq rows are Q rows
+    and the others special rows."""
+    lo: int
+    hi: int
+    nq: int
+    rows: object                  # RingRows of the block
+    q_rows: object | None         # RingRows of its nq Q rows
+    digits: list                  # each DevDigit, its targets cut to the block
+    moddown: object | None        # the ModDown DevDigit, cut to the Q rows
+    pinv_mod_q: torch.Tensor      # (nq, 1)
+    pinv_mod_q_shoup: torch.Tensor
+    t_pinv: torch.Tensor          # Montgomery constants of the block's rows
+    t_rmod: torch.Tensor
+    t_rshoup: torch.Tensor
+    dig: dict                     # the conversion tables in kernel layout
+
+
+def row_block(dl, lo: int, hi: int) -> RowBlock:
+    """The block of extended rows lo..hi-1 of level `dl`, cached on the
+    level: one per rank and limb group size."""
+    key = ("rows", lo, hi)
+    kt = dl.kernel_tables
+    if key in kt:
+        return kt[key]
+    if dl.ci is not None:
+        raise ValueError("limb-sharded key-switching runs on the standard "
+                         "ring only")
+    nq = max(0, min(hi, dl.level + 1) - lo)
+
+    def cut(dg, a, b):
+        return replace(dg, conv=dg.conv[:, a:b].contiguous(),
+                       conv_shoup=dg.conv_shoup[:, a:b].contiguous(),
+                       d_mod_t=dg.d_mod_t[a:b].contiguous(),
+                       d_mod_t_shoup=dg.d_mod_t_shoup[a:b].contiguous())
+
+    md = cut(dl.moddown, lo, lo + nq) if nq else None
+    dig = {}
+    if dl.t.p.is_cuda:
+        dig = dict(_digit_stack(dl))
+        for k in ("conv", "conv_sh"):
+            dig[k] = dig[k][:, :, lo:hi].contiguous()
+        for k in ("dmod", "dmod_sh"):
+            dig[k] = dig[k][:, lo:hi].contiguous()
+    blk = RowBlock(
+        lo=lo, hi=hi, nq=nq, rows=dl.t.rows(lo, hi),
+        q_rows=dl.t.rows(lo, lo + nq) if nq else None,
+        digits=[cut(dg, lo, hi) for dg in dl.digits], moddown=md,
+        pinv_mod_q=dl.pinv_mod_q[lo:lo + nq].contiguous(),
+        pinv_mod_q_shoup=dl.pinv_mod_q_shoup[lo:lo + nq].contiguous(),
+        t_pinv=dl.t_pinv[lo:hi], t_rmod=dl.t_rmod[lo:hi],
+        t_rshoup=dl.t_rshoup[lo:hi], dig=dig)
+    kt[key] = blk
+    return blk
+
+
+def ks_convert_rows_plain(coeff, dl, blk):
+    p = blk.rows.p[:, None]
+    exts = [torch.stack([fbc(c[dg.src_lo:dg.src_hi], dg, p)
+                         for dg in blk.digits]) for c in coeff]
+    return ntt_fwd_plain(torch.stack(exts), blk.rows)
+
+
+def ks_convert_rows(coeff, dl, blk: RowBlock):
+    """Convert every digit of coeff (B, nl, N), the coefficients of all Q
+    rows, onto the block's rows: ext (B, dnum, rows, N), NTT domain.  On
+    the card the `orion_ks_convert` launch (ks_decompose's grid B)."""
+    if coeff.device.type == "cpu":
+        return ks_convert_rows_plain(coeff, dl, blk)
+    k = KS_CONVERT_ROWS
+    nl, n = dl.level + 1, dl.ring_n
+    b, rows, dnum = coeff.shape[0], blk.hi - blk.lo, len(dl.digits)
+    check_residues(k.name, coeff, (b, nl, n))
+    d = blk.dig
+    ext = torch.empty((b, dnum, rows, n), dtype=torch.int64,
+                      device=coeff.device)
+    k.launch(coeff.device, ext, coeff, b, nl, rows, dnum, d["amax"],
+             blk.rows.logn, d["lo"], d["alpha"], d["qi"], d["qi_sh"],
+             d["srcp"], d["srcq"], d["conv"], d["conv_sh"], d["dmod"],
+             d["dmod_sh"], blk.rows.p, packed_twiddles(blk.rows)[0],
+             level=dl.level, items=b)
+    return ext
+
+
+def _inner_rows_one(ext, blk, ksk, row_map, moddown):
+    p = blk.rows.p[:, None]
+    acc = []
+    for q in range(2):
+        a = None
+        for j in range(ext.shape[0]):
+            t = ext[j] * ksk[j, q][row_map] % p
+            a = t if a is None else add_mod(a, t, p)
+        acc.append(a)
+    acc = torch.stack(acc)
+    rows = blk.hi - blk.lo
+    if moddown and blk.nq < rows:
+        sp = ntt_inv_plain(acc[:, blk.nq:], blk.rows.rows(blk.nq, rows))
+        acc = torch.cat([acc[:, :blk.nq], sp], dim=1)
+    return acc
+
+
+def ks_inner_rows_plain(ext, dl, blk, ksk, ksk_shoup, row_map,
+                        key_index=None, moddown=True):
+    items, batched = _items(ext, ksk, key_index)
+    out = [_inner_rows_one(e, blk, k, row_map, moddown) for e, k in items]
+    return torch.stack(out) if batched else out[0]
+
+
+def ks_inner_rows(ext, dl, blk: RowBlock, ksk, ksk_shoup, row_map,
+                  key_index=None, moddown=True):
+    """The key inner product on the block's rows: (2, rows, N) per item,
+    NTT domain; with moddown set its special rows leave in the
+    coefficient domain, for the all-reduce of a sharded ModDown.
+
+    ext (dnum, rows, N), or (E, dnum, rows, N) with key_index, and the
+    keys as in `ks_finish`; block row t reads key row row_map[t] (a slice
+    of the level's `kernel_row_map`, or 0..rows-1 for keys cut to the
+    block).  On the card the `orion_ks_inner` launch (ks_finish's grid
+    A)."""
+    if ext.device.type == "cpu":
+        return ks_inner_rows_plain(ext, dl, blk, ksk, ksk_shoup, row_map,
+                                   key_index, moddown)
+    k = KS_INNER_ROWS
+    dev, n = ext.device, dl.ring_n
+    rows, dnum = blk.hi - blk.lo, len(dl.digits)
+    batched = key_index is not None
+    if not batched:
+        if ext.dim() != 3:
+            raise ValueError(f"{k.name}: a batch of ext items needs a "
+                             f"key_index")
+        ksk = ksk[None]
+        ksk_shoup = None if ksk_shoup is None else ksk_shoup[None]
+        key_index = torch.zeros(1, dtype=torch.int64, device=dev)
+    items = key_index.shape[0]
+    e = ext.shape[0] if ext.dim() == 4 else 1
+    if items < 1 or items % e:
+        raise ValueError(f"{k.name}: {e} ext items for {items} keys")
+    check_residues(k.name, ext, ext.shape[:-3] + (dnum, rows, n))
+    if ksk.dim() != 5 or ksk.shape[1] < dnum or \
+            tuple(row_map.shape) != (rows,):
+        raise ValueError(f"{k.name}: keys {tuple(ksk.shape)} and row map "
+                         f"{tuple(row_map.shape)} for {rows} rows")
+    check_residues(k.name, ksk, tuple(ksk.shape))
+    if ksk_shoup is not None:
+        check_residues(k.name, ksk_shoup, tuple(ksk.shape))
+    work = torch.empty((items, 2, rows, n), dtype=torch.int64, device=dev)
+    t = blk.rows
+    k.launch(dev, work, ext, dnum * rows * n if ext.dim() == 4 else 0, e,
+             ksk, ksk_shoup, key_index, row_map, items, ksk.shape[1],
+             ksk.shape[3], blk.nq, rows, dnum, t.logn, int(moddown), t.p,
+             blk.t_pinv, blk.t_rmod, blk.t_rshoup, packed_twiddles(t)[1],
+             t.ninv, t.ninv_shoup, level=dl.level, items=items)
+    return work if batched else work[0]
+
+
+def ks_moddown_rows_plain(x, dl, blk):
+    qp = blk.q_rows.p[:, None]
+    out = []
+    for poly in x.reshape((-1,) + tuple(x.shape[-2:])):
+        lift = ntt_fwd_plain(fbc(poly[blk.nq:], blk.moddown, qp),
+                             blk.q_rows)
+        out.append(sub_mod(poly[:blk.nq], lift, qp) * blk.pinv_mod_q % qp)
+    return torch.stack(out).reshape(tuple(x.shape[:-2]) + (blk.nq,
+                                                           x.shape[-1]))
+
+
+def ks_moddown_rows(x, dl, blk: RowBlock):
+    """ModDown onto the block's Q rows: x (K, 2, nq + n_sp, N) holds the
+    block's nq Q rows (NTT domain), then the level's n_sp special rows in
+    the coefficient domain; returns (K, 2, nq, N), NTT domain.  On the
+    card the `orion_ks_moddown` launch (ks_finish's grid B)."""
+    if blk.nq == 0:
+        raise ValueError("ks_moddown_rows: the block holds no Q row")
+    if x.device.type == "cpu":
+        return ks_moddown_rows_plain(x, dl, blk)
+    k = KS_MODDOWN_ROWS
+    n_sp, n = dl.s.p.shape[0], dl.ring_n
+    items = x.shape[0]
+    check_residues(k.name, x, (items, 2, blk.nq + n_sp, n))
+    out = torch.empty((items, 2, blk.nq, n), dtype=torch.int64,
+                      device=x.device)
+    md, q = blk.moddown, blk.q_rows
+    k.launch(x.device, out, x, items, blk.nq, blk.nq + n_sp, q.logn,
+             md.qhat_inv, md.qhat_inv_shoup, md.src_p, md.src_q_f32,
+             md.conv, md.conv_shoup, md.d_mod_t, md.d_mod_t_shoup,
+             blk.pinv_mod_q, blk.pinv_mod_q_shoup, q.p,
+             packed_twiddles(q)[0], level=dl.level, items=items)
+    return out

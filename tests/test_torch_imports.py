@@ -253,3 +253,53 @@ def test_ci_ring_needs_cuda_unless_cpu_is_asked(monkeypatch):
         m.setattr(torch.cuda, "is_available", lambda: True)
         with pytest.raises(ValueError, match=r"2\^15-point"):
             CKKSContext(**dict(kw, logn=14))
+
+
+def test_init_multihost_needs_cuda_unless_cpu_or_gloo(monkeypatch, tmp_path):
+    """A world runs its ranks on the card (NCCL) unless the caller asks for
+    the CPU or for gloo; a second call returns the first call's device.
+    The sharded key-switch's wrappers refuse a tensor that is not on the
+    CPU or the card, and the ConjugateInvariant ring."""
+    import torch.distributed as dist
+
+    from orion_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(multihost, "_DEVICE", None)
+    url = (tmp_path / "store").as_uri()
+    for kw in ({}, {"device": "cuda"}, {"backend": "nccl"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            multihost.init_multihost(url, 1, 0, **kw)
+    with pytest.raises(ValueError, match="nccl backend needs"):
+        multihost.init_multihost(url, 1, 0, backend="nccl", device="cpu")
+    assert not dist.is_initialized()
+    for i, kw in enumerate(({"device": "cpu"}, {"backend": "gloo"})):
+        try:
+            dev = multihost.init_multihost(
+                (tmp_path / f"store{i}").as_uri(), 1, 0, **kw)
+            assert dev == torch.device("cpu")
+            assert dist.get_backend() == "gloo"
+            assert multihost.init_multihost() == dev
+        finally:
+            dist.destroy_process_group()
+            multihost._DEVICE = None
+
+    ctx = CKKSContext(logn=8, logq=[29, 26, 26], logp=[29], logscale=26,
+                      h=64, device="cpu")
+    dl = dev_level(ctx, 2)
+    blk = kks.row_block(dl, 2, 4)
+    assert blk.nq == 1
+    meta = torch.empty((1, 3, ctx.n), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kks.ks_convert_rows(meta, dl, blk)
+    ext = torch.empty((len(dl.digits), 2, ctx.n), dtype=torch.int64,
+                      device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kks.ks_inner_rows(ext, dl, blk, ext, None, torch.arange(2))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kks.ks_moddown_rows(meta[None, :, :2].expand(1, 2, 2, ctx.n), dl,
+                            blk)
+    ci = CKKSContext(logn=8, logq=[29, 26], logp=[29], logscale=26, h=64,
+                     ring_type="conjugate_invariant", device="cpu")
+    with pytest.raises(ValueError, match="standard ring only"):
+        kks.row_block(dev_level(ci, 1), 0, 1)
