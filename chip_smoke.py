@@ -123,8 +123,8 @@ stderr and exits 1:
      MLP and LoLA-CI at B = 8 and ResNet-20 at B = 2, over K items grouped
      by query (K / E keys, ext k % E), B and K the largest batch of that
      level in that config's forward (4 where it has none; for the bootstrapped
-     nets only the levels of their largest ks_decompose and ks_finish
-     launches, a shape run for one of them not run again; for phase 8 the
+     nets only the levels their forwards batch, a shape run for one of
+     them not run again; for phase 8 the
      level of its largest ks_finish launch), bit-exact against the plain versions, with ms per launch,
      per key-switch and the bound per launch; then every kernel once at
      LogN 14 (configs/mlp.yml's chain on a ring of 2^14), the
@@ -148,8 +148,11 @@ stderr and exits 1:
      make_batched_forward's outputs bit for bit, MAE < 0.005, its
      per-rank launches (the sharded entries and ntt_inv, no ks_decompose
      or ks_finish) and walls; the dp x mp step (parallel/mesh.py) and
-     dryrun_boot_mesh at limb = 2; a 1-rank world on init_multihost's
-     defaults (NCCL): M = 1 and dryrun_model_mesh (`check_parallel`);
+     dryrun_boot_mesh at limb = 2, each call these two sharded forwards
+     make to the sharded entries held against its plain version
+     (`EntryCapture`: batches, key packs, trimmed and lean keys, raw,
+     uneven blocks); a 1-rank world on init_multihost's defaults (NCCL):
+     M = 1 and dryrun_model_mesh (`check_parallel`);
   11. one JSON line per path (phase 8's batches among them), one for the
      bootstrap, one for phase 8b, one for each of phases 6's noise and
      resident forwards, 9, 9b and 10, one for phase 12, one describing
@@ -2209,30 +2212,37 @@ PARALLEL_TIMEOUT_S = 300
 SHARDED_STEADY = 10
 
 
-def convert_rows_work(nl, rows, dnum, alpha, n):
-    """ks_convert_rows: the coefficients of the nl Q rows read, the
-    block's ext and its forward tables; per target coefficient the
-    conversion, then the NTT."""
-    nbytes = 8 * n * (nl + dnum * rows + rows)
-    ops = dnum * rows * (n * (6 * alpha + 3) + 3 * (n // 2) * _lg(n))
+def convert_rows_work(nl, rows, dnum, alpha, n, b=1):
+    """ks_convert_rows over b polys: the coefficients of their nl Q rows
+    read, the block's ext and its forward tables; per target coefficient
+    the conversion, then the NTT."""
+    nbytes = 8 * n * (b * nl + b * dnum * rows + rows)
+    ops = b * dnum * rows * (n * (6 * alpha + 3) + 3 * (n // 2) * _lg(n))
     return nbytes, ops
 
 
-def inner_rows_work(rows, sp_rows, dnum, n, lean):
-    """ks_inner_rows: the block's ext and key rows read, the work buffer
-    written; the inverse NTT of its special rows."""
-    nbytes = 8 * n * (dnum * rows + dnum * 2 * rows * (1 if lean else 2)
-                      + 2 * rows + sp_rows)
-    ops = (2 * dnum * rows * n * (7 if lean else 3)
-           + 2 * sp_rows * (3 * (n // 2) * _lg(n) + 3 * n))
+def inner_rows_work(rows, sp_rows, dnum, n, lean, items=1, exts=1,
+                    moddown=True):
+    """ks_inner_rows over `items` key-switches from `exts` ext items: the
+    block's ext and each item's key rows read, the work buffer written;
+    with moddown the inverse NTT of its special rows (their tables
+    read)."""
+    sp = sp_rows if moddown else 0
+    nbytes = 8 * n * (exts * dnum * rows
+                      + items * dnum * 2 * rows * (1 if lean else 2)
+                      + items * 2 * rows + sp)
+    ops = items * (2 * dnum * rows * n * (7 if lean else 3)
+                   + 2 * sp * (3 * (n // 2) * _lg(n) + 3 * n))
     return nbytes, ops
 
 
-def moddown_rows_work(nq, n_sp, n):
-    """ks_moddown_rows: the block's Q rows and the summed special rows
-    read, the Q rows written, their forward tables."""
-    nbytes = 8 * n * (2 * (nq + n_sp) + 2 * nq + nq)
-    ops = 2 * nq * (n * (6 * n_sp + 3) + 3 * (n // 2) * _lg(n) + 3 * n)
+def moddown_rows_work(nq, n_sp, n, items=1):
+    """ks_moddown_rows over `items` key-switches: the block's Q rows and
+    the summed special rows read, the Q rows written, their forward
+    tables."""
+    nbytes = 8 * n * (items * (2 * (nq + n_sp) + 2 * nq) + nq)
+    ops = items * 2 * nq * (n * (6 * n_sp + 3) + 3 * (n // 2) * _lg(n)
+                            + 3 * n)
     return nbytes, ops
 
 
@@ -2377,6 +2387,142 @@ def _entry_cases(ctx, dl, blk, rk, x, tag, lvl, stats, timed):
         run()
 
 
+SHARDED_ENTRIES = ("ks_convert_rows", "ks_inner_rows", "ks_moddown_rows")
+
+
+class EntryCapture:
+    """While entered, every call that parallel/limbshard.py makes to a
+    sharded C entry runs as usual and its inputs are kept: per form, the
+    call with the most items.  A form is the entry, the level and the
+    rank's rows, and for ks_inner_rows the ext items, one key or a pack
+    (key_index), the key rows (full-chain or trimmed), Shoup or lean keys
+    and the ModDown flag.  `replay` then holds each kept call against its
+    plain version on the same inputs."""
+
+    def __init__(self):
+        self.forms = {}
+
+    def _keep(self, key, items, args):
+        if key not in self.forms or self.forms[key][0] < items:
+            self.forms[key] = (items, args)
+
+    def __enter__(self):
+        from orion_tpu_torch.parallel import limbshard as ls
+
+        self._orig = {n: getattr(ls, n) for n in SHARDED_ENTRIES}
+        orig = self._orig
+
+        def convert(coeff, dl, blk):
+            self._keep(("ks_convert_rows", dl.level, blk.lo, blk.hi),
+                       coeff.shape[0], (coeff.clone(), dl, blk))
+            return orig["ks_convert_rows"](coeff, dl, blk)
+
+        def inner(ext, dl, blk, ksk, ksk_shoup, row_map, key_index=None,
+                  moddown=True):
+            items = 1 if key_index is None else key_index.shape[0]
+            form = ("ks_inner_rows", dl.level, blk.lo, blk.hi,
+                    ext.shape[0] if ext.dim() == 4 else 0,
+                    key_index is not None, ksk.shape[-2],
+                    ksk_shoup is None, bool(moddown))
+            self._keep(form, items, (
+                ext.clone(), dl, blk, ksk, ksk_shoup, row_map.clone(),
+                None if key_index is None else key_index.clone(),
+                moddown))
+            return orig["ks_inner_rows"](ext, dl, blk, ksk, ksk_shoup,
+                                         row_map, key_index, moddown)
+
+        def moddown(x, dl, blk):
+            self._keep(("ks_moddown_rows", dl.level, blk.lo, blk.hi),
+                       x.shape[0], (x.clone(), dl, blk))
+            return orig["ks_moddown_rows"](x, dl, blk)
+
+        for n, fn in zip(SHARDED_ENTRIES, (convert, inner, moddown)):
+            setattr(ls, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        from orion_tpu_torch.parallel import limbshard as ls
+
+        for n, fn in self._orig.items():
+            setattr(ls, n, fn)
+
+    def replay(self, tag, stats, m):
+        """Each kept call against its plain version (Cases: bit-exact,
+        -1-poisoned memory; a few calls timed, every rank on the card at
+        once).  m is the limb group's size.  Returns the forms counted by
+        entry and the kinds of form seen ("batch", "pack", "paired",
+        "raw", "lean", "trimmed", "uneven")."""
+        import torch.distributed as dist
+
+        from orion_tpu_torch.kernels import keyswitch as kks
+
+        cs = Cases(None, f"{tag}/r{dist.get_rank()}", stats, iters=2,
+                   plain_iters=0)
+        by_entry, kinds = dict.fromkeys(SHARDED_ENTRIES, 0), set()
+        for key in sorted(self.forms):
+            items, args = self.forms[key]
+            name, level, lo, hi = key[:4]
+            dl, blk = args[1], args[2]
+            rows, n, dnum = hi - lo, dl.ring_n, len(dl.digits)
+            n_t = dl.t.p.shape[0]
+            label = f"rows {lo}..{hi - 1} of {n_t}"
+            if n_t % m:
+                kinds.add("uneven")
+                label += " uneven"
+            if name == "ks_convert_rows":
+                alpha = max(dg.src_hi - dg.src_lo for dg in dl.digits)
+                work = convert_rows_work(dl.level + 1, rows, dnum, alpha, n,
+                                         items)
+                label += f" B={items}"
+                kinds |= {"batch"} if items > 1 else set()
+                fn, plain = kks.ks_convert_rows, kks.ks_convert_rows_plain
+            elif name == "ks_inner_rows":
+                exts, pack, key_rows, lean, md = key[4:]
+                full_rows = int(dl.ksk_rows_idx.max()) + 1
+                trimmed = key_rows == n_t < full_rows
+                label += (f" {'pack K=' if pack else 'one key'}"
+                          f"{items if pack else ''} ext "
+                          f"{exts if exts else 'shared'} key rows "
+                          f"{key_rows}{' trimmed' if trimmed else ''} "
+                          f"{'lean' if lean else 'Shoup'}"
+                          f"{'' if md else ' raw'}")
+                kinds |= {k for k, on in (
+                    ("pack", pack), ("paired", exts > 1), ("lean", lean),
+                    ("trimmed", trimmed), ("raw", not md)) if on}
+                work = inner_rows_work(rows, rows - blk.nq, dnum, n, lean,
+                                       items, max(exts, 1), md)
+                fn, plain = kks.ks_inner_rows, kks.ks_inner_rows_plain
+            else:
+                work = moddown_rows_work(blk.nq, dl.s.p.shape[0], n, items)
+                label += f" K={items}"
+                kinds |= {"batch"} if items > 1 else set()
+                fn, plain = kks.ks_moddown_rows, kks.ks_moddown_rows_plain
+            cs.case(name, level, label, lambda: fn(*args),
+                    lambda: plain(*args), work, items=items)
+            by_entry[name] += 1
+        return {"forms": by_entry, "kinds": sorted(kinds)}
+
+
+# the forms of the sharded entries that the sharded MLP forward and the
+# sharded bootstrapped forward must have given them between them
+ENTRY_KINDS = ("batch", "pack", "raw", "lean", "trimmed", "uneven")
+
+
+def _check_entry_forms(rank, *cases):
+    """Fail unless the captured calls of a rank held every sharded entry
+    and every kind of form in ENTRY_KINDS against its plain version."""
+    kinds = set().union(*(c["kinds"] for c in cases))
+    idle = [e for e in SHARDED_ENTRIES if not any(c["forms"][e]
+                                                  for c in cases)]
+    missing = [k for k in ENTRY_KINDS if k not in kinds]
+    print(f"  rank {rank}: the sharded forwards' entry calls held against "
+          f"their plain versions: {[c['forms'] for c in cases]}, kinds "
+          f"{sorted(kinds)}", flush=True)
+    if idle or missing:
+        fail(f"rank {rank}: no captured call of {idle} or of the forms "
+             f"{missing}")
+
+
 def _sharded_timing(ctx, dl, blk, rk, x, group):
     """Device ms of the unsharded key-switch and of this rank's kernels of
     one sharded key-switch (each rank alone in turn), then the sharded
@@ -2436,14 +2582,16 @@ def _sharded_timing(ctx, dl, blk, rk, x, group):
     return rec
 
 
-def _rank_mlp(cfg, batch=4):
+def _rank_mlp(cfg, stats, batch=4):
     """The full-width MLP 784-128-128-10 on configs/mlp.yml, B queries
     through make_sharded_forward on a (dp = 2, limb = 2) mesh
     (make_dcn_mesh, one host): equal to make_batched_forward's outputs
     on this rank bit for bit, MAE < 0.005; the launches of the first
     sharded forward (counts set to 0 just before it) must include every
     sharded entry and ntt_inv and no ks_decompose or ks_finish; first and
-    steady walls of both forwards."""
+    steady walls of both forwards.  One more sharded forward keeps the
+    inputs of its sharded entries' calls (`EntryCapture`), and each form
+    is then held against its plain version."""
     import torch.distributed as dist
 
     import orion_tpu_torch as orion
@@ -2494,10 +2642,14 @@ def _rank_mlp(cfg, batch=4):
             fn(cts)
             torch.cuda.synchronize()
             walls[tag].append((time.perf_counter() - t0) * 1e3)
+    cap = EntryCapture()
+    with cap:
+        run(cts)
     rec = {"model": "MLP", "batch": batch, "mesh": mesh_report(mesh),
            "equal_to_batched": same, "mae": maes, "first_ms": first_ms,
            "steady_ms": walls, "launches": counts, "collectives": moved,
-           "dp_row": mesh.index("dp"), "limb_index": mesh.index("limb")}
+           "dp_row": mesh.index("dp"), "limb_index": mesh.index("limb"),
+           "entry_cases": cap.replay("mlp_fwd", stats, mesh.size("limb"))}
     print(f"  MLP rank {rank} (dp row {rec['dp_row']}, limb "
           f"{rec['limb_index']}): B = {batch} sharded outputs equal to "
           f"make_batched_forward's: {same}; max MAE {max(maes):.3e}; first "
@@ -2601,11 +2753,17 @@ def parallel_rank(tag, rank, world, port, backend, out_dir, go):
             + _sharded_cases(cfgs["resnet"], "resnet", (1, 7, 17, 43),
                              stats, entries=True, timed=(43,)))
     elif tag == "ks4":
-        rec["cases"] = _sharded_cases(cfgs["mlp"], "mlp", mlp_levels, stats)
-        rec["mlp"] = _rank_mlp(cfgs["mlp"])
-        rec["dp_mp"] = _rank_dp_mp()
         from orion_tpu_torch.parallel.mesh import dryrun_boot_mesh
-        rec["boot"] = dryrun_boot_mesh(device="cuda")
+
+        rec["cases"] = _sharded_cases(cfgs["mlp"], "mlp", mlp_levels, stats)
+        rec["mlp"] = _rank_mlp(cfgs["mlp"], stats)
+        rec["dp_mp"] = _rank_dp_mp()
+        cap = EntryCapture()
+        with cap:
+            rec["boot"] = dryrun_boot_mesh(device="cuda")
+        rec["boot"]["entry_cases"] = cap.replay("boot", stats, 2)
+        _check_entry_forms(rank, rec["mlp"]["entry_cases"],
+                           rec["boot"]["entry_cases"])
     elif tag == "ks8":
         rec["cases"] = _sharded_cases(cfgs["mlp"], "mlp", mlp_levels, stats)
     else:
@@ -2619,29 +2777,13 @@ def parallel_rank(tag, rank, world, port, backend, out_dir, go):
         json.dump(rec, f)
 
 
-def check_parallel():
-    """Phase 12: the parallel layer on torch.distributed, worlds of
-    processes spawned on the card (`PARALLEL_WORLDS`), each joined with a
-    timeout, stragglers killed; any non-zero exit or mismatch fails.
-      ks2: the sharded key-switch at M = 2 at every level of
-           configs/mlp.yml where 2 | n_t and at levels 1, 7, 17, 43 of
-           configs/resnet.yml, each rank's new C entries against their
-           plain versions, device times against the unsharded key-switch
-           at mlp level 5 and resnet level 43, and the collectives' bytes;
-      ks4: M = 4 on configs/mlp.yml; the full-width MLP through
-           make_sharded_forward at (dp = 2, limb = 2); the dp x mp step;
-           dryrun_boot_mesh at limb = 2;
-      ks8: M = 8 on configs/mlp.yml (level 5, 8 extended rows);
-      nccl1: one rank on init_multihost's defaults (NCCL, the rank's
-           card): M = 1 at mlp level 5 and dryrun_model_mesh.
-    Every world's processes are spawned at the start, and import while
-    the worlds before them run; a world touches the card only in its
-    turn.  Returns ({tag: {"ranks": [rank records], ...}}, the merged
-    case records)."""
+def spawn_worlds():
+    """The processes of phase 12's worlds (`PARALLEL_WORLDS`), spawned
+    before phases 9, 10 and 7 so that they import while those run; each
+    waits for its world's turn (`check_parallel`) before it touches the
+    card.  Returns [(tag, ranks, turn event, processes)]."""
     import multiprocessing
 
-    print("phase 12: the parallel layer, worlds of processes on cuda:0",
-          flush=True)
     out_dir = ROOT / "build" / "orion_tpu_torch" / "parallel"
     out_dir.mkdir(parents=True, exist_ok=True)
     for f in out_dir.glob("*_rank*.json"):
@@ -2657,8 +2799,33 @@ def check_parallel():
         for p in procs:
             p.start()
         worlds.append((tag, world, go, procs))
+    return worlds
+
+
+def check_parallel(worlds):
+    """Phase 12: the parallel layer on torch.distributed, the worlds of
+    processes that `spawn_worlds` started, run on the card in turn, each
+    joined with a timeout, stragglers killed; any non-zero exit or
+    mismatch fails.
+      ks2: the sharded key-switch at M = 2 at every level of
+           configs/mlp.yml where 2 | n_t and at levels 1, 7, 17, 43 of
+           configs/resnet.yml, each rank's new C entries against their
+           plain versions, device times against the unsharded key-switch
+           at mlp level 5 and resnet level 43, and the collectives' bytes;
+      ks4: M = 4 on configs/mlp.yml; the full-width MLP through
+           make_sharded_forward at (dp = 2, limb = 2); the dp x mp step;
+           dryrun_boot_mesh at limb = 2; the calls of both sharded
+           forwards to the sharded entries against their plain versions;
+      ks8: M = 8 on configs/mlp.yml (level 5, 8 extended rows);
+      nccl1: one rank on init_multihost's defaults (NCCL, the rank's
+           card): M = 1 at mlp level 5 and dryrun_model_mesh.
+    A world touches the card only in its turn.  Returns ({tag: {"ranks":
+    [rank records], ...}}, the merged case records)."""
+    print("phase 12: the parallel layer, worlds of processes on cuda:0",
+          flush=True)
     try:
-        return _run_worlds(worlds, out_dir)
+        return _run_worlds(worlds,
+                           ROOT / "build" / "orion_tpu_torch" / "parallel")
     finally:
         for *_, procs in worlds:
             for p in procs:
@@ -2866,6 +3033,8 @@ def main():
     torch.cuda.empty_cache()
     print(f"phase 8 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    # phase 12's processes import while phases 9, 10 and 7 run
+    worlds = spawn_worlds()
     # phase 9: training, 9b: noise profiles, 10: the naive BSGS oracle
     extra["training"] = check_training(cfgs["lenet"])
     extra["tiny_vgg_noise"] = check_tiny_vgg_noise()
@@ -2882,16 +3051,12 @@ def main():
                       paths[path]["batches"])
         print(f"phase 7 {tag} done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
-    # the bootstrapped nets at the levels of their largest ks_decompose and
-    # ks_finish launches (every level their forwards batch ran until phase
-    # 12 took the time; phase 2 holds every level one key-switch at a time)
     ctx, done = make_context(cfgs["resnet"]), set()
     for tag in BOOTSTRAPPED:
         b = paths[tag]["batches"]
         check_batched(ctx, tag, stats, b, lean=True, done=done,
-                      levels=sorted({max(b[k], key=lambda lv: max(b[k][lv]))
-                                     for k in ("ks_decompose", "ks_finish")
-                                     if b.get(k)}))
+                      levels=sorted({lv for k in ("ks_decompose", "ks_finish")
+                                     for lv in b.get(k, {})}))
         print(f"phase 7 {tag} done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
     # phase 8's batched forwards: the batches of ResNet-20 at B = 2, of
@@ -2920,7 +3085,7 @@ def main():
     # phase 12: the parallel layer, in worlds of processes on the card
     gc.collect()
     torch.cuda.empty_cache()
-    parallel, pstats = check_parallel()
+    parallel, pstats = check_parallel(worlds)
     for k, v in pstats.items():
         stats.setdefault(k, []).extend(v)
     print(f"phase 12 done at {time.perf_counter() - t_start:.1f} s",
