@@ -9,8 +9,9 @@ stderr and exits 1:
   1. the card's name and power limit, the kernel build time (every CUDA
      source of the port is compiled here, in parallel), ptxas' registers
      and spills of each kernel at LogN 13 and 14, and the CTAs per row of
-     the cluster transforms at each ring size (more than one at LogN 13
-     and 14, or the run fails);
+     the cluster transforms at each ring size and of the key-switch
+     kernels' ConjugateInvariant forms at each lift size (more than one
+     at LogN 13 and 14, or the run fails);
   2. each hand-written kernel against its plain PyTorch version on the
      card (N = 8192) at every level of configs/mlp.yml (0-5), of
      configs/lenet.yml (0-7, 4 digits at levels 6-7) and at levels 1-43
@@ -767,10 +768,13 @@ def ring_kernels(ring):
 
 def launched_grids():
     """Device kernels by name that the port's wrappers launched since the
-    counts were last set to 0: ntt_inv_rows is ks_decompose's first grid,
-    moddown_rows ks_finish's second (ks_finish_raw has none); the sharded
-    entries launch one of these grids each.  A kernel's CI form is the
-    same device kernel (its `CI = true` instantiation)."""
+    counts were last set to 0: ntt_inv_rows is ks_decompose's first grid
+    (ntt_inv_cluster its CI form's), moddown_rows ks_finish's second
+    (ks_finish_raw has none); the sharded entries launch one of these
+    grids each.  A kernel's CI form is the same device kernel (its
+    `CI = true` instantiation) or, for the key-switch kernels, one named
+    after it (`fbc_ntt_digits_ci`, `ks_inner_intt_ci`, `moddown_rows_ci`,
+    which the names here match too)."""
     from orion_tpu_torch import kernels as k
 
     dec = (k.KS_DECOMPOSE.grids + k.KS_DECOMPOSE_CI.grids,
@@ -778,8 +782,10 @@ def launched_grids():
     fin = (k.KS_FINISH.grids + k.KS_FINISH_CI.grids,
            k.KS_FINISH.launches + k.KS_FINISH_CI.launches)
     return {"ntt_fwd_cluster": k.NTT_FWD.grids + k.NTT_FWD_CI.grids,
-            "ntt_inv_cluster": k.NTT_INV.grids + k.NTT_INV_CI.grids,
-            "ntt_inv_rows": dec[0] - dec[1],
+            "ntt_inv_cluster": (k.NTT_INV.grids + k.NTT_INV_CI.grids
+                                + k.KS_DECOMPOSE_CI.grids
+                                - k.KS_DECOMPOSE_CI.launches),
+            "ntt_inv_rows": k.KS_DECOMPOSE.grids - k.KS_DECOMPOSE.launches,
             "fbc_ntt_digits": dec[1] + k.KS_CONVERT_ROWS.grids,
             "ks_inner_intt": fin[1] + k.KS_INNER_ROWS.grids,
             "moddown_rows": fin[0] - fin[1] + k.KS_MODDOWN_ROWS.grids,
@@ -2942,6 +2948,20 @@ def main():
              f"twiddles for {[1 << kntt.split_logc(g) for g in ctas]}")
     if min(ctas[13], ctas[14]) < 2:
         fail("the transforms at LogN 13 and 14 are not split over a cluster")
+    from orion_tpu_torch.kernels import keyswitch as kks
+
+    ci_ctas = {logn: kks.ci_cluster_ctas(logn) for logn in range(8, 15)}
+    for name in ("ks_decompose_ci", "ks_finish_ci"):
+        by = {logn: c[name] for logn, c in ci_ctas.items()}
+        print(f"phase 1: {name} launches clusters of C CTAs per row, by "
+              f"the lift's LogN: {by}", flush=True)
+    if any(c != ctas[logn] for logn, by in ci_ctas.items()
+           for c in by.values()):
+        fail(f"the CI key-switch kernels split rows as {ci_ctas}, the "
+             f"cluster twiddles they read are packed for {ctas}")
+    if any(c < 2 for logn in (13, 14) for c in ci_ctas[logn].values()):
+        fail("a CI key-switch kernel runs one CTA per row at a 2^13 or "
+             "2^14 lift")
 
     cfgs = {}
     for tag, path in CONFIGS.items():
@@ -3125,6 +3145,8 @@ def main():
         })
         if k.source == "ntt.cu":
             line[-1]["cluster_ctas"] = ctas[14 if ci else 13]
+        elif ci:
+            line[-1]["cluster_ctas"] = ci_ctas[14][k.name]
         # the top level of configs/resnet.yml (44 Q rows, 50 extended
         # rows, 8 digits), lean trimmed keys for ks_finish; the CI forms
         # at the top level of tests/configs/mlp.yml (transforms of 2^13)

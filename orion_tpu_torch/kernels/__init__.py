@@ -5,8 +5,10 @@ build (`_build.py`) and their wrappers (`ntt.py`, `keyswitch.py`,
 Every wrapper launches its kernel on a CUDA tensor (or raises) and runs
 its plain PyTorch version on a CPU tensor.  `KERNELS` lists them with
 their launch and item counts (in all, and per level for the key-switch
-kernels); the `*_ci` entries are the same kernels run with the
-ConjugateInvariant ring's map, counted apart.  `SHARDED` are the
+kernels); the `*_ci` entries are the same C entry points run with the
+ConjugateInvariant ring's map, counted apart (the transforms and rescale
+epilogues as the same kernels' CI instantiations, the key-switch kernels
+as cluster kernels of their own).  `SHARDED` are the
 key-switch kernels' launches apart on one rank's rows, which only a
 limb-sharded key-switch (`parallel/limbshard.py`) runs.
 """

@@ -27,38 +27,79 @@
 // re-reads the alpha source rows once per target row (n_t times), from L2.
 // The conversion and the transforms stay in registers and shared memory.
 //
-// On the ConjugateInvariant ring (CI = true, ci_pos non-null) rows hold n
-// residues and the transforms run at N = 2n through the map of
-// modarith.cuh: launch A gathers through ci_src and keeps n coefficients;
-// launch B converts those n coefficients, lifts the results into the 2n
-// transform (the mirror is the negated conversion of the same
-// coefficient, never a conversion of mirrored residues, whose float32
-// v-correction could round otherwise) and stores through ci_pos.  This is
-// orion_tpu's jnp key-switch on the CI ring, which its Pallas kernels
-// refuse (ks_pallas.py ks_supported).
+// On the ConjugateInvariant ring (ci_pos non-null) rows hold n residues
+// and the transforms run at N = 2n through the map of modarith.cuh, every
+// row split over a thread-block cluster (cluster_ntt.cuh: 8 CTAs per row
+// at a lift of 2^13 or 2^14, where one block per row left most of the 132
+// SMs idle):
+//   launch A: ntt_inv_cluster, one cluster per Q row of each poly,
+//             gathering through ci_src and keeping n coefficients;
+//   launch B: fbc_ntt_digits_ci, one cluster per (target row, digit,
+//             poly): each of the n coefficients is converted once, in the
+//             CTA whose slab holds it, and its mirror in the 2n lift is
+//             the negation of that conversion (ntt_fwd_lift), never a
+//             conversion of mirrored residues, whose float32 v-correction
+//             could round otherwise; the store goes through ci_pos.
+// This is orion_tpu's jnp key-switch on the CI ring, which its Pallas
+// kernels refuse (ks_pallas.py ks_supported).
 //
 // Table layouts (all contiguous int64 except srcq, float32):
 //   dig_lo, dig_alpha (dnum); qi, qi_sh, srcp, srcq (dnum, amax);
 //   conv, conv_sh (dnum, amax, n_t); dmod, dmod_sh (dnum, n_t);
 //   t_* are the target rows' tables (Q rows 0..nl-1 first, then specials),
-//   t_twp / t_itwp packed as modarith.cuh describes.
+//   t_twp / t_itwp packed as modarith.cuh describes (the core's order), on
+//   the CI ring in the split's order (cluster_ntt.cuh).
 
-#include "modarith.cuh"
+#include "cluster_ntt.cuh"
 
 using namespace orion;
 
-template <int LOGN, bool CI>
+template <int LOGN>
 __global__ void __launch_bounds__(Ring<LOGN>::T) fbc_ntt_digits(
         int64_t* ext, const int64_t* coeff, int nl, int n_t, int dnum,
         int amax, const int64_t* dig_lo, const int64_t* dig_alpha,
         const int64_t* qi, const int64_t* qi_sh, const int64_t* srcp,
         const float* srcq, const int64_t* conv, const int64_t* conv_sh,
         const int64_t* dmod, const int64_t* dmod_sh, const int64_t* t_p,
-        const int64_t* t_twp, const int64_t* ci_pos) {
+        const int64_t* t_twp) {
     extern __shared__ uint32_t s[];
     constexpr int N = Ring<LOGN>::N;
-    constexpr int W = row_width<LOGN, CI>();
     const int t = blockIdx.x;
+    const int d = blockIdx.y;
+    const int64_t b = blockIdx.z;
+    const uint32_t pt = (uint32_t)t_p[t];
+    const int alpha = (int)dig_alpha[d];
+    const int64_t* z = coeff + (b * nl + dig_lo[d]) * N;
+    const int64_t dg = (int64_t)d * amax;
+    const int64_t* cv = conv + dg * n_t + t;
+    const int64_t* cv_sh = conv_sh + dg * n_t + t;
+    const uint32_t dm = (uint32_t)dmod[(int64_t)d * n_t + t];
+    const uint32_t dm_sh = (uint32_t)dmod_sh[(int64_t)d * n_t + t];
+    int64_t* dst = ext + ((b * dnum + d) * n_t + t) * N;
+    ntt_fwd_row<LOGN>(
+        s, t_twp + (int64_t)t * N, pt,
+        [&](int i) {
+            return fbc_one(z + i, N, alpha, qi + dg, qi_sh + dg, srcp + dg,
+                           srcq + dg, cv, cv_sh, n_t, dm, dm_sh, pt);
+        },
+        [&](int i, uint32_t v) { dst[i] = v; });
+}
+
+// The CI form of fbc_ntt_digits: cluster (x / C, y, z) = (target row t,
+// digit d, poly b), rows of W = N / 2 residues, the transform on their
+// lift with each coefficient converted once.
+template <int LOGN>
+__global__ void __launch_bounds__(Split<LOGN>::T) fbc_ntt_digits_ci(
+        int64_t* ext, const int64_t* coeff, int nl, int n_t, int dnum,
+        int amax, const int64_t* dig_lo, const int64_t* dig_alpha,
+        const int64_t* qi, const int64_t* qi_sh, const int64_t* srcp,
+        const float* srcq, const int64_t* conv, const int64_t* conv_sh,
+        const int64_t* dmod, const int64_t* dmod_sh, const int64_t* t_p,
+        const int64_t* t_twc, const int64_t* ci_pos) {
+    extern __shared__ uint32_t s[];
+    constexpr int N = 1 << LOGN;
+    constexpr int W = N / 2;
+    const int t = blockIdx.x / Split<LOGN>::C;
     const int d = blockIdx.y;
     const int64_t b = blockIdx.z;
     const uint32_t pt = (uint32_t)t_p[t];
@@ -70,19 +111,14 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) fbc_ntt_digits(
     const uint32_t dm = (uint32_t)dmod[(int64_t)d * n_t + t];
     const uint32_t dm_sh = (uint32_t)dmod_sh[(int64_t)d * n_t + t];
     int64_t* dst = ext + ((b * dnum + d) * n_t + t) * W;
-    ntt_fwd_row<LOGN>(
-        s, t_twp + (int64_t)t * N, pt,
-        [&](int i) {
-            return lift_at<CI>(
-                [&](int k) {
-                    return fbc_one(z + k, W, alpha, qi + dg, qi_sh + dg,
-                                   srcp + dg, srcq + dg, cv, cv_sh, n_t, dm,
-                                   dm_sh, pt);
-                },
-                i, W, pt);
+    ntt_fwd_lift<LOGN>(
+        s, t_twc + (int64_t)t * N, pt,
+        [&](int k) {
+            return fbc_one(z + k, W, alpha, qi + dg, qi_sh + dg, srcp + dg,
+                           srcq + dg, cv, cv_sh, n_t, dm, dm_sh, pt);
         },
         [&](int i, uint32_t v) {
-            keep_at<CI>(ci_pos, i, [&](int k) { dst[k] = v; });
+            keep_at<true>(ci_pos, i, [&](int k) { dst[k] = v; });
         });
 }
 
@@ -90,25 +126,23 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) fbc_ntt_digits(
 // whose tables are given, from coefficients (B, nl, N) in hand.  With a
 // row block's tables (n_t its row count) this is a limb-sharded
 // key-switch's conversion onto one rank's rows (parallel/limbshard.py).
-template <int LOGN, bool CI>
+template <int LOGN>
 static cudaError_t convert_grid(
         int64_t* ext, const int64_t* coeff, int batch, int nl, int n_t,
         int dnum, int amax, const int64_t* dig_lo, const int64_t* dig_alpha,
         const int64_t* qi, const int64_t* qi_sh, const int64_t* srcp,
         const float* srcq, const int64_t* conv, const int64_t* conv_sh,
         const int64_t* dmod, const int64_t* dmod_sh, const int64_t* t_p,
-        const int64_t* t_twp, const int64_t* ci_pos, cudaStream_t st) {
+        const int64_t* t_twp, cudaStream_t st) {
     using RG = Ring<LOGN>;
-    cudaError_t e = allow_smem(fbc_ntt_digits<LOGN, CI>, RG::SMEM);
+    cudaError_t e = allow_smem(fbc_ntt_digits<LOGN>, RG::SMEM);
     if (e != cudaSuccess) return e;
-    fbc_ntt_digits<LOGN, CI><<<dim3(n_t, dnum, batch), RG::T, RG::SMEM,
-                               st>>>(
+    fbc_ntt_digits<LOGN><<<dim3(n_t, dnum, batch), RG::T, RG::SMEM, st>>>(
         ext, coeff, nl, n_t, dnum, amax, dig_lo, dig_alpha, qi, qi_sh, srcp,
-        srcq, conv, conv_sh, dmod, dmod_sh, t_p, t_twp, ci_pos);
+        srcq, conv, conv_sh, dmod, dmod_sh, t_p, t_twp);
     return cudaGetLastError();
 }
 
-template <bool CI>
 static int decompose_launch(
         int64_t* ext, int64_t* coeff, const int64_t* c, int batch, int nl,
         int n_t, int dnum, int amax, int logn, const int64_t* dig_lo,
@@ -116,24 +150,60 @@ static int decompose_launch(
         const int64_t* srcp, const float* srcq, const int64_t* conv,
         const int64_t* conv_sh, const int64_t* dmod, const int64_t* dmod_sh,
         const int64_t* t_p, const int64_t* t_twp, const int64_t* t_itwp,
+        const int64_t* t_ninv, const int64_t* t_ninv_sh, cudaStream_t st) {
+    return (int)with_logn(logn, [&](auto cst) {
+        constexpr int LOGN = decltype(cst)::value;
+        using RG = Ring<LOGN>;
+        cudaError_t e = allow_smem(ntt_inv_rows<LOGN>, RG::SMEM);
+        if (e != cudaSuccess) return e;
+        // A: the Q rows are the first nl rows of the target tables
+        ntt_inv_rows<LOGN><<<dim3(nl, batch), RG::T, RG::SMEM, st>>>(
+            coeff, c, nl, t_p, t_itwp, t_ninv, t_ninv_sh);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return e;
+        // B
+        return convert_grid<LOGN>(
+            ext, coeff, batch, nl, n_t, dnum, amax, dig_lo, dig_alpha, qi,
+            qi_sh, srcp, srcq, conv, conv_sh, dmod, dmod_sh, t_p, t_twp, st);
+    });
+}
+
+// The CI form: t_twc / t_itwc packed in the split's order.
+static int decompose_ci_launch(
+        int64_t* ext, int64_t* coeff, const int64_t* c, int batch, int nl,
+        int n_t, int dnum, int amax, int logn, const int64_t* dig_lo,
+        const int64_t* dig_alpha, const int64_t* qi, const int64_t* qi_sh,
+        const int64_t* srcp, const float* srcq, const int64_t* conv,
+        const int64_t* conv_sh, const int64_t* dmod, const int64_t* dmod_sh,
+        const int64_t* t_p, const int64_t* t_twc, const int64_t* t_itwc,
         const int64_t* t_ninv, const int64_t* t_ninv_sh,
         const int64_t* ci_src, const int64_t* ci_pos, cudaStream_t st) {
     return (int)with_logn(logn, [&](auto cst) {
         constexpr int LOGN = decltype(cst)::value;
-        using RG = Ring<LOGN>;
-        cudaError_t e = allow_smem(ntt_inv_rows<LOGN, CI>, RG::SMEM);
-        if (e != cudaSuccess) return e;
-        // A: the Q rows are the first nl rows of the target tables
-        ntt_inv_rows<LOGN, CI><<<dim3(nl, batch), RG::T, RG::SMEM, st>>>(
-            coeff, c, nl, t_p, t_itwp, t_ninv, t_ninv_sh, ci_src);
-        e = cudaGetLastError();
+        using SP = Split<LOGN>;
+        // A: cluster b * nl + i transforms Q row i of poly b
+        cudaError_t e = launch_split<LOGN>(
+            ntt_inv_cluster<LOGN, true>, (int64_t)batch * nl, SP::SMEM_INV,
+            st, coeff, c, nl, t_p, t_itwc, t_ninv, t_ninv_sh, ci_src);
         if (e != cudaSuccess) return e;
         // B
-        return convert_grid<LOGN, CI>(
-            ext, coeff, batch, nl, n_t, dnum, amax, dig_lo, dig_alpha, qi,
-            qi_sh, srcp, srcq, conv, conv_sh, dmod, dmod_sh, t_p, t_twp,
-            ci_pos, st);
+        return launch_split_grid<LOGN>(
+            fbc_ntt_digits_ci<LOGN>, n_t, dnum, batch, SP::SMEM_LIFT, st,
+            ext, coeff, nl, n_t, dnum, amax, dig_lo,
+            dig_alpha, qi, qi_sh, srcp, srcq, conv, conv_sh, dmod, dmod_sh,
+            t_p, t_twc, ci_pos);
     });
+}
+
+// CTAs per row of the CI form's kernels at a transform of 2^logn (-1:
+// no such size).
+extern "C" int orion_ks_decompose_ci_ctas(int logn) {
+    int c = -1;
+    with_logn(logn, [&](auto k) {
+        c = Split<decltype(k)::value>::C;
+        return cudaSuccess;
+    });
+    return c;
 }
 
 // ci_src, ci_pos: the CI ring's map (logn then the lift's), or both null.
@@ -146,12 +216,16 @@ extern "C" int orion_ks_decompose(
         const int64_t* t_p, const int64_t* t_twp, const int64_t* t_itwp,
         const int64_t* t_ninv, const int64_t* t_ninv_sh,
         const int64_t* ci_src, const int64_t* ci_pos, void* stream) {
-    auto launch = ci_pos != nullptr ? decompose_launch<true>
-                                    : decompose_launch<false>;
-    return launch(ext, coeff, c, batch, nl, n_t, dnum, amax, logn, dig_lo,
-                  dig_alpha, qi, qi_sh, srcp, srcq, conv, conv_sh, dmod,
-                  dmod_sh, t_p, t_twp, t_itwp, t_ninv, t_ninv_sh, ci_src,
-                  ci_pos, (cudaStream_t)stream);
+    if (ci_pos != nullptr)
+        return decompose_ci_launch(
+            ext, coeff, c, batch, nl, n_t, dnum, amax, logn, dig_lo,
+            dig_alpha, qi, qi_sh, srcp, srcq, conv, conv_sh, dmod, dmod_sh,
+            t_p, t_twp, t_itwp, t_ninv, t_ninv_sh, ci_src, ci_pos,
+            (cudaStream_t)stream);
+    return decompose_launch(ext, coeff, c, batch, nl, n_t, dnum, amax, logn,
+                            dig_lo, dig_alpha, qi, qi_sh, srcp, srcq, conv,
+                            conv_sh, dmod, dmod_sh, t_p, t_twp, t_itwp,
+                            t_ninv, t_ninv_sh, (cudaStream_t)stream);
 }
 
 // Launch B of orion_ks_decompose alone, standard ring only: ext (batch,
@@ -167,9 +241,9 @@ extern "C" int orion_ks_convert(
         const int64_t* t_p, const int64_t* t_twp, void* stream) {
     return (int)with_logn(logn, [&](auto cst) {
         constexpr int LOGN = decltype(cst)::value;
-        return convert_grid<LOGN, false>(
+        return convert_grid<LOGN>(
             ext, coeff, batch, nl, n_t, dnum, amax, dig_lo, dig_alpha, qi,
             qi_sh, srcp, srcq, conv, conv_sh, dmod, dmod_sh, t_p, t_twp,
-            nullptr, (cudaStream_t)stream);
+            (cudaStream_t)stream);
     });
 }

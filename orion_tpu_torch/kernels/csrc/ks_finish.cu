@@ -38,16 +38,25 @@
 // the other poly finds it in L2.  The work buffer (K, 2, n_t, N) makes one
 // round trip.  Everything else stays in registers and shared memory.
 
-// On the ConjugateInvariant ring (CI = true, ci_pos non-null) rows hold n
-// residues and the transforms run at N = 2n through the map of
-// modarith.cuh: launch A's inner product covers the n positions, and a
-// special row's result goes to a second shared buffer, from which the 2n
-// inverse gathers (through ci_src) and keeps n coefficients; launch B
-// converts those n coefficients, lifts the results into the 2n transform
-// and stores through ci_pos.  This is orion_tpu's jnp key-switch on the
-// CI ring, which its Pallas kernels refuse (ks_pallas.py ks_supported).
+// On the ConjugateInvariant ring (ci_pos non-null) rows hold n residues
+// and the transforms run at N = 2n through the map of modarith.cuh, every
+// row split over a thread-block cluster of C CTAs (cluster_ntt.cuh: 8 at a
+// lift of 2^13 or 2^14, where one block per row left most SMs idle):
+//   launch A: ks_inner_intt_ci, one cluster per (t, q, k), CTA c taking
+//             slots [c n / C, (c + 1) n / C) of the inner product; a
+//             special row's product at a slot goes straight to the two
+//             inputs of the cluster's 2n inverse that hold it, in the
+//             shared memory of the CTAs that transform them (distributed
+//             shared memory), with no trip to device memory; the inverse
+//             keeps n coefficients;
+//   launch B: moddown_rows_ci, one cluster per (i, q, k): the forward on
+//             the lift of the n converted coefficients, each converted
+//             once (ntt_fwd_lift), stored through ci_pos.
+// t_twp / t_itwp come packed in the split's order there.  This is
+// orion_tpu's jnp key-switch on the CI ring, which its Pallas kernels
+// refuse (ks_pallas.py ks_supported).
 
-#include "modarith.cuh"
+#include "cluster_ntt.cuh"
 
 using namespace orion;
 
@@ -55,15 +64,39 @@ __device__ __forceinline__ longlong2 ld2(const int64_t* p) {
     return __ldg(reinterpret_cast<const longlong2*>(p));
 }
 
-// Shared memory of ks_inner_intt: the transform's, and on the CI ring a
-// second buffer of the n inner products its inverse gathers from.
-template <int LOGN, bool CI>
-constexpr size_t inner_smem() {
-    return Ring<LOGN>::SMEM
-           + (CI ? sizeof(uint32_t) * row_width<LOGN, CI>() : 0);
+// Positions i and i + 1 of one row's key inner product mod p: sum over the
+// dnum digits j of e[j e_dig] * key[j k_dig] (e and key at position i),
+// the key with its Shoup companions ksh, or lean (ksh null: a Montgomery
+// lift).  16-byte loads, the digit loop unrolled so that many are in
+// flight.
+__device__ __forceinline__ void inner_pair(
+        uint32_t& a0, uint32_t& a1, const int64_t* e, int64_t e_dig,
+        const int64_t* key, const int64_t* ksh, int64_t k_dig, int dnum,
+        uint32_t p, uint32_t pinv, uint32_t rm, uint32_t rsh) {
+    a0 = a1 = 0;
+#pragma unroll 4
+    for (int j = 0; j < dnum; ++j) {
+        const longlong2 ev = ld2(e + j * e_dig);
+        const longlong2 kv = ld2(key + j * k_dig);
+        uint32_t t0, t1;
+        if (ksh == nullptr) {
+            t0 = mont_mul((uint32_t)ev.x,
+                          shoup_mul((uint32_t)kv.x, rm, rsh, p), p, pinv);
+            t1 = mont_mul((uint32_t)ev.y,
+                          shoup_mul((uint32_t)kv.y, rm, rsh, p), p, pinv);
+        } else {
+            const longlong2 sv = ld2(ksh + j * k_dig);
+            t0 = shoup_mul((uint32_t)ev.x, (uint32_t)kv.x, (uint32_t)sv.x,
+                           p);
+            t1 = shoup_mul((uint32_t)ev.y, (uint32_t)kv.y, (uint32_t)sv.y,
+                           p);
+        }
+        a0 = add_mod(a0, t0, p);
+        a1 = add_mod(a1, t1, p);
+    }
 }
 
-template <int LOGN, bool CI>
+template <int LOGN>
 __global__ void __launch_bounds__(Ring<LOGN>::T) ks_inner_intt(
         int64_t* __restrict__ work, const int64_t* __restrict__ ext,
         int ext_item, int ext_count, const int64_t* __restrict__ ksk,
@@ -71,14 +104,10 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) ks_inner_intt(
         int kdig, int krows, const int64_t* row_map, int nl, int n_t,
         int dnum, int moddown, const int64_t* t_p, const int64_t* t_pinv,
         const int64_t* t_rmod, const int64_t* t_rsh, const int64_t* t_itwp,
-        const int64_t* t_ninv, const int64_t* t_ninv_sh,
-        const int64_t* ci_src) {
+        const int64_t* t_ninv, const int64_t* t_ninv_sh) {
     extern __shared__ uint32_t s[];
     using RG = Ring<LOGN>;
     constexpr int N = RG::N;
-    constexpr int W = row_width<LOGN, CI>();
-    // the CI inner products, apart from the buffer the passes write
-    uint32_t* acc = CI ? s + RG::SMEM / sizeof(uint32_t) : s;
     const int t = blockIdx.x;
     const int q = blockIdx.y;
     const int64_t k = blockIdx.z;
@@ -88,41 +117,22 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) ks_inner_intt(
     const uint32_t rm = (uint32_t)t_rmod[t];
     const uint32_t rsh = (uint32_t)t_rsh[t];
     const bool special = moddown && t >= nl;
-    const int64_t* e_row = ext + (k % ext_count) * ext_item + (int64_t)t * W;
-    const int64_t e_dig = (int64_t)n_t * W;
-    const int64_t k_off = key_idx[k] * ((int64_t)kdig * 2 * krows * W)
-                          + ((int64_t)q * krows + row_map[t]) * W;
-    const int64_t k_dig = (int64_t)2 * krows * W;
-    int64_t* dst = work + ((k * 2 + q) * n_t + t) * W;
+    const int64_t* e_row = ext + (k % ext_count) * ext_item + (int64_t)t * N;
+    const int64_t e_dig = (int64_t)n_t * N;
+    const int64_t k_off = key_idx[k] * ((int64_t)kdig * 2 * krows * N)
+                          + ((int64_t)q * krows + row_map[t]) * N;
+    const int64_t k_dig = (int64_t)2 * krows * N;
+    int64_t* dst = work + ((k * 2 + q) * n_t + t) * N;
 #pragma unroll
-    for (int r = 0; r < RG::R * W / N / 2; ++r) {
+    for (int r = 0; r < RG::R / 2; ++r) {
         const int i = 2 * ((int)threadIdx.x + r * RG::T);
-        uint32_t a0 = 0, a1 = 0;
-#pragma unroll 4
-        for (int j = 0; j < dnum; ++j) {
-            const longlong2 e = ld2(e_row + j * e_dig + i);
-            const longlong2 kv = ld2(ksk + k_off + j * k_dig + i);
-            uint32_t t0, t1;
-            if (lean) {
-                t0 = mont_mul((uint32_t)e.x,
-                              shoup_mul((uint32_t)kv.x, rm, rsh, p), p,
-                              pinv);
-                t1 = mont_mul((uint32_t)e.y,
-                              shoup_mul((uint32_t)kv.y, rm, rsh, p), p,
-                              pinv);
-            } else {
-                const longlong2 sv = ld2(ksk_sh + k_off + j * k_dig + i);
-                t0 = shoup_mul((uint32_t)e.x, (uint32_t)kv.x,
-                               (uint32_t)sv.x, p);
-                t1 = shoup_mul((uint32_t)e.y, (uint32_t)kv.y,
-                               (uint32_t)sv.y, p);
-            }
-            a0 = add_mod(a0, t0, p);
-            a1 = add_mod(a1, t1, p);
-        }
+        uint32_t a0, a1;
+        inner_pair(a0, a1, e_row + i, e_dig, ksk + k_off + i,
+                   lean ? nullptr : ksk_sh + k_off + i, k_dig, dnum, p,
+                   pinv, rm, rsh);
         if (special) {
-            acc[CI ? i : pad(i)] = a0;
-            acc[CI ? i + 1 : pad(i + 1)] = a1;
+            s[pad(i)] = a0;
+            s[pad(i + 1)] = a1;
         } else {
             *reinterpret_cast<longlong2*>(dst + i) =
                 make_longlong2((long long)a0, (long long)a1);
@@ -133,28 +143,143 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) ks_inner_intt(
     const uint32_t nv = (uint32_t)t_ninv[t];
     const uint32_t nv_sh = (uint32_t)t_ninv_sh[t];
     ntt_inv_row<LOGN>(
-        s, t_itwp + (int64_t)t * N, p,
-        [&](int i) {
-            return CI ? acc[gather_at<CI>(ci_src, i)] : s[pad(i)];
-        },
+        s, t_itwp + (int64_t)t * N, p, [&](int i) { return s[pad(i)]; },
+        [&](int i, uint32_t v) { dst[i] = shoup_mul(v, nv, nv_sh, p); });
+}
+
+// The CI form of ks_inner_intt: cluster (x / C, y, z) = (t, q, k), rows
+// of W = N / 2 residues; CTA c computes slots [c SEG, (c + 1) SEG), SEG =
+// W / C.  A special row's product at slot j feeds the two inputs of the
+// 2n inverse that hold it, keep(j) and N - 1 - keep(j) (ci_keep_pos): the
+// CTA stores it straight into the shared memory of the CTAs whose sub-rows
+// hold them, and the inverse reads its sub-row from its own memory.
+template <int LOGN>
+__global__ void __launch_bounds__(Split<LOGN>::T) ks_inner_intt_ci(
+        int64_t* __restrict__ work, const int64_t* __restrict__ ext,
+        int ext_item, int ext_count, const int64_t* __restrict__ ksk,
+        const int64_t* __restrict__ ksk_sh, const int64_t* key_idx,
+        int kdig, int krows, const int64_t* row_map, int nl, int n_t,
+        int dnum, int moddown, const int64_t* t_p, const int64_t* t_pinv,
+        const int64_t* t_rmod, const int64_t* t_rsh, const int64_t* t_itwc,
+        const int64_t* t_ninv, const int64_t* t_ninv_sh) {
+    extern __shared__ uint32_t s[];
+    using SP = Split<LOGN>;
+    constexpr int N = 1 << LOGN;
+    constexpr int W = N / 2;
+    constexpr int SEG = W / SP::C;
+    constexpr int IT = SEG / (2 * SP::T);
+    static_assert(IT * 2 * SP::T == SEG, "slots must split evenly");
+    const int t = blockIdx.x / SP::C;
+    const int lo = (int)(blockIdx.x % SP::C) * SEG;
+    const int q = blockIdx.y;
+    const int64_t k = blockIdx.z;
+    const uint32_t p = (uint32_t)t_p[t];
+    const bool lean = ksk_sh == nullptr;
+    const uint32_t pinv = (uint32_t)t_pinv[t];
+    const uint32_t rm = (uint32_t)t_rmod[t];
+    const uint32_t rsh = (uint32_t)t_rsh[t];
+    const bool special = moddown && t >= nl;  // uniform per cluster
+    if constexpr (SP::C > 1)
+        if (special) cluster_arrive_relaxed();
+    const int64_t* e_row = ext + (k % ext_count) * ext_item + (int64_t)t * W;
+    const int64_t e_dig = (int64_t)n_t * W;
+    const int64_t k_off = key_idx[k] * ((int64_t)kdig * 2 * krows * W)
+                          + ((int64_t)q * krows + row_map[t]) * W;
+    const int64_t k_dig = (int64_t)2 * krows * W;
+    int64_t* dst = work + ((k * 2 + q) * n_t + t) * W;
+    uint32_t a[IT][2];
+#pragma unroll
+    for (int r = 0; r < IT; ++r) {
+        const int i = lo + 2 * ((int)threadIdx.x + r * SP::T);
+        inner_pair(a[r][0], a[r][1], e_row + i, e_dig, ksk + k_off + i,
+                   lean ? nullptr : ksk_sh + k_off + i, k_dig, dnum, p,
+                   pinv, rm, rsh);
+        if (!special)
+            *reinterpret_cast<longlong2*>(dst + i) =
+                make_longlong2((long long)a[r][0], (long long)a[r][1]);
+    }
+    if (!special) return;
+    // input g of the inverse lives in CTA g / M at g % M
+    auto put = [&](int g, uint32_t v) {
+        uint32_t* at = s + pad(g & (SP::M - 1));
+        if constexpr (SP::C == 1) *at = v;
+        else *cg::this_cluster().map_shared_rank(at, g >> SP::LOGM) = v;
+    };
+    if constexpr (SP::C > 1) cluster_wait();  // every CTA has started
+#pragma unroll
+    for (int r = 0; r < IT; ++r) {
+        const int j = lo + 2 * ((int)threadIdx.x + r * SP::T);
+        uint32_t w = pow5_mod2n<LOGN>(j);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int g = ci_keep_pos<LOGN>(w);
+            put(g, a[r][h]);
+            put(N - 1 - g, a[r][h]);
+            w = (w * 5u) & ((2u << LOGN) - 1);  // slot j + 1
+        }
+    }
+    // (with a cluster, ntt_inv_split's first barrier orders the stores)
+    if constexpr (SP::C == 1) __syncthreads();
+    const uint32_t nv = (uint32_t)t_ninv[t];
+    const uint32_t nv_sh = (uint32_t)t_ninv_sh[t];
+    ntt_inv_split<LOGN>(
+        s, t_itwc + (int64_t)t * N, p,
+        [&](int g) { return s[pad(g & (SP::M - 1))]; },
         [&](int i, uint32_t v) {
-            if (!CI || i < W) dst[i] = shoup_mul(v, nv, nv_sh, p);
+            if (i < W) dst[i] = shoup_mul(v, nv, nv_sh, p);
         });
 }
 
-template <int LOGN, bool CI>
+template <int LOGN>
 __global__ void __launch_bounds__(Ring<LOGN>::T) moddown_rows(
         int64_t* out, const int64_t* work, int nl, int n_t, int n_sp,
         const int64_t* md_qi, const int64_t* md_qi_sh,
         const int64_t* md_srcp, const float* md_srcq, const int64_t* md_conv,
         const int64_t* md_conv_sh, const int64_t* md_dmod,
         const int64_t* md_dmod_sh, const int64_t* pinv_q,
-        const int64_t* pinv_q_sh, const int64_t* t_p, const int64_t* t_twp,
-        const int64_t* ci_pos) {
+        const int64_t* pinv_q_sh, const int64_t* t_p, const int64_t* t_twp) {
     extern __shared__ uint32_t s[];
     constexpr int N = Ring<LOGN>::N;
-    constexpr int W = row_width<LOGN, CI>();
     const int i = blockIdx.x;
+    const int q = blockIdx.y;
+    const int64_t k = blockIdx.z;
+    const uint32_t p = (uint32_t)t_p[i];
+    const int64_t* poly = work + (k * 2 + q) * n_t * N;
+    const int64_t* sp = poly + (int64_t)nl * N;
+    const int64_t* qrow = poly + (int64_t)i * N;
+    int64_t* dst = out + ((k * 2 + q) * nl + i) * N;
+    const uint32_t dm = (uint32_t)md_dmod[i];
+    const uint32_t dm_sh = (uint32_t)md_dmod_sh[i];
+    const uint32_t pv = (uint32_t)pinv_q[i];
+    const uint32_t pv_sh = (uint32_t)pinv_q_sh[i];
+    ntt_fwd_row<LOGN>(
+        s, t_twp + (int64_t)i * N, p,
+        [&](int c) {
+            return fbc_one(sp + c, N, n_sp, md_qi, md_qi_sh, md_srcp,
+                           md_srcq, md_conv + i, md_conv_sh + i, nl, dm,
+                           dm_sh, p);
+        },
+        [&](int c, uint32_t v) {
+            dst[c] = shoup_mul(sub_mod((uint32_t)qrow[c], v, p), pv, pv_sh,
+                               p);
+        });
+}
+
+// The CI form of moddown_rows: cluster (x / C, y, z) = (i, q, k), rows of
+// W = N / 2 residues, each special-row coefficient converted once.
+template <int LOGN>
+__global__ void __launch_bounds__(Split<LOGN>::T) moddown_rows_ci(
+        int64_t* out, const int64_t* work, int nl, int n_t, int n_sp,
+        const int64_t* md_qi, const int64_t* md_qi_sh,
+        const int64_t* md_srcp, const float* md_srcq, const int64_t* md_conv,
+        const int64_t* md_conv_sh, const int64_t* md_dmod,
+        const int64_t* md_dmod_sh, const int64_t* pinv_q,
+        const int64_t* pinv_q_sh, const int64_t* t_p, const int64_t* t_twc,
+        const int64_t* ci_pos) {
+    extern __shared__ uint32_t s[];
+    constexpr int N = 1 << LOGN;
+    constexpr int W = N / 2;
+    const int i = blockIdx.x / Split<LOGN>::C;
     const int q = blockIdx.y;
     const int64_t k = blockIdx.z;
     const uint32_t p = (uint32_t)t_p[i];
@@ -166,19 +291,15 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) moddown_rows(
     const uint32_t dm_sh = (uint32_t)md_dmod_sh[i];
     const uint32_t pv = (uint32_t)pinv_q[i];
     const uint32_t pv_sh = (uint32_t)pinv_q_sh[i];
-    ntt_fwd_row<LOGN>(
-        s, t_twp + (int64_t)i * N, p,
-        [&](int c) {
-            return lift_at<CI>(
-                [&](int m) {
-                    return fbc_one(sp + m, W, n_sp, md_qi, md_qi_sh,
-                                   md_srcp, md_srcq, md_conv + i,
-                                   md_conv_sh + i, nl, dm, dm_sh, p);
-                },
-                c, W, p);
+    ntt_fwd_lift<LOGN>(
+        s, t_twc + (int64_t)i * N, p,
+        [&](int m) {
+            return fbc_one(sp + m, W, n_sp, md_qi, md_qi_sh, md_srcp,
+                           md_srcq, md_conv + i, md_conv_sh + i, nl, dm,
+                           dm_sh, p);
         },
-        [&](int c, uint32_t v) {
-            keep_at<CI>(ci_pos, c, [&](int m) {
+        [&](int g, uint32_t v) {
+            keep_at<true>(ci_pos, g, [&](int m) {
                 dst[m] = shoup_mul(sub_mod((uint32_t)qrow[m], v, p), pv,
                                    pv_sh, p);
             });
@@ -188,7 +309,7 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) moddown_rows(
 // Launch A: grid (n_t, 2, K).  Rows t >= nl get their inverse NTT when
 // moddown is set (the special rows: with a row block's tables, nl is the
 // block's first special row).
-template <int LOGN, bool CI>
+template <int LOGN>
 static cudaError_t inner_grid(
         int64_t* work, const int64_t* ext, int ext_item, int ext_count,
         const int64_t* ksk, const int64_t* ksk_sh, const int64_t* key_idx,
@@ -196,21 +317,20 @@ static cudaError_t inner_grid(
         int n_t, int dnum, int moddown, const int64_t* t_p,
         const int64_t* t_pinv, const int64_t* t_rmod, const int64_t* t_rsh,
         const int64_t* t_itwp, const int64_t* t_ninv,
-        const int64_t* t_ninv_sh, const int64_t* ci_src, cudaStream_t st) {
-    constexpr size_t smem_a = inner_smem<LOGN, CI>();
-    cudaError_t e = allow_smem(ks_inner_intt<LOGN, CI>, smem_a);
+        const int64_t* t_ninv_sh, cudaStream_t st) {
+    using RG = Ring<LOGN>;
+    cudaError_t e = allow_smem(ks_inner_intt<LOGN>, RG::SMEM);
     if (e != cudaSuccess) return e;
-    ks_inner_intt<LOGN, CI><<<dim3(n_t, 2, items), Ring<LOGN>::T, smem_a,
-                              st>>>(
+    ks_inner_intt<LOGN><<<dim3(n_t, 2, items), RG::T, RG::SMEM, st>>>(
         work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx, kdig, krows,
         row_map, nl, n_t, dnum, moddown, t_p, t_pinv, t_rmod, t_rsh, t_itwp,
-        t_ninv, t_ninv_sh, ci_src);
+        t_ninv, t_ninv_sh);
     return cudaGetLastError();
 }
 
 // Launch B: grid (nl, 2, K) over work (K, 2, n_t, N), whose rows nl.. are
 // the special rows in the coefficient domain.
-template <int LOGN, bool CI>
+template <int LOGN>
 static cudaError_t moddown_grid(
         int64_t* out, const int64_t* work, int items, int nl, int n_t,
         const int64_t* md_qi, const int64_t* md_qi_sh,
@@ -218,17 +338,20 @@ static cudaError_t moddown_grid(
         const int64_t* md_conv, const int64_t* md_conv_sh,
         const int64_t* md_dmod, const int64_t* md_dmod_sh,
         const int64_t* pinv_q, const int64_t* pinv_q_sh, const int64_t* t_p,
-        const int64_t* t_twp, const int64_t* ci_pos, cudaStream_t st) {
+        const int64_t* t_twp, cudaStream_t st) {
     using RG = Ring<LOGN>;
-    cudaError_t e = allow_smem(moddown_rows<LOGN, CI>, RG::SMEM);
+    cudaError_t e = allow_smem(moddown_rows<LOGN>, RG::SMEM);
     if (e != cudaSuccess) return e;
-    moddown_rows<LOGN, CI><<<dim3(nl, 2, items), RG::T, RG::SMEM, st>>>(
+    moddown_rows<LOGN><<<dim3(nl, 2, items), RG::T, RG::SMEM, st>>>(
         out, work, nl, n_t, n_t - nl, md_qi, md_qi_sh, md_srcp, md_srcq,
         md_conv, md_conv_sh, md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, t_p,
-        t_twp, ci_pos);
+        t_twp);
     return cudaGetLastError();
 }
 
+// The launch pair of orion_ks_finish, standard ring (CI = false) or, with
+// the map, the CI ring's cluster kernels (t_twp / t_itwp in the split's
+// order).
 template <bool CI>
 static int finish_launch(
         int64_t* out, int64_t* work, const int64_t* ext, int ext_item,
@@ -243,23 +366,50 @@ static int finish_launch(
         const float* md_srcq, const int64_t* md_conv,
         const int64_t* md_conv_sh, const int64_t* md_dmod,
         const int64_t* md_dmod_sh, const int64_t* pinv_q,
-        const int64_t* pinv_q_sh, const int64_t* ci_src,
-        const int64_t* ci_pos, cudaStream_t st) {
+        const int64_t* pinv_q_sh, const int64_t* ci_pos, cudaStream_t st) {
     return (int)with_logn(logn, [&](auto c) {
         constexpr int LOGN = decltype(c)::value;
-        cudaError_t e = inner_grid<LOGN, CI>(
-            work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx, row_map,
-            items, kdig, krows, nl, n_t, dnum, moddown, t_p, t_pinv, t_rmod,
-            t_rsh, t_itwp, t_ninv, t_ninv_sh, ci_src, st);
+        cudaError_t e;
+        if constexpr (CI)
+            e = launch_split_grid<LOGN>(
+                ks_inner_intt_ci<LOGN>, n_t, 2, items, Split<LOGN>::SMEM_INV,
+                st, work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx,
+                kdig, krows, row_map, nl, n_t, dnum, moddown, t_p, t_pinv,
+                t_rmod, t_rsh, t_itwp, t_ninv, t_ninv_sh);
+        else
+            e = inner_grid<LOGN>(
+                work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx,
+                row_map, items, kdig, krows, nl, n_t, dnum, moddown, t_p,
+                t_pinv, t_rmod, t_rsh, t_itwp, t_ninv, t_ninv_sh, st);
         if (e != cudaSuccess || !moddown) return e;
-        return moddown_grid<LOGN, CI>(
-            out, work, items, nl, n_t, md_qi, md_qi_sh, md_srcp, md_srcq,
-            md_conv, md_conv_sh, md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, t_p,
-            t_twp, ci_pos, st);
+        if constexpr (CI)
+            return launch_split_grid<LOGN>(
+                moddown_rows_ci<LOGN>, nl, 2, items, Split<LOGN>::SMEM_LIFT,
+                st, out, work, nl, n_t, n_t - nl, md_qi, md_qi_sh, md_srcp,
+                md_srcq, md_conv, md_conv_sh, md_dmod, md_dmod_sh, pinv_q,
+                pinv_q_sh, t_p, t_twp, ci_pos);
+        else
+            return moddown_grid<LOGN>(
+                out, work, items, nl, n_t, md_qi, md_qi_sh, md_srcp, md_srcq,
+                md_conv, md_conv_sh, md_dmod, md_dmod_sh, pinv_q, pinv_q_sh,
+                t_p, t_twp, st);
     });
 }
 
+// CTAs per row of the CI form's kernels at a transform of 2^logn (-1:
+// no such size).
+extern "C" int orion_ks_finish_ci_ctas(int logn) {
+    int c = -1;
+    with_logn(logn, [&](auto k) {
+        c = Split<decltype(k)::value>::C;
+        return cudaSuccess;
+    });
+    return c;
+}
+
 // ci_src, ci_pos: the CI ring's map (logn then the lift's), or both null.
+// The CI form reads ci_pos; its inverse's gather follows from the map's
+// closed form (modarith.cuh ci_keep_pos), so ci_src is not read.
 extern "C" int orion_ks_finish(
         int64_t* out, int64_t* work, const int64_t* ext, int ext_item,
         int ext_count, const int64_t* ksk, const int64_t* ksk_sh,
@@ -281,7 +431,7 @@ extern "C" int orion_ks_finish(
                   row_map, items, kdig, krows, nl, n_t, dnum, logn, moddown,
                   t_p, t_pinv, t_rmod, t_rsh, t_twp, t_itwp, t_ninv, t_ninv_sh,
                   md_qi, md_qi_sh, md_srcp, md_srcq, md_conv, md_conv_sh,
-                  md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, ci_src, ci_pos,
+                  md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, ci_pos,
                   (cudaStream_t)stream);
 }
 
@@ -302,10 +452,10 @@ extern "C" int orion_ks_inner(
         const int64_t* t_ninv_sh, void* stream) {
     return (int)with_logn(logn, [&](auto c) {
         constexpr int LOGN = decltype(c)::value;
-        return inner_grid<LOGN, false>(
+        return inner_grid<LOGN>(
             work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx, row_map,
             items, kdig, krows, nl, n_t, dnum, moddown, t_p, t_pinv, t_rmod,
-            t_rsh, t_itwp, t_ninv, t_ninv_sh, nullptr, (cudaStream_t)stream);
+            t_rsh, t_itwp, t_ninv, t_ninv_sh, (cudaStream_t)stream);
     });
 }
 
@@ -319,9 +469,9 @@ extern "C" int orion_ks_moddown(
         const int64_t* t_twp, void* stream) {
     return (int)with_logn(logn, [&](auto c) {
         constexpr int LOGN = decltype(c)::value;
-        return moddown_grid<LOGN, false>(
+        return moddown_grid<LOGN>(
             out, work, items, nl, n_t, md_qi, md_qi_sh, md_srcp, md_srcq,
             md_conv, md_conv_sh, md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, t_p,
-            t_twp, nullptr, (cudaStream_t)stream);
+            t_twp, (cudaStream_t)stream);
     });
 }

@@ -293,11 +293,18 @@ __device__ __forceinline__ uint32_t fbc_one(
 //            kept.
 // A kernel instantiated with CI = true applies the map in its load and
 // store functors; the standard ring's kernels (CI = false) are unchanged.
+// The key-switch kernels' CI forms convert each coefficient once and form
+// its mirror by negation (cluster_ntt.cuh `ntt_fwd_lift`).
 
 // Stored residues per row: N, or n = N / 2 on the CI ring.
 template <int LOGN, bool CI>
 __host__ __device__ constexpr int row_width() {
     return CI ? (1 << LOGN) / 2 : 1 << LOGN;
+}
+
+// -t mod p, 0 staying 0: the lift's mirror of a residue t < p.
+__device__ __forceinline__ uint32_t neg_mod(uint32_t t, uint32_t p) {
+    return t == 0u ? 0u : p - t;
 }
 
 // Input i of the forward transform: at(i) on the standard ring, the
@@ -308,8 +315,7 @@ __device__ __forceinline__ uint32_t lift_at(At at, int i, int n,
     if constexpr (CI) {
         if (i < n) return at(i);
         if (i == n) return 0u;
-        const uint32_t t = at(2 * n - i);
-        return t == 0u ? 0u : p - t;
+        return neg_mod(at(2 * n - i), p);
     } else {
         return at(i);
     }
@@ -327,6 +333,28 @@ __device__ __forceinline__ void keep_at(const int64_t* pos, int g, Put put) {
     }
 }
 
+// The CI ring's orbit map in closed form (crypto/context.py): slot j
+// evaluates at psi^(5^j mod 2N), which the forward transform (bit-reversed
+// out) puts at position keep(j) = bitrev((5^j mod 2N - 1) / 2); its
+// conjugate, position N - 1 - keep(j), holds the same value (ci_src maps
+// both to j).  pow5_mod2n(j) = 5^j mod 2N; ci_keep_pos(5^j mod 2N) =
+// keep(j).
+template <int LOGN>
+__device__ __forceinline__ uint32_t pow5_mod2n(int j) {
+    constexpr uint32_t mask = (2u << LOGN) - 1;
+    uint32_t r = 1u, b = 5u;
+    for (; j; j >>= 1) {
+        if (j & 1) r = (r * b) & mask;
+        b = (b * b) & mask;
+    }
+    return r;
+}
+
+template <int LOGN>
+__device__ __forceinline__ int ci_keep_pos(uint32_t pow5) {
+    return (int)(__brev((pow5 - 1u) >> 1) >> (32 - LOGN));
+}
+
 // Input g of the inverse transform: the stored index it reads.
 template <bool CI>
 __device__ __forceinline__ int gather_at(const int64_t* src, int g) {
@@ -334,31 +362,28 @@ __device__ __forceinline__ int gather_at(const int64_t* src, int g) {
     else return g;
 }
 
-// Inverse row transforms: block (x, y) handles row r = y * gridDim.x + x
-// of a (rows, W) int64 array whose limb (table row) is r % L, W =
-// row_width<LOGN, CI>; on the CI ring through the map (src).  in and out
-// may alias: a block reads its whole row before its first write.
-template <int LOGN, bool CI>
+// Inverse row transforms of the standard ring: block (x, y) handles row
+// r = y * gridDim.x + x of a (rows, N) int64 array whose limb (table row)
+// is r % L.  in and out may alias: a block reads its whole row before its
+// first write.
+template <int LOGN>
 __global__ void __launch_bounds__(Ring<LOGN>::T)
 ntt_inv_rows(int64_t* out, const int64_t* in, int L, const int64_t* p,
              const int64_t* itwp, const int64_t* ninv,
-             const int64_t* ninv_sh, const int64_t* ci_src) {
+             const int64_t* ninv_sh) {
     extern __shared__ uint32_t s[];
     constexpr int N = Ring<LOGN>::N;
-    constexpr int W = row_width<LOGN, CI>();
     const int64_t row = (int64_t)blockIdx.y * gridDim.x + blockIdx.x;
     const int limb = (int)(row % L);
     const uint32_t pl = (uint32_t)p[limb];
     const uint32_t nv = (uint32_t)ninv[limb];
     const uint32_t nv_sh = (uint32_t)ninv_sh[limb];
-    const int64_t* src = in + row * W;
-    int64_t* dst = out + row * W;
+    const int64_t* src = in + row * N;
+    int64_t* dst = out + row * N;
     ntt_inv_row<LOGN>(
         s, itwp + (int64_t)limb * N, pl,
-        [&](int i) { return (uint32_t)src[gather_at<CI>(ci_src, i)]; },
-        [&](int i, uint32_t v) {
-            if (!CI || i < W) dst[i] = shoup_mul(v, nv, nv_sh, pl);
-        });
+        [&](int i) { return (uint32_t)src[i]; },
+        [&](int i, uint32_t v) { dst[i] = shoup_mul(v, nv, nv_sh, pl); });
 }
 
 // Allow more than the default 48 KB of dynamic shared memory when a row

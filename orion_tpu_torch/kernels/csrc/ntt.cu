@@ -71,28 +71,7 @@ SPLIT_KERNEL_CI(ntt_fwd_cluster)(int64_t* out, const int64_t* in, int L,
         });
 }
 
-SPLIT_KERNEL_CI(ntt_inv_cluster)(int64_t* out, const int64_t* in, int L,
-                                 const int64_t* p, const int64_t* itwc,
-                                 const int64_t* ninv,
-                                 const int64_t* ninv_sh,
-                                 const int64_t* ci_src) {
-    extern __shared__ uint32_t s[];
-    constexpr int N = 1 << LOGN;
-    constexpr int W = row_width<LOGN, CI>();
-    const int64_t row = blockIdx.x / Split<LOGN>::C;
-    const int limb = (int)(row % L);
-    const uint32_t pl = (uint32_t)p[limb];
-    const uint32_t nv = (uint32_t)ninv[limb];
-    const uint32_t nv_sh = (uint32_t)ninv_sh[limb];
-    const int64_t* src = in + row * W;
-    int64_t* dst = out + row * W;
-    ntt_inv_split<LOGN>(
-        s, itwc + (int64_t)limb * N, pl,
-        [&](int i) { return (uint32_t)src[gather_at<CI>(ci_src, i)]; },
-        [&](int i, uint32_t v) {
-            if (!CI || i < W) dst[i] = shoup_mul(v, nv, nv_sh, pl);
-        });
-}
+// ntt_inv_cluster: cluster_ntt.cuh (ks_decompose.cu's CI form runs it too).
 
 // z (groups, L, W) uint32 = n^-1 iNTT of in[g, rmap[d]], in (groups,
 // n_src, W) int64; cluster (g, d) in row-major order.

@@ -45,8 +45,13 @@ transforms go through the 2n lift, as orion_tpu's jnp path does there:
 the kernels run with the CI map (`ks_decompose_ci`, `ks_finish_ci`).  Each
 inverse transform gathers its 2n positions through `ci.src` and keeps n
 coefficients; each basis conversion (`fbc`) runs on those n coefficients
-only, and its results are then lifted (mirrored, negated) into the 2n
-forward transform, whose store keeps the n orbit positions (`ci.pos`).
+only, once each, and its results are then lifted (mirrored, negated) into
+the 2n forward transform, whose store keeps the n orbit positions
+(`ci.pos`).  On the card every row of the CI forms is split over a
+thread-block cluster of `ci_cluster_ctas(logn)` CTAs (`csrc/cluster_ntt.cuh`
+`ntt_fwd_lift`), so their twiddles come packed in the split's order
+(`cluster_twiddles`), where the standard forms read the core's
+(`packed_twiddles`).
 """
 
 from __future__ import annotations
@@ -57,7 +62,8 @@ from dataclasses import dataclass, replace
 
 from ..crypto.modops import add_mod, sub_mod
 from ._launch import Kernel, check_residues
-from .ntt import ntt_fwd_plain, ntt_inv_plain, packed_twiddles
+from .ntt import (cluster_twiddles, ntt_fwd_plain, ntt_inv_plain,
+                  packed_twiddles)
 
 _DECOMPOSE_SIG = "ppp" + "iiiiii" + "p" * 17
 _FINISH_SIG = "pppii" + "pppp" + "iiiiiiii" + "p" * 20
@@ -250,7 +256,7 @@ def ks_decompose(c_ntt, dl):
     check_residues(kernel.name, c3, (b, nl, n))
     d = _digit_stack(dl)
     t = dl.t
-    twp, itwp = packed_twiddles(t)
+    twp, itwp = _twiddles(dl)
     ext = torch.empty((b, dnum, n_t, n), dtype=torch.int64,
                       device=c_ntt.device)
     coeff = torch.empty((b, nl, n), dtype=torch.int64, device=c_ntt.device)
@@ -261,6 +267,24 @@ def ks_decompose(c_ntt, dl):
         t.ninv, t.ninv_shoup, *_ci_maps(dl), level=dl.level, items=b,
         grids=2)
     return ext if batched else ext[0]
+
+
+def _twiddles(dl) -> tuple:
+    """The target rows' packed (forward, inverse) tables as the level's
+    kernels read them: the core's order, or the cluster split's on the CI
+    ring."""
+    return (packed_twiddles(dl.t) if dl.ci is None
+            else cluster_twiddles(dl.t))
+
+
+def ci_cluster_ctas(logn: int) -> dict[str, int]:
+    """CTAs per row that the built CI forms launch at a transform of
+    2^logn (the lift of a CI ring of degree 2^(logn-1))."""
+    from . import _build
+
+    return {k.name: int(getattr(_build.load(k.source),
+                                f"orion_{k.name}_ctas")(logn))
+            for k in (KS_DECOMPOSE_CI, KS_FINISH_CI)}
 
 
 def _ci_maps(dl) -> tuple:
@@ -333,7 +357,7 @@ def _finish(ext, dl, ksk_data, ksk_shoup, trimmed, key_index, moddown):
 def _finish_tables(dl) -> tuple:
     """The level's ks_finish tables, in the kernel's argument order."""
     t, md = dl.t, dl.moddown
-    twp, itwp = packed_twiddles(t)
+    twp, itwp = _twiddles(dl)
     return (t.p, dl.t_pinv, dl.t_rmod, dl.t_rshoup, twp, itwp, t.ninv,
             t.ninv_shoup, md.qhat_inv, md.qhat_inv_shoup, md.src_p,
             md.src_q_f32, md.conv, md.conv_shoup, md.d_mod_t,

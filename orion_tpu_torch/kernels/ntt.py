@@ -22,9 +22,10 @@ refuses.
 
 The kernels read the twiddles packed (`pack_twiddles`): each with its
 Shoup companion in one 64-bit word, in the order a transform reads them:
-the single-block core of `csrc/modarith.cuh` (the key-switch kernels) or
-the cluster split of `csrc/cluster_ntt.cuh` (this module's kernels and the
-rescale epilogues of `rescale.py`).  `packed_twiddles(rr)` and
+the single-block core of `csrc/modarith.cuh` (the standard ring's
+key-switch kernels) or the cluster split of `csrc/cluster_ntt.cuh` (this
+module's kernels, the rescale epilogues of `rescale.py` and the CI forms
+of the key-switch kernels).  `packed_twiddles(rr)` and
 `cluster_twiddles(rr)` build both once per table set from its
 `tw`/`tw_shoup`/`itw`/`itw_shoup` and cache them in `rr.kernel_tables`.
 """
@@ -135,7 +136,8 @@ def pack_twiddles(tw, tw_sh, logc: int = 0) -> torch.Tensor:
 
 def packed_twiddles(rr) -> tuple[torch.Tensor, torch.Tensor]:
     """(forward, inverse) packed tables of the table set `rr` in the
-    single-block core's order (the key-switch kernels), cached."""
+    single-block core's order (the standard ring's key-switch kernels),
+    cached."""
     kt = rr.kernel_tables
     if "twp" not in kt:
         kt["twp"] = pack_twiddles(rr.tw, rr.tw_shoup)
@@ -145,8 +147,9 @@ def packed_twiddles(rr) -> tuple[torch.Tensor, torch.Tensor]:
 
 def cluster_twiddles(rr) -> tuple[torch.Tensor, torch.Tensor]:
     """(forward, inverse) packed tables of `rr` in the cluster split's
-    order (this module's kernels and the rescale epilogues), cached; the
-    core's tables where a row is one CTA."""
+    order (this module's kernels, the rescale epilogues and the CI forms of
+    the key-switch kernels), cached; the core's tables where a row is one
+    CTA."""
     kt = rr.kernel_tables
     if "twc" not in kt:
         logc = split_logc(rr.tw.shape[-1].bit_length() - 1)
