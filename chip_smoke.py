@@ -62,9 +62,10 @@ stderr and exits 1:
      LogN 12), orion_tpu's own MLP/LoLA test config, the same way;
   4d. LoLA on configs/lola2.yml (standard ring, LogN 14), the same way;
   5. one bootstrap on configs/resnet.yml (full slots, lean key packs)
-     from one seed on `cuda` and with device="cpu" (plain path): equal
-     output ciphertexts, the decrypted error against the input, the
-     key-switches per bootstrap and its time on the card;
+     from one seed on `cuda` and with device="cpu" (plain path, in a
+     process of its own while phase 6 runs): equal output ciphertexts,
+     the decrypted error against the input, the key-switches per
+     bootstrap and its time on the card;
   6. ResNet-20 on configs/resnet.yml through the user entry points on
      `cuda` (weights from the seeded generator the port shares with
      orion_tpu, synthetic CIFAR-10 images): fit, compile (host seconds of
@@ -86,7 +87,10 @@ stderr and exits 1:
   6b. AlexNet at full width on configs/alexnet.yml the same way; a
      12-ciphertext tensor must be bootstrapped;
   6c. VGG-11 at full width on configs/vgg.yml the same way; a bootstrap
-     on the 2048-slot circuit must run;
+     on the 2048-slot circuit must run.  6b and 6c each run in a process
+     of their own: AlexNet fits and compiles while phase 6 runs, VGG-11
+     once AlexNet has compiled, and each runs its forwards alone on the
+     card in its turn after phase 6 (`spawn_nets`);
   8. batched serving (runtime/jit.make_batched_forward: B queries stacked
      on a leading axis of every ciphertext, one forward): the MLP on
      configs/mlp.yml at B = 1, 2, 4, 8 and LoLA on configs/lola.yml (CI)
@@ -305,21 +309,42 @@ def _lg(n):
     return n.bit_length() - 1
 
 
-def ntt_work(rows, table_rows, n, lift=None):
+def fwd_work(n, lift):
+    """(Shoup products, twiddle words) of one row's forward transform.  On
+    the CI ring only the outputs the ring keeps are needed, the first half
+    (the orbit of 5 modulo 2N, bit-reversed): the first stage's lift / 2
+    products into the kept half, then a forward of lift / 2 points over
+    lift / 2 twiddles."""
+    if lift == n:
+        return (lift // 2) * _lg(lift), lift
+    return (lift // 4) * (_lg(lift) + 1), lift // 2
+
+
+def inv_work(n, lift):
+    """The same for an inverse transform.  On the CI ring only outputs
+    i < n are kept: the last stage, which pairs i with i + n, needs no
+    product for them."""
+    if lift == n:
+        return (lift // 2) * _lg(lift), lift
+    return (lift // 2) * (_lg(lift) - 1), lift
+
+
+def ntt_work(rows, table_rows, n, lift=None, inverse=False):
     """`rows` transformed rows over `table_rows` rows of twiddles."""
     lift = lift or n
-    nbytes = 8 * rows * n * 2 + 8 * table_rows * lift   # data + packed tw
-    ops = 3 * rows * (lift // 2) * _lg(lift) + 3 * rows * n
+    prods, words = inv_work(n, lift) if inverse else fwd_work(n, lift)
+    nbytes = 8 * rows * n * 2 + 8 * table_rows * words   # data + packed tw
+    ops = 3 * rows * prods + 3 * rows * n
     return nbytes, ops
 
 
 def divisor_intt_work(groups, n_div, n, lift=None):
     """Launch A of a rescale epilogue: the divisor rows (int64) and their
     inverse tables read, the uint32 scratch written."""
-    lift = lift or n
-    nbytes = (8 * groups * n_div * n + 8 * n_div * lift
+    prods, words = inv_work(n, lift or n)
+    nbytes = (8 * groups * n_div * n + 8 * n_div * words
               + 4 * groups * n_div * n)
-    return nbytes, 3 * groups * n_div * ((lift // 2) * _lg(lift) + n)
+    return nbytes, 3 * groups * n_div * (prods + n)
 
 
 def lift_ntt_work(groups, n_div, l, n, fbc, lift=None):
@@ -327,11 +352,10 @@ def lift_ntt_work(groups, n_div, l, n, fbc, lift=None):
     forward tables read, the output written; per coefficient the lift (the
     basis conversion over n_div rows, or the centered lift's reduction),
     the butterflies and the subtract-and-scale."""
-    lift = lift or n
-    nbytes = 4 * groups * n_div * n + 8 * l * lift + 16 * groups * l * n
+    prods, words = fwd_work(n, lift or n)
+    nbytes = 4 * groups * n_div * n + 8 * l * words + 16 * groups * l * n
     per = 6 * n_div + 3 if fbc else 3
-    return nbytes, groups * l * (n * (per + 3)
-                                 + 3 * (lift // 2) * _lg(lift))
+    return nbytes, groups * l * (n * (per + 3) + 3 * prods)
 
 
 def drop_work(groups, n_div, l, n, fbc, lift=None):
@@ -346,18 +370,21 @@ def drop_work(groups, n_div, l, n, fbc, lift=None):
 
 def decompose_work(nl, n_t, dnum, alpha, n, lift=None):
     lift = lift or n
+    i_prods, i_words = inv_work(n, lift)
+    f_prods, f_words = fwd_work(n, lift)
     # c, ext, the inverse tables of the nl Q rows, the forward of n_t rows
-    nbytes = 8 * n * (nl + dnum * n_t) + 8 * lift * (nl + n_t)
-    ops = (3 * nl * (lift // 2) * _lg(lift) + 3 * nl * n
+    nbytes = 8 * n * (nl + dnum * n_t) + 8 * (nl * i_words + n_t * f_words)
+    ops = (3 * nl * i_prods + 3 * nl * n
            + dnum * n_t * n * (6 * alpha + 3)
-           + 3 * dnum * n_t * (lift // 2) * _lg(lift))
+           + 3 * dnum * n_t * f_prods)
     return nbytes, ops
 
 
 def decompose_batch_work(nl, n_t, dnum, alpha, n, batch, lift=None):
     """B polys: data and operations B times, the tables once."""
     nbytes, ops = decompose_work(nl, n_t, dnum, alpha, n, lift)
-    tables = 8 * (lift or n) * (nl + n_t)
+    lift = lift or n
+    tables = 8 * (nl * inv_work(n, lift)[1] + n_t * fwd_work(n, lift)[1])
     return batch * (nbytes - tables) + tables, batch * ops
 
 
@@ -373,11 +400,13 @@ def finish_work(nl, n_t, dnum, n, lean, items=1, paired=False,
     ops = items * 2 * dnum * n_t * n * (7 if lean else 3)
     if not moddown:
         return 8 * (ext_words + key_words + items * 2 * n_t * n), ops
+    i_prods, i_words = inv_work(n, lift)
+    f_prods, f_words = fwd_work(n, lift)
     nbytes = 8 * (ext_words + key_words + items * 2 * nl * n
-                  + n_sp * lift + nl * lift)
-    ops += items * (2 * n_sp * (3 * (lift // 2) * _lg(lift) + 3 * n)
+                  + n_sp * i_words + nl * f_words)
+    ops += items * (2 * n_sp * (3 * i_prods + 3 * n)
                     + 2 * nl * n * (6 * n_sp + 3)
-                    + 2 * nl * (3 * (lift // 2) * _lg(lift) + 3 * n))
+                    + 2 * nl * (3 * f_prods + 3 * n))
     return nbytes, ops
 
 
@@ -525,7 +554,8 @@ def check_kernels(cfg, tag, stats, logn=None, levels=None, iters=50,
             kern = getattr(kntt, kname)
             cs.case(kn[kname], level, str(batch + (rows, n)),
                     lambda: kern(a, rr), lambda: plain(a, rr),
-                    ntt_work(a.numel() // n, rows, n, lift))
+                    ntt_work(a.numel() // n, rows, n, lift,
+                             inverse=kname == "ntt_inv"))
         if level >= 1:
             check_epilogues(cs, dl, krs)
         c = cs.residues((nl, n), dl.q.p)
@@ -573,7 +603,7 @@ def check_kernels(cfg, tag, stats, logn=None, levels=None, iters=50,
                 ntt_work(a.numel() // n, len(rows), n))
         cs.case("ntt_inv", top, label, lambda: pn.intt(a, rows),
                 lambda: kntt.ntt_inv_plain(a, rr),
-                ntt_work(a.numel() // n, len(rows), n))
+                ntt_work(a.numel() // n, len(rows), n, inverse=True))
     return ctx
 
 
@@ -1091,25 +1121,74 @@ def check_bootstrap(cfg):
         fail(f"kernels not launched by the bootstrap: {idle}")
     if not gpu["err"] < 0.05:
         fail(f"bootstrap error {gpu['err']} against its input")
-    print("phase 5: the same bootstrap on device cpu (plain PyTorch path)",
-          flush=True)
+    print("phase 5: the same bootstrap on device cpu (plain PyTorch path) "
+          f"in a process of its own, {CPU_BOOT_THREADS} threads, while "
+          "phase 6 runs", flush=True)
+    rec = {"err": gpu["err"], "first_ms": gpu["first_s"] * 1e3,
+           "steady_ms": steady_ms, "profile": gpu["prof"],
+           "launches": gpu["counts"], "items": gpu["items"],
+           "keyswitches": gpu["items"]["ks_finish"],
+           "build_s": gpu["build_s"], "rotation_keys": gpu["rotations"],
+           "key_packs": gpu["key_packs"]}
+    return rec, (gpu["out"], spawn_cpu_bootstrap(cfg))
+
+
+# the host's cores: the card's phases drive it from one, the plain
+# bootstrap takes this many of the rest
+CPU_BOOT_THREADS = 4
+
+
+def cpu_bootstrap(cfg, path):
+    """Phase 5's bootstrap on device="cpu", its output saved to `path`
+    (the body of the process `spawn_cpu_bootstrap` starts)."""
+    torch.set_num_threads(CPU_BOOT_THREADS)
     t0 = time.perf_counter()
     cpu = run_bootstrap(cfg, "cpu")
-    print(f"  cpu: build {cpu['build_s']:.1f} s, bootstrap "
-          f"{cpu['first_s']:.1f} s, whole {time.perf_counter() - t0:.1f} s;"
-          f" max error {cpu['err']:.3e}", flush=True)
-    a, b = gpu["out"], cpu["out"]
-    if not (a.level == b.level and a.scale == b.scale
-            and torch.equal(a.data.cpu(), b.data)):
+    out = cpu["out"]
+    torch.save({"data": out.data, "level": out.level,
+                "scale": float(out.scale),
+                "err": cpu["err"], "build_s": cpu["build_s"],
+                "first_s": cpu["first_s"],
+                "whole_s": time.perf_counter() - t0}, path)
+
+
+def spawn_cpu_bootstrap(cfg):
+    """Start `cpu_bootstrap` in a process of its own; returns (process,
+    output path) for `join_cpu_bootstrap`."""
+    import multiprocessing
+
+    path = ROOT / "build" / "orion_tpu_torch" / "cpu_bootstrap.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=cpu_bootstrap, args=(cfg, str(path)), daemon=True)
+    proc.start()
+    return proc, path
+
+
+def join_cpu_bootstrap(rec, pending, timeout_s=600):
+    """Wait for the plain bootstrap and hold its output ciphertext against
+    the card's (phase 5's end)."""
+    a, (proc, path) = pending
+    t0 = time.perf_counter()
+    proc.join(timeout_s)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+        fail(f"bootstrap: the cpu process ran past {timeout_s} s")
+    if proc.exitcode != 0 or not path.exists():
+        fail(f"bootstrap: the cpu process exited {proc.exitcode}")
+    b = torch.load(path)
+    print(f"phase 5: cpu: build {b['build_s']:.1f} s, bootstrap "
+          f"{b['first_s']:.1f} s, whole {b['whole_s']:.1f} s "
+          f"({CPU_BOOT_THREADS} threads, beside phase 6; waited "
+          f"{time.perf_counter() - t0:.1f} s for it); max error "
+          f"{b['err']:.3e}", flush=True)
+    if not (a.level == b["level"] and float(a.scale) == b["scale"]
+            and torch.equal(a.data.cpu(), b["data"])):
         fail("bootstrap: cuda and cpu output ciphertexts differ")
-    print("  cuda and cpu output ciphertexts are equal", flush=True)
-    return {"err": gpu["err"], "first_ms": gpu["first_s"] * 1e3,
-            "steady_ms": steady_ms, "profile": gpu["prof"],
-            "launches": gpu["counts"], "items": gpu["items"],
-            "keyswitches": gpu["items"]["ks_finish"],
-            "build_s": gpu["build_s"], "cpu_bootstrap_s": cpu["first_s"],
-            "rotation_keys": gpu["rotations"],
-            "key_packs": gpu["key_packs"]}
+    print("phase 5: cuda and cpu output ciphertexts are equal", flush=True)
+    rec["cpu_bootstrap_s"] = b["first_s"]
 
 
 # ------------------------------------------------------------------ #
@@ -1300,7 +1379,7 @@ def _same_cts(a, b):
         and torch.equal(x.data, y.data) for x, y in zip(a.cts, b.cts))
 
 
-def check_net(cfg, name, title, build, batch=1, extra=False):
+def check_net(cfg, name, title, build, batch=1, extra=False, turn=None):
     """One bootstrapped net through the user entry points on cuda, from a
     fresh scheme: `build()` makes the net after the weight generator is
     reset to the seed orion_tpu's examples start from, one synthetic
@@ -1319,7 +1398,9 @@ def check_net(cfg, name, title, build, batch=1, extra=False):
     it prints the bytes spilled at compile beside the hbm_report total,
     the bytes promoted by the first forward and uploaded by the steady
     one.  With `extra` (ResNet-20), `check_noise_and_resident` then runs
-    the noise profile and the forwards with every buffer resident."""
+    the noise profile and the forwards with every buffer resident.  With
+    `turn` (a process of its own: `net_process`) it calls turn() after
+    the compile and runs the forwards once that returns."""
     import orion_tpu_torch as orion
     from orion_tpu_torch import kernels
     from orion_tpu_torch.nn import linear
@@ -1380,6 +1461,8 @@ def check_net(cfg, name, title, build, batch=1, extra=False):
           f"{dev_mib / 1024:.1f} GiB", flush=True)
     if not lean:
         fail(f"{name}: key packs keep Shoup companions under boot_params")
+    if turn is not None:
+        turn()
     # io_mode stream (absent from packages before it: --forward-copies)
     runner = getattr(scheme, "module_runner", None)
     stream = None
@@ -1702,30 +1785,103 @@ def check_resnet(cfg, blocks=(3, 3, 3), batch=1, extra=False):
     return rec
 
 
-def check_alexnet(cfg):
+def check_alexnet(cfg, turn=None):
     """AlexNet at full width: its 192-channel 16x16 tensors span 12
     ciphertexts, and one of them must be bootstrapped."""
     from orion_tpu_torch.models import AlexNet
 
     rec = check_net(cfg, "AlexNet", "phase 6b: AlexNet (SiLU(127), "
-                    "1024-4096-4096-10) on configs/alexnet.yml", AlexNet)
+                    "1024-4096-4096-10) on configs/alexnet.yml", AlexNet,
+                    turn=turn)
     if 12 not in rec["bootstrapped_tensor_cts"]:
         fail(f"AlexNet: no 12-ciphertext tensor was bootstrapped "
              f"({rec['bootstrapped_tensor_cts']})")
     return rec
 
 
-def check_vgg(cfg):
+def check_vgg(cfg, turn=None):
     """VGG-11 at full width: its last stage fills half the slots, so a
     2048-slot bootstrap circuit must run."""
     from orion_tpu_torch.models import VGG11
 
     rec = check_net(cfg, "VGG-11", "phase 6c: VGG-11 (minimax ReLU "
-                    "(15, 15, 27)) on configs/vgg.yml", VGG11)
+                    "(15, 15, 27)) on configs/vgg.yml", VGG11, turn=turn)
     if not rec["ciphertext_bootstraps_by_slots"].get(2048):
         fail(f"VGG-11: no 2048-slot bootstrap ran "
              f"({rec['ciphertext_bootstraps_by_slots']})")
     return rec
+
+
+# Phases 6b and 6c in processes of their own.  A bootstrapped net's fit
+# and compile (host packing and key generation) took most of its phase
+# with the card idle, so each net compiles while the card serves the
+# phase before it: AlexNet beside phase 6, VGG-11 beside AlexNet's
+# forwards (one compile at a time keeps the card's memory and the host's
+# cores in bounds).  A net's forwards run alone on the card, in its turn.
+NET_CHECKS = {"alexnet": check_alexnet, "vgg": check_vgg}
+
+
+def net_process(tag, cfg, start, ready, go, path):
+    """Phase 6b or 6c in a spawned process: waits for `start`, fits and
+    compiles, sets `ready`, waits for `go` (its turn on the card), runs
+    the forwards and writes the net's record to `path` (pickle); what it
+    prints goes to `path`.log."""
+    import pickle
+
+    sys.stdout = sys.stderr = open(f"{path}.log", "w", buffering=1)
+    start.wait()
+
+    def turn():
+        ready.set()
+        go.wait()
+
+    rec = NET_CHECKS[tag](cfg, turn=turn)
+    with open(path, "wb") as f:
+        pickle.dump(rec, f)
+
+
+def spawn_nets(cfgs):
+    """Start `net_process` for each of NET_CHECKS, each compiling once the
+    one before has; returns [(tag, process, (start, ready, go), path)] for
+    `join_net` (the events live as long as the processes need them)."""
+    import multiprocessing
+
+    out_dir = ROOT / "build" / "orion_tpu_torch" / "nets"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    mpc = multiprocessing.get_context("spawn")
+    start = mpc.Event()
+    start.set()
+    nets = []
+    for tag in NET_CHECKS:
+        ready, go = mpc.Event(), mpc.Event()
+        path = out_dir / f"{tag}.pkl"
+        path.unlink(missing_ok=True)
+        proc = mpc.Process(target=net_process, daemon=True,
+                           args=(tag, cfgs[tag], start, ready, go,
+                                 str(path)))
+        proc.start()
+        nets.append((tag, proc, (start, ready, go), path))
+        start = ready
+    return nets
+
+
+def join_net(tag, proc, events, path, timeout_s=900):
+    """Give a net's process its turn on the card, wait for it, print what
+    it printed and return its record."""
+    import pickle
+
+    events[2].set()
+    proc.join(timeout_s)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    log = Path(f"{path}.log")
+    if log.exists():
+        print(log.read_text(), end="", flush=True)
+    if proc.exitcode != 0 or not path.exists():
+        fail(f"{tag}: its process exited {proc.exitcode}")
+    with open(path, "rb") as f:
+        return pickle.load(f)
 
 
 # ------------------------------------------------------------------ #
@@ -2946,22 +3102,13 @@ def main():
     if any(c != 1 << kntt.split_logc(logn) for logn, c in ctas.items()):
         fail(f"the built ntt.cu splits rows as {ctas}, kernels/ntt.py packs "
              f"twiddles for {[1 << kntt.split_logc(g) for g in ctas]}")
-    if min(ctas[13], ctas[14]) < 2:
-        fail("the transforms at LogN 13 and 14 are not split over a cluster")
-    from orion_tpu_torch.kernels import keyswitch as kks
-
-    ci_ctas = {logn: kks.ci_cluster_ctas(logn) for logn in range(8, 15)}
     for name in ("ks_decompose_ci", "ks_finish_ci"):
-        by = {logn: c[name] for logn, c in ci_ctas.items()}
         print(f"phase 1: {name} launches clusters of C CTAs per row, by "
-              f"the lift's LogN: {by}", flush=True)
-    if any(c != ctas[logn] for logn, by in ci_ctas.items()
-           for c in by.values()):
-        fail(f"the CI key-switch kernels split rows as {ci_ctas}, the "
-             f"cluster twiddles they read are packed for {ctas}")
-    if any(c < 2 for logn in (13, 14) for c in ci_ctas[logn].values()):
-        fail("a CI key-switch kernel runs one CTA per row at a 2^13 or "
-             "2^14 lift")
+              f"the lift's LogN (cluster_ntt.cuh's Split, as above): "
+              f"{ctas}", flush=True)
+    if min(ctas[13], ctas[14]) < 2:
+        fail("the transforms at LogN 13 and 14, and the CI key-switch "
+             "kernels at a 2^13 or 2^14 lift, are not split over a cluster")
 
     cfgs = {}
     for tag, path in CONFIGS.items():
@@ -3016,17 +3163,20 @@ def main():
     # a scheme's services and modules refer to each other: collect the
     # finished phases' schemes before the next phase reads device memory
     gc.collect()
-    bootstrap = check_bootstrap(cfgs["resnet"])
+    bootstrap, cpu_boot = check_bootstrap(cfgs["resnet"])
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s",
+    print(f"phase 5 on the card done at {time.perf_counter() - t_start:.1f}"
+          f" s", flush=True)
+    nets = spawn_nets(cfgs)
+    paths["resnet"] = check_resnet(cfgs["resnet"], batch=2, extra=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"resnet phase done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    for tag, check in (("resnet",
-                        lambda c: check_resnet(c, batch=2, extra=True)),
-                       ("alexnet", check_alexnet), ("vgg", check_vgg)):
-        paths[tag] = check(cfgs[tag])
-        gc.collect()
-        torch.cuda.empty_cache()
+    join_cpu_bootstrap(bootstrap, cpu_boot)
+    for tag, proc, events, path in nets:
+        paths[tag] = join_net(tag, proc, events, path)
         print(f"{tag} phase done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
     # phase 8 on ResNet-20 ran inside its phase 6 (the compiled net reused)
@@ -3143,10 +3293,8 @@ def main():
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": None,
         })
-        if k.source == "ntt.cu":
+        if k.source == "ntt.cu" or ci:
             line[-1]["cluster_ctas"] = ctas[14 if ci else 13]
-        elif ci:
-            line[-1]["cluster_ctas"] = ci_ctas[14][k.name]
         # the top level of configs/resnet.yml (44 Q rows, 50 extended
         # rows, 8 digits), lean trimmed keys for ks_finish; the CI forms
         # at the top level of tests/configs/mlp.yml (transforms of 2^13)

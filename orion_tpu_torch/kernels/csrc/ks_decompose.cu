@@ -195,17 +195,6 @@ static int decompose_ci_launch(
     });
 }
 
-// CTAs per row of the CI form's kernels at a transform of 2^logn (-1:
-// no such size).
-extern "C" int orion_ks_decompose_ci_ctas(int logn) {
-    int c = -1;
-    with_logn(logn, [&](auto k) {
-        c = Split<decltype(k)::value>::C;
-        return cudaSuccess;
-    });
-    return c;
-}
-
 // ci_src, ci_pos: the CI ring's map (logn then the lift's), or both null.
 extern "C" int orion_ks_decompose(
         int64_t* ext, int64_t* coeff, const int64_t* c, int batch, int nl,

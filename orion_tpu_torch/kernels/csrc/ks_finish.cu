@@ -152,7 +152,8 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) ks_inner_intt(
 // W / C.  A special row's product at slot j feeds the two inputs of the
 // 2n inverse that hold it, keep(j) and N - 1 - keep(j) (ci_keep_pos): the
 // CTA stores it straight into the shared memory of the CTAs whose sub-rows
-// hold them, and the inverse reads its sub-row from its own memory.
+// hold them, each warp's store into one CTA, and the inverse reads its
+// sub-row from its own memory.
 template <int LOGN>
 __global__ void __launch_bounds__(Split<LOGN>::T) ks_inner_intt_ci(
         int64_t* __restrict__ work, const int64_t* __restrict__ ext,
@@ -205,21 +206,51 @@ __global__ void __launch_bounds__(Split<LOGN>::T) ks_inner_intt_ci(
         if constexpr (SP::C == 1) *at = v;
         else *cg::this_cluster().map_shared_rank(at, g >> SP::LOGM) = v;
     };
-    if constexpr (SP::C > 1) cluster_wait();  // every CTA has started
+    if constexpr (SP::C == 1) {
 #pragma unroll
-    for (int r = 0; r < IT; ++r) {
-        const int j = lo + 2 * ((int)threadIdx.x + r * SP::T);
-        uint32_t w = pow5_mod2n<LOGN>(j);
+        for (int r = 0; r < IT; ++r) {
+            const int j = lo + 2 * ((int)threadIdx.x + r * SP::T);
+            uint32_t w = pow5_mod2n<LOGN>(j);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int g = ci_keep_pos<LOGN>(w);
-            put(g, a[r][h]);
-            put(N - 1 - g, a[r][h]);
-            w = (w * 5u) & ((2u << LOGN) - 1);  // slot j + 1
+            for (int h = 0; h < 2; ++h) {
+                const int g = ci_keep_pos<LOGN>(w);
+                put(g, a[r][h]);
+                put(N - 1 - g, a[r][h]);
+                w = (w * 5u) & ((2u << LOGN) - 1);  // slot j + 1
+            }
         }
+        __syncthreads();
+    } else {
+        // The sub-row of keep(j) depends on j mod H alone (on 5^j mod
+        // 2^(LOGC+1)), and its mirror's is C - 1 minus it.  So the products
+        // are staged in slot order in the receive buffer, which no other
+        // CTA writes before the inverse's first barrier, and pushed by
+        // warps whose 32 slots share j mod H: each warp's store goes to
+        // one CTA, where slots in order would scatter it over C.
+        constexpr int H = SP::C / 2;
+        static_assert(SEG % SP::T == 0 && (SEG / 32) % H == 0,
+                      "warps must split the slots by residue");
+        uint32_t* stage = s + SP::Core::SMEM / sizeof(uint32_t);
+#pragma unroll
+        for (int r = 0; r < IT; ++r) {
+            const int o = 2 * ((int)threadIdx.x + r * SP::T);
+            stage[pad(o)] = a[r][0];
+            stage[pad(o + 1)] = a[r][1];
+        }
+        __syncthreads();
+        cluster_wait();  // every CTA has started
+#pragma unroll
+        for (int u = 0; u < SEG / SP::T; ++u) {
+            const int v = (int)threadIdx.x + u * SP::T;
+            const int wv = v >> 5;
+            const int o = (wv / H) * (32 * H) + (v & 31) * H + wv % H;
+            const uint32_t x = stage[pad(o)];
+            const int g = ci_keep_pos<LOGN>(pow5_mod2n<LOGN>(lo + o));
+            put(g, x);
+            put(N - 1 - g, x);
+        }
+        // ntt_inv_split's first barrier orders the stores
     }
-    // (with a cluster, ntt_inv_split's first barrier orders the stores)
-    if constexpr (SP::C == 1) __syncthreads();
     const uint32_t nv = (uint32_t)t_ninv[t];
     const uint32_t nv_sh = (uint32_t)t_ninv_sh[t];
     ntt_inv_split<LOGN>(
@@ -394,17 +425,6 @@ static int finish_launch(
                 md_conv, md_conv_sh, md_dmod, md_dmod_sh, pinv_q, pinv_q_sh,
                 t_p, t_twp, st);
     });
-}
-
-// CTAs per row of the CI form's kernels at a transform of 2^logn (-1:
-// no such size).
-extern "C" int orion_ks_finish_ci_ctas(int logn) {
-    int c = -1;
-    with_logn(logn, [&](auto k) {
-        c = Split<decltype(k)::value>::C;
-        return cudaSuccess;
-    });
-    return c;
 }
 
 // ci_src, ci_pos: the CI ring's map (logn then the lift's), or both null.

@@ -48,8 +48,9 @@ coefficients; each basis conversion (`fbc`) runs on those n coefficients
 only, once each, and its results are then lifted (mirrored, negated) into
 the 2n forward transform, whose store keeps the n orbit positions
 (`ci.pos`).  On the card every row of the CI forms is split over a
-thread-block cluster of `ci_cluster_ctas(logn)` CTAs (`csrc/cluster_ntt.cuh`
-`ntt_fwd_lift`), so their twiddles come packed in the split's order
+thread-block cluster of `Split<LOGN>` CTAs (`csrc/cluster_ntt.cuh`
+`ntt_fwd_lift`), as the NTT kernels' rows are (`kernels/ntt.py`
+`cluster_size`), so their twiddles come packed in the split's order
 (`cluster_twiddles`), where the standard forms read the core's
 (`packed_twiddles`).
 """
@@ -275,16 +276,6 @@ def _twiddles(dl) -> tuple:
     ring."""
     return (packed_twiddles(dl.t) if dl.ci is None
             else cluster_twiddles(dl.t))
-
-
-def ci_cluster_ctas(logn: int) -> dict[str, int]:
-    """CTAs per row that the built CI forms launch at a transform of
-    2^logn (the lift of a CI ring of degree 2^(logn-1))."""
-    from . import _build
-
-    return {k.name: int(getattr(_build.load(k.source),
-                                f"orion_{k.name}_ctas")(logn))
-            for k in (KS_DECOMPOSE_CI, KS_FINISH_CI)}
 
 
 def _ci_maps(dl) -> tuple:

@@ -68,8 +68,10 @@ def split_logc(logn: int) -> int:
 
 
 def cluster_size(logn: int) -> int:
-    """CTAs per row that the built `ntt.cu` launches at this ring size (its
-    compiled `Split<LOGN>::C`)."""
+    """CTAs per row that the built cluster kernels launch at a transform of
+    2^logn points: `ntt.cu`'s, and the CI key-switch forms', which split
+    their rows by the same `Split<LOGN>` of csrc/cluster_ntt.cuh (its
+    compiled `C`)."""
     from . import _build
 
     return int(_build.load(NTT_FWD.source).orion_ntt_cluster_size(logn))

@@ -325,15 +325,28 @@ def _inv_gather_model(acc, packed, p, ninv, logc, src):
     slots [c SEG, (c + 1) SEG) of the n inner products and stores slot j
     at inputs keep(j) and N - 1 - keep(j) of the cluster's 2n inverse, in
     the CTA whose sub-row holds each; that must be where ci_src gathers it
-    from.  The first n outputs times (2n)^-1 are kept."""
+    from.  With a cluster the slots are pushed by warps of 32 whose slots
+    share j mod C/2: each warp's store must land in one CTA.  The first n
+    outputs times (2n)^-1 are kept."""
     n = acc.shape[0]
     logn = (2 * n).bit_length() - 1
+    m = (2 * n) >> logc
     seg = n >> logc
+    h = max(1, (1 << logc) // 2)
     row = np.full(2 * n, -1, np.int64)       # CTA g // M holds input g
     for c in range(1 << logc):
-        j = c * seg + np.arange(seg)
+        if logc == 0:
+            order = np.arange(seg)
+        else:                                # warp wv, lane: slot o
+            v = np.arange(seg)
+            wv, lane = v >> 5, v & 31
+            order = (wv // h) * (32 * h) + lane * h + wv % h
+            assert sorted(order) == list(range(seg))
+        j = c * seg + order
         g = _keep_pos(j, logn)
         for pos in (g, 2 * n - 1 - g):
+            if logc:
+                assert (np.ptp((pos // m).reshape(-1, 32), axis=1) == 0).all()
             assert (row[pos] == -1).all()           # stored once
             assert (src[pos] == j).all()            # as ci_src reads it
             row[pos] = acc[j]
