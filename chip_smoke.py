@@ -8,10 +8,13 @@ Phases, each printing its own lines; a failure says why on stdout and
 stderr and exits 1:
   1. the card's name and power limit, the kernel build time (every CUDA
      source of the port is compiled here, in parallel), ptxas' registers
-     and spills of each kernel at LogN 13 and 14, and the CTAs per row of
-     the cluster transforms at each ring size and of the key-switch
-     kernels' ConjugateInvariant forms at each lift size (more than one
-     at LogN 13 and 14, or the run fails);
+     and spills of each kernel at LogN 13 and 14 (the run fails if a
+     kernel of the standard key-switch's hoisted conversion spills), the
+     CTAs per row of the cluster transforms at each ring size and of the
+     key-switch kernels' ConjugateInvariant forms at each lift size (more
+     than one at LogN 13 and 14, or the run fails), and the device
+     kernels of one key-switch from a profile (ks_decompose's and
+     ks_finish's three grids each, or the run fails);
   2. each hand-written kernel against its plain PyTorch version on the
      card (N = 8192) at every level of configs/mlp.yml (0-5), of
      configs/lenet.yml (0-7, 4 digits at levels 6-7) and at levels 1-43
@@ -369,13 +372,16 @@ def drop_work(groups, n_div, l, n, fbc, lift=None):
 
 
 def decompose_work(nl, n_t, dnum, alpha, n, lift=None):
+    """The function's work: the conversion's digit-invariant product (zq =
+    z * qhat_inv) once per source coefficient, beside the inverse's n^-1
+    scale; per target coefficient alpha products, one for v * dmod."""
     lift = lift or n
     i_prods, i_words = inv_work(n, lift)
     f_prods, f_words = fwd_work(n, lift)
     # c, ext, the inverse tables of the nl Q rows, the forward of n_t rows
     nbytes = 8 * n * (nl + dnum * n_t) + 8 * (nl * i_words + n_t * f_words)
-    ops = (3 * nl * i_prods + 3 * nl * n
-           + dnum * n_t * n * (6 * alpha + 3)
+    ops = (3 * nl * i_prods + 3 * nl * n + 3 * nl * n
+           + dnum * n_t * n * (3 * alpha + 3)
            + 3 * dnum * n_t * f_prods)
     return nbytes, ops
 
@@ -404,8 +410,10 @@ def finish_work(nl, n_t, dnum, n, lean, items=1, paired=False,
     f_prods, f_words = fwd_work(n, lift)
     nbytes = 8 * (ext_words + key_words + items * 2 * nl * n
                   + n_sp * i_words + nl * f_words)
-    ops += items * (2 * n_sp * (3 * i_prods + 3 * n)
-                    + 2 * nl * n * (6 * n_sp + 3)
+    # ModDown's zq product once per special coefficient, then n_sp + 1
+    # products per Q coefficient
+    ops += items * (2 * n_sp * (3 * i_prods + 3 * n + 3 * n)
+                    + 2 * nl * n * (3 * n_sp + 3)
                     + 2 * nl * (3 * f_prods + 3 * n))
     return nbytes, ops
 
@@ -771,9 +779,10 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
 #  Phases 3-4: a network through the user entry points              #
 # ------------------------------------------------------------------ #
 
-OUR_KERNELS = ("ntt_fwd_cluster", "ntt_inv_cluster", "ntt_inv_rows",
+OUR_KERNELS = ("ntt_fwd_cluster", "ntt_inv_cluster", "ntt_inv_zq",
                "fbc_ntt_digits", "ks_inner_intt", "moddown_rows",
-               "drop_intt_rows", "drop_lift_ntt", "rescale_lift_ntt")
+               "hoist_digits", "drop_intt_rows", "drop_lift_ntt",
+               "rescale_lift_ntt")
 # kernels that no standard-ring forward of phases 3-4 launches: the generic
 # transforms serve PallasNTT and ring_ntt, rescale_ntt is rescale_poly's
 # second launch (Evaluator.rescale); every multiply of those networks
@@ -798,27 +807,35 @@ def ring_kernels(ring):
 
 def launched_grids():
     """Device kernels by name that the port's wrappers launched since the
-    counts were last set to 0: ntt_inv_rows is ks_decompose's first grid
-    (ntt_inv_cluster its CI form's), moddown_rows ks_finish's second
-    (ks_finish_raw has none); the sharded entries launch one of these
-    grids each.  A kernel's CI form is the same device kernel (its
+    counts were last set to 0: ntt_inv_zq is ks_decompose's first grid
+    (ntt_inv_cluster its CI form's), moddown_rows ks_finish's last
+    (ks_finish_raw has none); on the standard ring hoist_digits runs
+    between the two in both; the sharded entries launch one of these
+    grids each, ks_convert_rows and ks_moddown_rows after a hoist_digits
+    pass.  A kernel's CI form is the same device kernel (its
     `CI = true` instantiation) or, for the key-switch kernels, one named
     after it (`fbc_ntt_digits_ci`, `ks_inner_intt_ci`, `moddown_rows_ci`,
     which the names here match too)."""
     from orion_tpu_torch import kernels as k
 
-    dec = (k.KS_DECOMPOSE.grids + k.KS_DECOMPOSE_CI.grids,
-           k.KS_DECOMPOSE.launches + k.KS_DECOMPOSE_CI.launches)
-    fin = (k.KS_FINISH.grids + k.KS_FINISH_CI.grids,
-           k.KS_FINISH.launches + k.KS_FINISH_CI.launches)
+    dec = k.KS_DECOMPOSE.launches + k.KS_DECOMPOSE_CI.launches
+    fin = k.KS_FINISH.launches + k.KS_FINISH_CI.launches
+    # launches with ModDown: three grids each on the standard ring, two on
+    # the CI ring, one without
+    md = ((k.KS_FINISH.grids - k.KS_FINISH.launches) // 2
+          + k.KS_FINISH_CI.grids - k.KS_FINISH_CI.launches)
+    sharded = k.KS_CONVERT_ROWS.launches + k.KS_MODDOWN_ROWS.launches
     return {"ntt_fwd_cluster": k.NTT_FWD.grids + k.NTT_FWD_CI.grids,
             "ntt_inv_cluster": (k.NTT_INV.grids + k.NTT_INV_CI.grids
                                 + k.KS_DECOMPOSE_CI.grids
                                 - k.KS_DECOMPOSE_CI.launches),
-            "ntt_inv_rows": k.KS_DECOMPOSE.grids - k.KS_DECOMPOSE.launches,
-            "fbc_ntt_digits": dec[1] + k.KS_CONVERT_ROWS.grids,
-            "ks_inner_intt": fin[1] + k.KS_INNER_ROWS.grids,
-            "moddown_rows": fin[0] - fin[1] + k.KS_MODDOWN_ROWS.grids,
+            "ntt_inv_zq": k.KS_DECOMPOSE.launches,
+            "fbc_ntt_digits": dec + k.KS_CONVERT_ROWS.launches,
+            "ks_inner_intt": fin + k.KS_INNER_ROWS.grids,
+            "moddown_rows": md + k.KS_MODDOWN_ROWS.launches,
+            "hoist_digits": (k.KS_DECOMPOSE.launches
+                             + (k.KS_FINISH.grids - k.KS_FINISH.launches) // 2
+                             + sharded),
             "drop_intt_rows": k.DROP_INTT.grids + k.DROP_INTT_CI.grids,
             "drop_lift_ntt": k.DROP_NTT.grids,
             "rescale_lift_ntt": k.RESCALE_NTT.grids + k.RESCALE_NTT_CI.grids}
@@ -1379,6 +1396,17 @@ def _same_cts(a, b):
         and torch.equal(x.data, y.data) for x, y in zip(a.cts, b.cts))
 
 
+def _cts_digest(t):
+    """sha256 of a cipher tensor's ciphertexts (their residues, on the
+    host): two runs' outputs compare by it."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for ct in t.cts:
+        h.update(ct.data.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def check_net(cfg, name, title, build, batch=1, extra=False, turn=None):
     """One bootstrapped net through the user entry points on cuda, from a
     fresh scheme: `build()` makes the net after the weight generator is
@@ -1569,7 +1597,8 @@ def check_net(cfg, name, title, build, batch=1, extra=False, turn=None):
            "compile_peak_mib": compile_peak_mib,
            "forward_peak_mib": peak_mib, "launches": counts,
            "items": items, "launches_by_level": by_level,
-           "batches": batches, "profile": pr, "stream": stream}
+           "batches": batches, "profile": pr, "stream": stream,
+           "out_sha256": _cts_digest(out)}
     if batch > 1:
         rec["batched"] = check_net_batch(scheme, net, name, cts,
                                          [out, steady_out], out_clear, boots,
@@ -2377,9 +2406,11 @@ SHARDED_STEADY = 10
 def convert_rows_work(nl, rows, dnum, alpha, n, b=1):
     """ks_convert_rows over b polys: the coefficients of their nl Q rows
     read, the block's ext and its forward tables; per target coefficient
-    the conversion, then the NTT."""
+    the conversion, then the NTT; the conversion's zq product once per
+    source coefficient."""
     nbytes = 8 * n * (b * nl + b * dnum * rows + rows)
-    ops = b * dnum * rows * (n * (6 * alpha + 3) + 3 * (n // 2) * _lg(n))
+    ops = (b * 3 * nl * n
+           + b * dnum * rows * (n * (3 * alpha + 3) + 3 * (n // 2) * _lg(n)))
     return nbytes, ops
 
 
@@ -2401,10 +2432,11 @@ def inner_rows_work(rows, sp_rows, dnum, n, lean, items=1, exts=1,
 def moddown_rows_work(nq, n_sp, n, items=1):
     """ks_moddown_rows over `items` key-switches: the block's Q rows and
     the summed special rows read, the Q rows written, their forward
-    tables."""
+    tables; the conversion's zq product once per special coefficient."""
     nbytes = 8 * n * (items * (2 * (nq + n_sp) + 2 * nq) + nq)
-    ops = items * 2 * nq * (n * (6 * n_sp + 3) + 3 * (n // 2) * _lg(n)
-                            + 3 * n)
+    ops = items * 2 * (3 * n_sp * n
+                       + nq * (n * (3 * n_sp + 3) + 3 * (n // 2) * _lg(n)
+                               + 3 * n))
     return nbytes, ops
 
 
@@ -3050,27 +3082,68 @@ def sharded_kernel_line(k, recs, parallel):
 
 
 def print_ptxas(libs):
-    """Registers and spills of each kernel at LogN 13 and 14, from ptxas'
-    report beside each library (`, CI`: the ConjugateInvariant form)."""
+    """Registers and spills of each kernel at LogN 13 and 14 (and of each
+    kernel not templated on LogN), from ptxas' report beside each library
+    (`, CI`: the ConjugateInvariant form).  Returns {kernel: bytes
+    spilled}."""
     import re
 
+    spilled = {}
     for src, so in libs.items():
         log = so.with_suffix(".log").read_text()
         name = None
         for line in log.splitlines():
-            m = re.search(r"entry function '_Z\w*?(\d+)([a-z_]+)ILi(\d+)E"
-                          r"(Lb([01])E)?", line)
+            m = re.search(r"entry function '_Z(?:N\d+orion)?(\d+)", line)
             if m:
-                ci = ", CI" if m.group(5) == "1" else ""
-                name = (f"{m.group(2)}<{m.group(3)}{ci}>"
-                        if m.group(3) in ("13", "14") else None)
+                base = line[m.end():m.end() + int(m.group(1))]
+                t = re.match(r"ILi(\d+)E(Lb([01])E)?",
+                             line[m.end() + int(m.group(1)):])
+                ci = ", CI" if t and t.group(3) == "1" else ""
+                name = (base if t is None else f"{base}<{t.group(1)}{ci}>"
+                        if t.group(1) in ("13", "14") else None)
             elif name and "spill" in line:
                 spill = re.search(r"(\d+) bytes spill stores", line).group(1)
             elif name and "Used" in line:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
                 print(f"phase 1: {src} {name}: {regs} registers, {spill} "
                       f"bytes spilled", flush=True)
+                spilled[name] = spilled.get(name, 0) + int(spill)
                 name = None
+    return spilled
+
+
+# the kernels of the standard key-switch's hoisted conversion
+HOISTED = ("ntt_inv_zq", "hoist_digits", "fbc_ntt_digits", "ks_inner_intt",
+           "moddown_rows")
+
+
+def keyswitch_launches(cfg):
+    """Phase 1: the device kernels of one key-switch (ks_decompose, then
+    ks_finish with ModDown) at the config's top level, from a profile;
+    the run fails unless they are the three grids of each kernel."""
+    from orion_tpu_torch.crypto import KeyChest
+    from orion_tpu_torch.crypto.keyswitch import dev_level
+    from orion_tpu_torch.kernels import keyswitch as kks
+
+    ctx = make_context(cfg)
+    dl = dev_level(ctx, ctx.max_level)
+    rk = KeyChest(ctx).relin_key
+    c = torch.randint(0, 1 << 62, (dl.level + 1, ctx.n),
+                      device="cuda") % dl.q.p[:, None]
+    names = device_kernels(lambda: kks.ks_finish(kks.ks_decompose(c, dl),
+                                                 dl, rk.data, rk.shoup))
+    ours = [n.split("(")[0].removeprefix("void ").split("<")[0]
+            .split("::")[-1] for n in names
+            if any(o in n for o in OUR_KERNELS)]
+    print(f"phase 1: launches per key-switch ({cfg_name('mlp')} level "
+          f"{dl.level}): {len(ours)} device kernels, {', '.join(ours)} "
+          f"(4 before the hoisted conversion: no hoist_digits; the "
+          f"limb-sharded ks_convert_rows and ks_moddown_rows run "
+          f"hoist_digits before their grid)", flush=True)
+    want = ["ntt_inv_zq", "hoist_digits", "fbc_ntt_digits", "ks_inner_intt",
+            "hoist_digits", "moddown_rows"]
+    if ours != want:
+        fail(f"one key-switch ran {ours}, not {want}")
 
 
 def main():
@@ -3093,7 +3166,11 @@ def main():
     libs = _build.build_all()
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(_build.SOURCES)})", flush=True)
-    print_ptxas(libs)
+    spilled = print_ptxas(libs)
+    spills = {k: v for k, v in spilled.items()
+              if v and k.split("<")[0] in HOISTED}
+    if spills:
+        fail(f"the hoisted key-switch kernels spill registers: {spills}")
     from orion_tpu_torch.kernels import ntt as kntt
 
     ctas = {logn: kntt.cluster_size(logn) for logn in range(8, 15)}
@@ -3106,9 +3183,13 @@ def main():
         print(f"phase 1: {name} launches clusters of C CTAs per row, by "
               f"the lift's LogN (cluster_ntt.cuh's Split, as above): "
               f"{ctas}", flush=True)
+    print(f"phase 1: ks_decompose's first grid (ntt_inv_zq) launches "
+          f"clusters of C CTAs per Q row, by LogN: {ctas}", flush=True)
     if min(ctas[13], ctas[14]) < 2:
         fail("the transforms at LogN 13 and 14, and the CI key-switch "
              "kernels at a 2^13 or 2^14 lift, are not split over a cluster")
+    with open(CONFIGS["mlp"]) as f:
+        keyswitch_launches(yaml.safe_load(f))
 
     cfgs = {}
     for tag, path in CONFIGS.items():

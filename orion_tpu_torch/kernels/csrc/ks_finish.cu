@@ -11,18 +11,26 @@
 // a (digit, poly) grid that streams the key when it exceeds VMEM).  The
 // TPU split exists only for VMEM's budget; Hopper has none, so one design
 // covers every level:
-//   launch A: grid (n_t, 2, K), one block per (extended row t, poly q,
-//             item k) - sum_j ext[k, j, t] * ksk[key_idx[k], j, q, row(t)]
+//   launch A: ks_inner_intt, one block per (extended row t, poly q, item
+//             k) - sum_j ext[k, j, t] * ksk[key_idx[k], j, q, row(t)]
 //             mod p_t (Shoup companions, or a Montgomery lift when the key
 //             is lean).  Q rows (and every row without ModDown) go to the
-//             work buffer as they are; special rows land in shared memory
-//             and get their inverse NTT there first;
-//   launch B: grid (nl, 2, K), one block per (Q row i, poly q, item k) -
-//             the fast basis conversion of the special rows to q_i,
-//             computed into the registers of the forward NTT's first pass,
-//             the NTT, then (acc_q - lift) * P^-1 mod q_i.
-// The conversion reads every special row of its poly, which is why the two
-// halves meet at a launch boundary (blocks run in no order).  One launch
+//             work buffer as they are.  With ModDown each special row gets
+//             its inverse NTT in shared memory, whose store gives each
+//             coefficient's zq = z * qhat_inv mod p as uint32 (one Shoup
+//             product by n^-1 qhat_inv) into the special rows' part of the
+//             work buffer;
+//   launch V: hoist_digits, grid (N / 256, 1, 2K): v of each coefficient
+//             of each poly from its n_sp zq, one byte, after them
+//             (hoist.cuh): with launch A the digit-invariant half of
+//             ModDown's conversion, once per source coefficient;
+//   launch B: moddown_rows, one block per (Q row i, poly q, item k) - the
+//             target half of the conversion of the special rows to q_i
+//             (n_sp Shoup products and adds, one for v * dmod) into shared
+//             memory, the forward NTT from there, then (acc_q - lift) *
+//             P^-1 mod q_i.
+// The conversion reads every special row of its poly, which is why the
+// halves meet at launch boundaries (blocks run in no order).  One launch
 // pair covers a whole key pack (rotate_scan's baby steps, ext shared) or a
 // transform's giant steps (ext paired), not one key-switch.
 //
@@ -36,7 +44,14 @@
 // once, as 16-byte loads with the digit loop unrolled so that many are in
 // flight.  A shared ext row is read once per (t, q) block; the block of
 // the other poly finds it in L2.  The work buffer (K, 2, n_t, N) makes one
-// round trip.  Everything else stays in registers and shared memory.
+// round trip.  Everything else stays in registers and shared memory.  On
+// the H100 the batched calls run 6-8x above that bound, at the latency of
+// the single-block transforms; two blocks of 1024 threads per SM (32
+// registers, hoist.cuh ks_min_blocks) took a share of it.  A cluster split
+// of launch A (each CTA the inner products of its sub-row, the special
+// rows' inverse across the cluster) cut single calls by a few
+// microseconds but lost at ResNet-20's batches and over its forward, so
+// launch A stays one block per row.
 
 // On the ConjugateInvariant ring (ci_pos non-null) rows hold n residues
 // and the transforms run at N = 2n through the map of modarith.cuh, every
@@ -57,6 +72,7 @@
 // refuse (ks_pallas.py ks_supported).
 
 #include "cluster_ntt.cuh"
+#include "hoist.cuh"
 
 using namespace orion;
 
@@ -96,15 +112,32 @@ __device__ __forceinline__ void inner_pair(
     }
 }
 
+// What launch A does with the special rows t >= nl: nothing (every row
+// stays in the NTT domain: ks_finish_raw), their inverse NTT into int64
+// coefficients (a limb-sharded inner product, whose all-reduce sums them),
+// or the inverse NTT into zq for ModDown's hoisted conversion.
+enum SpecialRows : int { SP_NONE = 0, SP_COEFF = 1, SP_HOIST = 2 };
+
+// The hoisted ModDown source in the work buffer (K, 2, n_t, N) int64: the
+// special rows' part of a poly, n_sp * N words, holds zq (n_sp, N) uint32,
+// then v (N) bytes.
+__host__ __device__ inline uint32_t* md_zq(int64_t* poly, int nl, int n) {
+    return reinterpret_cast<uint32_t*>(poly + (int64_t)nl * n);
+}
+
+// md_zs, md_zs_sh (n_sp): n^-1 qhat_inv of each special row (SP_HOIST).
 template <int LOGN>
-__global__ void __launch_bounds__(Ring<LOGN>::T) ks_inner_intt(
+__global__ void __launch_bounds__(Ring<LOGN>::T, ks_min_blocks<LOGN>())
+ks_inner_intt(
         int64_t* __restrict__ work, const int64_t* __restrict__ ext,
         int ext_item, int ext_count, const int64_t* __restrict__ ksk,
         const int64_t* __restrict__ ksk_sh, const int64_t* key_idx,
         int kdig, int krows, const int64_t* row_map, int nl, int n_t,
-        int dnum, int moddown, const int64_t* t_p, const int64_t* t_pinv,
-        const int64_t* t_rmod, const int64_t* t_rsh, const int64_t* t_itwp,
-        const int64_t* t_ninv, const int64_t* t_ninv_sh) {
+        int dnum, int special_rows, const int64_t* t_p,
+        const int64_t* t_pinv, const int64_t* t_rmod, const int64_t* t_rsh,
+        const int64_t* t_itwp, const int64_t* t_ninv,
+        const int64_t* t_ninv_sh, const int64_t* md_zs,
+        const int64_t* md_zs_sh) {
     extern __shared__ uint32_t s[];
     using RG = Ring<LOGN>;
     constexpr int N = RG::N;
@@ -116,13 +149,14 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) ks_inner_intt(
     const uint32_t pinv = (uint32_t)t_pinv[t];
     const uint32_t rm = (uint32_t)t_rmod[t];
     const uint32_t rsh = (uint32_t)t_rsh[t];
-    const bool special = moddown && t >= nl;
+    const bool special = special_rows != SP_NONE && t >= nl;
     const int64_t* e_row = ext + (k % ext_count) * ext_item + (int64_t)t * N;
     const int64_t e_dig = (int64_t)n_t * N;
     const int64_t k_off = key_idx[k] * ((int64_t)kdig * 2 * krows * N)
                           + ((int64_t)q * krows + row_map[t]) * N;
     const int64_t k_dig = (int64_t)2 * krows * N;
-    int64_t* dst = work + ((k * 2 + q) * n_t + t) * N;
+    int64_t* poly = work + (k * 2 + q) * n_t * N;
+    int64_t* dst = poly + (int64_t)t * N;
 #pragma unroll
     for (int r = 0; r < RG::R / 2; ++r) {
         const int i = 2 * ((int)threadIdx.x + r * RG::T);
@@ -140,11 +174,21 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) ks_inner_intt(
     }
     if (!special) return;  // uniform per block
     __syncthreads();
-    const uint32_t nv = (uint32_t)t_ninv[t];
-    const uint32_t nv_sh = (uint32_t)t_ninv_sh[t];
+    auto own = [&](int i) { return s[pad(i)]; };
+    if (special_rows == SP_COEFF) {
+        const uint32_t nv = (uint32_t)t_ninv[t];
+        const uint32_t nv_sh = (uint32_t)t_ninv_sh[t];
+        ntt_inv_row<LOGN>(
+            s, t_itwp + (int64_t)t * N, p, own,
+            [&](int i, uint32_t v) { dst[i] = shoup_mul(v, nv, nv_sh, p); });
+        return;
+    }
+    const uint32_t w = (uint32_t)md_zs[t - nl];
+    const uint32_t w_sh = (uint32_t)md_zs_sh[t - nl];
+    uint32_t* dz = md_zq(poly, nl, N) + (int64_t)(t - nl) * N;
     ntt_inv_row<LOGN>(
-        s, t_itwp + (int64_t)t * N, p, [&](int i) { return s[pad(i)]; },
-        [&](int i, uint32_t v) { dst[i] = shoup_mul(v, nv, nv_sh, p); });
+        s, t_itwp + (int64_t)t * N, p, own,
+        [&](int i, uint32_t v) { dz[i] = shoup_mul(v, w, w_sh, p); });
 }
 
 // The CI form of ks_inner_intt: cluster (x / C, y, z) = (t, q, k), rows
@@ -261,11 +305,16 @@ __global__ void __launch_bounds__(Split<LOGN>::T) ks_inner_intt_ci(
         });
 }
 
+// Launch B: block (i, q, k) divides Q row i of poly (k, q) by P.  Its Q
+// row is at work + (k * 2 + q) * work_poly + i * N (int64, NTT domain); the
+// hoisted special rows of the poly at zq + (k * 2 + q) * zq_poly (n_sp
+// rows of N uint32) and vb + (k * 2 + q) * v_poly (N bytes).
 template <int LOGN>
-__global__ void __launch_bounds__(Ring<LOGN>::T) moddown_rows(
-        int64_t* out, const int64_t* work, int nl, int n_t, int n_sp,
-        const int64_t* md_qi, const int64_t* md_qi_sh,
-        const int64_t* md_srcp, const float* md_srcq, const int64_t* md_conv,
+__global__ void __launch_bounds__(Ring<LOGN>::T, ks_min_blocks<LOGN>())
+moddown_rows(
+        int64_t* out, const int64_t* work, int64_t work_poly,
+        const uint32_t* zq, int64_t zq_poly, const uint8_t* vb,
+        int64_t v_poly, int nl, int n_sp, const int64_t* md_conv,
         const int64_t* md_conv_sh, const int64_t* md_dmod,
         const int64_t* md_dmod_sh, const int64_t* pinv_q,
         const int64_t* pinv_q_sh, const int64_t* t_p, const int64_t* t_twp) {
@@ -274,24 +323,25 @@ __global__ void __launch_bounds__(Ring<LOGN>::T) moddown_rows(
     const int i = blockIdx.x;
     const int q = blockIdx.y;
     const int64_t k = blockIdx.z;
+    const int64_t kq = k * 2 + q;
     const uint32_t p = (uint32_t)t_p[i];
-    const int64_t* poly = work + (k * 2 + q) * n_t * N;
-    const int64_t* sp = poly + (int64_t)nl * N;
-    const int64_t* qrow = poly + (int64_t)i * N;
-    int64_t* dst = out + ((k * 2 + q) * nl + i) * N;
+    const int64_t* qrow = work + kq * work_poly + (int64_t)i * N;
+    const uint32_t* z = zq + kq * zq_poly;
+    const uint8_t* v = vb + kq * v_poly;
+    int64_t* dst = out + (kq * nl + i) * N;
+    u64* cw = reinterpret_cast<u64*>(s + Ring<LOGN>::SMEM / sizeof(uint32_t));
+    stage_conv(cw, md_conv + i, md_conv_sh + i, nl, n_sp);
     const uint32_t dm = (uint32_t)md_dmod[i];
     const uint32_t dm_sh = (uint32_t)md_dmod_sh[i];
     const uint32_t pv = (uint32_t)pinv_q[i];
     const uint32_t pv_sh = (uint32_t)pinv_q_sh[i];
+    __syncthreads();
+    hoist_target<LOGN>(s, z, N, v, n_sp, cw, dm, dm_sh, p);
+    __syncthreads();
     ntt_fwd_row<LOGN>(
-        s, t_twp + (int64_t)i * N, p,
-        [&](int c) {
-            return fbc_one(sp + c, N, n_sp, md_qi, md_qi_sh, md_srcp,
-                           md_srcq, md_conv + i, md_conv_sh + i, nl, dm,
-                           dm_sh, p);
-        },
-        [&](int c, uint32_t v) {
-            dst[c] = shoup_mul(sub_mod((uint32_t)qrow[c], v, p), pv, pv_sh,
+        s, t_twp + (int64_t)i * N, p, [&](int c) { return s[pad(c)]; },
+        [&](int c, uint32_t x) {
+            dst[c] = shoup_mul(sub_mod((uint32_t)qrow[c], x, p), pv, pv_sh,
                                p);
         });
 }
@@ -337,46 +387,48 @@ __global__ void __launch_bounds__(Split<LOGN>::T) moddown_rows_ci(
         });
 }
 
-// Launch A: grid (n_t, 2, K).  Rows t >= nl get their inverse NTT when
-// moddown is set (the special rows: with a row block's tables, nl is the
-// block's first special row).
+// Launch A: grid (n_t, 2, K), rows t >= nl (with a row block's tables,
+// nl is the block's first special row) as special_rows says.
 template <int LOGN>
 static cudaError_t inner_grid(
         int64_t* work, const int64_t* ext, int ext_item, int ext_count,
         const int64_t* ksk, const int64_t* ksk_sh, const int64_t* key_idx,
         const int64_t* row_map, int items, int kdig, int krows, int nl,
-        int n_t, int dnum, int moddown, const int64_t* t_p,
+        int n_t, int dnum, int special_rows, const int64_t* t_p,
         const int64_t* t_pinv, const int64_t* t_rmod, const int64_t* t_rsh,
         const int64_t* t_itwp, const int64_t* t_ninv,
-        const int64_t* t_ninv_sh, cudaStream_t st) {
+        const int64_t* t_ninv_sh, const int64_t* md_zs,
+        const int64_t* md_zs_sh, cudaStream_t st) {
     using RG = Ring<LOGN>;
     cudaError_t e = allow_smem(ks_inner_intt<LOGN>, RG::SMEM);
     if (e != cudaSuccess) return e;
     ks_inner_intt<LOGN><<<dim3(n_t, 2, items), RG::T, RG::SMEM, st>>>(
         work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx, kdig, krows,
-        row_map, nl, n_t, dnum, moddown, t_p, t_pinv, t_rmod, t_rsh, t_itwp,
-        t_ninv, t_ninv_sh);
+        row_map, nl, n_t, dnum, special_rows, t_p, t_pinv, t_rmod, t_rsh,
+        t_itwp, t_ninv, t_ninv_sh, md_zs, md_zs_sh);
     return cudaGetLastError();
 }
 
-// Launch B: grid (nl, 2, K) over work (K, 2, n_t, N), whose rows nl.. are
-// the special rows in the coefficient domain.
+// Launch B: grid (nl, 2, K), Q row i of item k's poly q at work + (k * 2
+// + q) * work_poly + i * N, its hoisted special rows as moddown_rows reads
+// them.
 template <int LOGN>
 static cudaError_t moddown_grid(
-        int64_t* out, const int64_t* work, int items, int nl, int n_t,
-        const int64_t* md_qi, const int64_t* md_qi_sh,
-        const int64_t* md_srcp, const float* md_srcq,
-        const int64_t* md_conv, const int64_t* md_conv_sh,
-        const int64_t* md_dmod, const int64_t* md_dmod_sh,
-        const int64_t* pinv_q, const int64_t* pinv_q_sh, const int64_t* t_p,
-        const int64_t* t_twp, cudaStream_t st) {
+        int64_t* out, const int64_t* work, int64_t work_poly,
+        const uint32_t* zq, int64_t zq_poly, const uint8_t* vb,
+        int64_t v_poly, int items, int nl, int n_sp, const int64_t* md_conv,
+        const int64_t* md_conv_sh, const int64_t* md_dmod,
+        const int64_t* md_dmod_sh, const int64_t* pinv_q,
+        const int64_t* pinv_q_sh, const int64_t* t_p, const int64_t* t_twp,
+        cudaStream_t st) {
     using RG = Ring<LOGN>;
-    cudaError_t e = allow_smem(moddown_rows<LOGN>, RG::SMEM);
+    if (n_sp < 1 || n_sp > MAX_ALPHA) return cudaErrorInvalidValue;
+    constexpr size_t smem = RG::SMEM + CONV_SMEM;
+    cudaError_t e = allow_smem(moddown_rows<LOGN>, smem);
     if (e != cudaSuccess) return e;
-    moddown_rows<LOGN><<<dim3(nl, 2, items), RG::T, RG::SMEM, st>>>(
-        out, work, nl, n_t, n_t - nl, md_qi, md_qi_sh, md_srcp, md_srcq,
-        md_conv, md_conv_sh, md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, t_p,
-        t_twp);
+    moddown_rows<LOGN><<<dim3(nl, 2, items), RG::T, smem, st>>>(
+        out, work, work_poly, zq, zq_poly, vb, v_poly, nl, n_sp, md_conv,
+        md_conv_sh, md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, t_p, t_twp);
     return cudaGetLastError();
 }
 
@@ -397,39 +449,55 @@ static int finish_launch(
         const float* md_srcq, const int64_t* md_conv,
         const int64_t* md_conv_sh, const int64_t* md_dmod,
         const int64_t* md_dmod_sh, const int64_t* pinv_q,
-        const int64_t* pinv_q_sh, const int64_t* ci_pos, cudaStream_t st) {
+        const int64_t* pinv_q_sh, const int64_t* md_zs,
+        const int64_t* md_zs_sh, const int64_t* ci_pos, cudaStream_t st) {
     return (int)with_logn(logn, [&](auto c) {
         constexpr int LOGN = decltype(c)::value;
         cudaError_t e;
-        if constexpr (CI)
+        if constexpr (CI) {
             e = launch_split_grid<LOGN>(
                 ks_inner_intt_ci<LOGN>, n_t, 2, items, Split<LOGN>::SMEM_INV,
                 st, work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx,
                 kdig, krows, row_map, nl, n_t, dnum, moddown, t_p, t_pinv,
                 t_rmod, t_rsh, t_itwp, t_ninv, t_ninv_sh);
-        else
-            e = inner_grid<LOGN>(
-                work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx,
-                row_map, items, kdig, krows, nl, n_t, dnum, moddown, t_p,
-                t_pinv, t_rmod, t_rsh, t_itwp, t_ninv, t_ninv_sh, st);
-        if (e != cudaSuccess || !moddown) return e;
-        if constexpr (CI)
+            if (e != cudaSuccess || !moddown) return e;
             return launch_split_grid<LOGN>(
                 moddown_rows_ci<LOGN>, nl, 2, items, Split<LOGN>::SMEM_LIFT,
                 st, out, work, nl, n_t, n_t - nl, md_qi, md_qi_sh, md_srcp,
                 md_srcq, md_conv, md_conv_sh, md_dmod, md_dmod_sh, pinv_q,
                 pinv_q_sh, t_p, t_twp, ci_pos);
-        else
+        } else {
+            constexpr int N = 1 << LOGN;
+            e = inner_grid<LOGN>(
+                work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx,
+                row_map, items, kdig, krows, nl, n_t, dnum,
+                moddown ? SP_HOIST : SP_NONE, t_p, t_pinv, t_rmod, t_rsh,
+                t_itwp, t_ninv, t_ninv_sh, md_zs, md_zs_sh, st);
+            if (e != cudaSuccess || !moddown) return e;
+            // V, then B: zq (n_sp, N) and v (N) of poly (k, q) in its
+            // special rows' part of work
+            const int n_sp = n_t - nl;
+            uint32_t* zq = md_zq(work, nl, N);
+            uint8_t* vb = reinterpret_cast<uint8_t*>(zq + (int64_t)n_sp * N);
+            e = launch_hoist(zq, vb, nullptr, 0, (int64_t)2 * n_t * N,
+                             (int64_t)8 * n_t * N, N, 1, items * 2, n_sp,
+                             nullptr, nullptr, md_qi, md_qi_sh, md_srcp,
+                             md_srcq, st);
+            if (e != cudaSuccess) return e;
             return moddown_grid<LOGN>(
-                out, work, items, nl, n_t, md_qi, md_qi_sh, md_srcp, md_srcq,
-                md_conv, md_conv_sh, md_dmod, md_dmod_sh, pinv_q, pinv_q_sh,
-                t_p, t_twp, st);
+                out, work, (int64_t)n_t * N, zq, (int64_t)2 * n_t * N, vb,
+                (int64_t)8 * n_t * N, items, nl, n_sp, md_conv, md_conv_sh,
+                md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, t_p, t_twp, st);
+        }
     });
 }
 
 // ci_src, ci_pos: the CI ring's map (logn then the lift's), or both null.
 // The CI form reads ci_pos; its inverse's gather follows from the map's
 // closed form (modarith.cuh ci_keep_pos), so ci_src is not read.
+// md_zs, md_zs_sh (n_sp): the standard form's constants of the special
+// rows' inverse (n^-1 qhat_inv, kernels/keyswitch.py `_finish_tables`),
+// null on the CI ring.
 extern "C" int orion_ks_finish(
         int64_t* out, int64_t* work, const int64_t* ext, int ext_item,
         int ext_count, const int64_t* ksk, const int64_t* ksk_sh,
@@ -443,7 +511,8 @@ extern "C" int orion_ks_finish(
         const float* md_srcq, const int64_t* md_conv,
         const int64_t* md_conv_sh, const int64_t* md_dmod,
         const int64_t* md_dmod_sh, const int64_t* pinv_q,
-        const int64_t* pinv_q_sh, const int64_t* ci_src,
+        const int64_t* pinv_q_sh, const int64_t* md_zs,
+        const int64_t* md_zs_sh, const int64_t* ci_src,
         const int64_t* ci_pos, void* stream) {
     auto launch = ci_pos != nullptr ? finish_launch<true>
                                     : finish_launch<false>;
@@ -451,17 +520,21 @@ extern "C" int orion_ks_finish(
                   row_map, items, kdig, krows, nl, n_t, dnum, logn, moddown,
                   t_p, t_pinv, t_rmod, t_rsh, t_twp, t_itwp, t_ninv, t_ninv_sh,
                   md_qi, md_qi_sh, md_srcp, md_srcq, md_conv, md_conv_sh,
-                  md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, ci_pos,
-                  (cudaStream_t)stream);
+                  md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, md_zs, md_zs_sh,
+                  ci_pos, (cudaStream_t)stream);
 }
 
 // The two launches of orion_ks_finish apart, standard ring only, for a
 // limb-sharded key-switch (parallel/limbshard.py), whose all-reduce of the
 // special rows sits between them.  Every table is that of the rows the
 // grid covers: orion_ks_inner over a rank's n_t extended rows (row_map[t]
-// the key row of row t, rows t >= nl special when moddown is set);
-// orion_ks_moddown over work (K, 2, nl + n_sp, N): a rank's nl Q rows, then
-// the n_sp special rows of the whole basis, summed over the ranks.
+// the key row of row t, rows t >= nl special when moddown is set, left as
+// int64 coefficients); orion_ks_moddown over work (K, 2, nl + n_sp, N): a
+// rank's nl Q rows, then the n_sp special rows of the whole basis, summed
+// over the ranks, in the coefficient domain.  Its prologue pass
+// (hoist_digits) hoists their zq and v into scratch that the caller leaves
+// behind out: out's buffer holds K * 2 * N * (4 n_sp + 1) bytes past its
+// K * 2 * nl * N words.
 extern "C" int orion_ks_inner(
         int64_t* work, const int64_t* ext, int ext_item, int ext_count,
         const int64_t* ksk, const int64_t* ksk_sh, const int64_t* key_idx,
@@ -474,8 +547,9 @@ extern "C" int orion_ks_inner(
         constexpr int LOGN = decltype(c)::value;
         return inner_grid<LOGN>(
             work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx, row_map,
-            items, kdig, krows, nl, n_t, dnum, moddown, t_p, t_pinv, t_rmod,
-            t_rsh, t_itwp, t_ninv, t_ninv_sh, (cudaStream_t)stream);
+            items, kdig, krows, nl, n_t, dnum, moddown ? SP_COEFF : SP_NONE,
+            t_p, t_pinv, t_rmod, t_rsh, t_itwp, t_ninv, t_ninv_sh, nullptr,
+            nullptr, (cudaStream_t)stream);
     });
 }
 
@@ -489,9 +563,21 @@ extern "C" int orion_ks_moddown(
         const int64_t* t_twp, void* stream) {
     return (int)with_logn(logn, [&](auto c) {
         constexpr int LOGN = decltype(c)::value;
+        constexpr int N = 1 << LOGN;
+        const cudaStream_t st = (cudaStream_t)stream;
+        const int n_sp = n_t - nl;
+        uint32_t* zq = reinterpret_cast<uint32_t*>(
+            out + (int64_t)items * 2 * nl * N);
+        uint8_t* vb = reinterpret_cast<uint8_t*>(
+            zq + (int64_t)items * 2 * n_sp * N);
+        cudaError_t e = launch_hoist(
+            zq, vb, work + (int64_t)nl * N, (int64_t)n_t * N,
+            (int64_t)n_sp * N, N, N, 1, items * 2, n_sp, nullptr, nullptr,
+            md_qi, md_qi_sh, md_srcp, md_srcq, st);
+        if (e != cudaSuccess) return e;
         return moddown_grid<LOGN>(
-            out, work, items, nl, n_t, md_qi, md_qi_sh, md_srcp, md_srcq,
-            md_conv, md_conv_sh, md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, t_p,
-            t_twp, (cudaStream_t)stream);
+            out, work, (int64_t)n_t * N, zq, (int64_t)n_sp * N, vb, N,
+            items, nl, n_sp, md_conv, md_conv_sh, md_dmod, md_dmod_sh,
+            pinv_q, pinv_q_sh, t_p, t_twp, st);
     });
 }

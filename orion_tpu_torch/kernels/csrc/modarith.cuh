@@ -249,15 +249,27 @@ __device__ __forceinline__ void ntt_inv_row(uint32_t* s, const int64_t* itwp,
         s, reinterpret_cast<const u64*>(itwp), p, load, store);
 }
 
+// The float32 quotient f32(zq) / f32(q) of one source residue zq = z *
+// qhat_inv mod q: the fast basis conversion's v = round(sum_m quotient_m)
+// adds these in source order m = 0, 1, ... with __fadd_rn from 0.0f and
+// rounds with __float2uint_rn.  Division, sum and rounding must round as
+// IEEE float32 does on the CPU (no fast-math), or v differs by one; every
+// kernel forms v from this function in that order (fbc_one here, the
+// hoisted conversion of hoist.cuh).
+__device__ __forceinline__ float fbc_quot(uint32_t zq, float q) {
+    return __fdiv_rn(__uint2float_rn(zq), q);
+}
+
 // One coefficient of the approximate HPS fast basis conversion
 // (crypto/keyswitch.py fbc): from the alpha source residues z[m * zstride]
 // of a digit to the target prime pt.
 //   zq_m = z_m * qhat_inv_m mod q_m
 //   v    = round(sum_m f32(zq_m) / f32(q_m))        (IEEE float32, in order)
 //   out  = sum_m zq_m * conv_m - v * dmod  mod pt
-// conv[m * cstride] is [D / q_m]_pt.  The float32 sum and division must
-// round as on the CPU (no fast-math), or v differs by one.  z holds int64
-// residues or a kernel's uint32 scratch.
+// conv[m * cstride] is [D / q_m]_pt.  z holds int64 residues or a kernel's
+// uint32 scratch.  The ConjugateInvariant forms call this once per
+// coefficient and target; the standard ring's key-switch kernels compute
+// the target-invariant zq and v once per coefficient instead (hoist.cuh).
 template <class Z>
 __device__ __forceinline__ uint32_t fbc_one(
         const Z* z, int64_t zstride, int alpha, const int64_t* qi,
@@ -270,7 +282,7 @@ __device__ __forceinline__ uint32_t fbc_one(
         const uint32_t zq = shoup_mul((uint32_t)z[m * zstride],
                                       (uint32_t)qi[m], (uint32_t)qi_sh[m],
                                       (uint32_t)srcp[m]);
-        frac = __fadd_rn(frac, __fdiv_rn(__uint2float_rn(zq), srcq[m]));
+        frac = __fadd_rn(frac, fbc_quot(zq, srcq[m]));
         acc = add_mod(acc, shoup_mul(zq, (uint32_t)conv[m * cstride],
                                      (uint32_t)conv_sh[m * cstride], pt),
                       pt);
@@ -360,30 +372,6 @@ template <bool CI>
 __device__ __forceinline__ int gather_at(const int64_t* src, int g) {
     if constexpr (CI) return (int)src[g];
     else return g;
-}
-
-// Inverse row transforms of the standard ring: block (x, y) handles row
-// r = y * gridDim.x + x of a (rows, N) int64 array whose limb (table row)
-// is r % L.  in and out may alias: a block reads its whole row before its
-// first write.
-template <int LOGN>
-__global__ void __launch_bounds__(Ring<LOGN>::T)
-ntt_inv_rows(int64_t* out, const int64_t* in, int L, const int64_t* p,
-             const int64_t* itwp, const int64_t* ninv,
-             const int64_t* ninv_sh) {
-    extern __shared__ uint32_t s[];
-    constexpr int N = Ring<LOGN>::N;
-    const int64_t row = (int64_t)blockIdx.y * gridDim.x + blockIdx.x;
-    const int limb = (int)(row % L);
-    const uint32_t pl = (uint32_t)p[limb];
-    const uint32_t nv = (uint32_t)ninv[limb];
-    const uint32_t nv_sh = (uint32_t)ninv_sh[limb];
-    const int64_t* src = in + row * N;
-    int64_t* dst = out + row * N;
-    ntt_inv_row<LOGN>(
-        s, itwp + (int64_t)limb * N, pl,
-        [&](int i) { return (uint32_t)src[i]; },
-        [&](int i, uint32_t v) { dst[i] = shoup_mul(v, nv, nv_sh, pl); });
 }
 
 // Allow more than the default 48 KB of dynamic shared memory when a row

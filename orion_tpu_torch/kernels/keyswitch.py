@@ -33,6 +33,19 @@ Each has a C entry point of its own (`orion_ks_convert`, `orion_ks_inner`,
 kernels', so a sharded key-switch equals the unsharded one bit for bit.
 Standard ring only.
 
+On the standard ring the kernels hoist the digit-invariant half of every
+basis conversion (`csrc/hoist.cuh`): each source coefficient's zq = z *
+qhat_inv mod q is stored once as uint32 and each (digit, coefficient)'s
+v = round(sum_m zq_m / q_m) once as a byte, and the loops over the target
+rows read them (at most `MAX_ALPHA` source rows per digit).  In the
+unsharded kernels the inverse transforms that produce the source rows
+store zq (their n^-1 scale folded with qhat_inv: `_zq_scale`), and a pass
+between the two launches computes v, so each key-switch kernel launches
+three grids.  The sharded `ks_convert_rows` and `ks_moddown_rows` get
+their source rows as int64 coefficients and hoist zq and v in that pass,
+into scratch that the wrapper allocates behind the output
+(`hoist_bytes`).
+
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version in this module, which is the port of
 orion_tpu's jnp key-switch (`orion_tpu/crypto/keyswitch.py`), looped over
@@ -64,10 +77,14 @@ from dataclasses import dataclass, replace
 from ..crypto.modops import add_mod, sub_mod
 from ._launch import Kernel, check_residues
 from .ntt import (cluster_twiddles, ntt_fwd_plain, ntt_inv_plain,
-                  packed_twiddles)
+                  pack_twiddles, packed_twiddles, split_logc)
 
-_DECOMPOSE_SIG = "ppp" + "iiiiii" + "p" * 17
-_FINISH_SIG = "pppii" + "pppp" + "iiiiiiii" + "p" * 20
+# the most source rows of a digit, or special primes, the standard ring's
+# kernels take (csrc/hoist.cuh MAX_ALPHA: the target loops unroll over it)
+MAX_ALPHA = 8
+
+_DECOMPOSE_SIG = "ppp" + "iiiiii" + "p" * 19
+_FINISH_SIG = "pppii" + "pppp" + "iiiiiiii" + "p" * 22
 KS_DECOMPOSE = Kernel(
     "ks_decompose", "ks_decompose.cu", "orion_ks_decompose", _DECOMPOSE_SIG,
     "orion_tpu/crypto/ks_pallas.py:717 ks_decompose_pallas "
@@ -238,13 +255,50 @@ def _digit_stack(dl) -> dict:
             t["conv_sh"][d, :a] = dg.conv_shoup[:, :, 0]
             t["dmod"][d] = dg.d_mod_t[:, 0]
             t["dmod_sh"][d] = dg.d_mod_t_shoup[:, 0]
+        if dl.ci is None:
+            t["zs"], t["zs_sh"] = _zq_scale(
+                dl.t.ninv[:len(dl.q.p)],
+                torch.cat([dg.qhat_inv[:, 0] for dg in dl.digits]),
+                dl.q.p)
         kt["dig"] = t
     return kt["dig"]
 
 
+def _zq_scale(ninv, qhat_inv, p):
+    """The Shoup constants (w, w_shoup) of an inverse transform whose store
+    gives zq: w = n^-1 * qhat_inv mod p per row, so that x * w mod p =
+    (x * n^-1 mod p) * qhat_inv mod p, the coefficient's zq."""
+    w = ninv * qhat_inv % p
+    return w.contiguous(), ((w << 32) // p).contiguous()
+
+
+def hoist_bytes(polys: int, rows: int, digits: int, n: int) -> int:
+    """Bytes of the hoisted conversion's scratch over `polys` polys of
+    `rows` source rows in `digits` digits: zq (polys, rows, n) uint32,
+    then v (polys, digits, n) bytes."""
+    return polys * n * (4 * rows + digits)
+
+
+def _with_scratch(shape, nbytes, device):
+    """An int64 output of `shape` with `nbytes` of scratch behind it in
+    the same buffer (the sharded entries' hoisted conversion)."""
+    words = torch.Size(shape).numel()
+    buf = torch.empty(words + -(-nbytes // 8), dtype=torch.int64,
+                      device=device)
+    return buf[:words].view(shape)
+
+
+def _check_alpha(name, rows, what):
+    if rows > MAX_ALPHA:
+        raise ValueError(f"{name}: {rows} {what}; the kernels take at most "
+                         f"{MAX_ALPHA}")
+
+
 def ks_decompose(c_ntt, dl):
     """Digit-decompose c, (nl, N) or (B, nl, N), and extend every digit to
-    the full basis: (dnum, n_t, N) or (B, dnum, n_t, N), one launch pair."""
+    the full basis: (dnum, n_t, N) or (B, dnum, n_t, N), one launch of
+    ks_decompose.cu (its coefficient scratch holds the hoisted zq and v on
+    the standard ring)."""
     if c_ntt.device.type == "cpu":
         return ks_decompose_plain(c_ntt, dl)
     nl, n = dl.level + 1, dl.ring_n
@@ -258,6 +312,9 @@ def ks_decompose(c_ntt, dl):
     d = _digit_stack(dl)
     t = dl.t
     twp, itwp = _twiddles(dl)
+    if dl.ci is None:
+        _check_alpha(kernel.name, d["amax"], "source rows in a digit")
+        itwp = _decompose_itw(dl)
     ext = torch.empty((b, dnum, n_t, n), dtype=torch.int64,
                       device=c_ntt.device)
     coeff = torch.empty((b, nl, n), dtype=torch.int64, device=c_ntt.device)
@@ -265,8 +322,8 @@ def ks_decompose(c_ntt, dl):
         c_ntt.device, ext, coeff, c3, b, nl, n_t, dnum, d["amax"], t.logn,
         d["lo"], d["alpha"], d["qi"], d["qi_sh"], d["srcp"], d["srcq"],
         d["conv"], d["conv_sh"], d["dmod"], d["dmod_sh"], t.p, twp, itwp,
-        t.ninv, t.ninv_shoup, *_ci_maps(dl), level=dl.level, items=b,
-        grids=2)
+        t.ninv, t.ninv_shoup, d.get("zs"), d.get("zs_sh"), *_ci_maps(dl),
+        level=dl.level, items=b, grids=2 if dl.ci is not None else 3)
     return ext if batched else ext[0]
 
 
@@ -276,6 +333,17 @@ def _twiddles(dl) -> tuple:
     ring."""
     return (packed_twiddles(dl.t) if dl.ci is None
             else cluster_twiddles(dl.t))
+
+
+def _decompose_itw(dl):
+    """The inverse table of the Q rows as the standard ks_decompose's
+    launch A reads it: in the cluster split's order (cached; no forward
+    table, which the split forward of its launch B does not read)."""
+    kt = dl.q.kernel_tables
+    if "ks_itwc" not in kt:
+        kt["ks_itwc"] = pack_twiddles(dl.q.itw, dl.q.itw_shoup,
+                                      split_logc(dl.q.logn))
+    return kt["ks_itwc"]
 
 
 def _ci_maps(dl) -> tuple:
@@ -314,6 +382,8 @@ def _finish(ext, dl, ksk_data, ksk_shoup, trimmed, key_index, moddown):
                              f"int64 tensor on {dev}")
     if k < 1:
         raise ValueError(f"{name}: no items")
+    if moddown and dl.ci is None:
+        _check_alpha(name, n_t - nl, "special primes")
     e = ext.shape[0] if paired else 1
     if k % e:
         raise ValueError(f"{name}: {e} ext items for {k} keys")
@@ -340,19 +410,26 @@ def _finish(ext, dl, ksk_data, ksk_shoup, trimmed, key_index, moddown):
         dev, out, work, ext, dnum * n_t * n if paired else 0, e, pack,
         pack_sh, key_index, row_map, k, kdig, krows, nl, n_t, dnum, dl.t.logn,
         int(moddown), *_finish_tables(dl), *_ci_maps(dl), level=dl.level,
-        items=k, grids=2 if moddown else 1)
+        items=k, grids=(2 if dl.ci is not None else 3) if moddown else 1)
     res = out if moddown else work
     return res if batched else res[0]
 
 
 def _finish_tables(dl) -> tuple:
-    """The level's ks_finish tables, in the kernel's argument order."""
+    """The level's ks_finish tables, in the kernel's argument order: on the
+    standard ring with the special rows' zq constants (`_zq_scale`)."""
     t, md = dl.t, dl.moddown
     twp, itwp = _twiddles(dl)
+    kt = dl.kernel_tables
+    if "md_zs" not in kt:
+        nl = dl.level + 1
+        kt["md_zs"] = ((None, None) if dl.ci is not None else _zq_scale(
+            t.ninv[nl:], md.qhat_inv[:, 0], t.p[nl:]))
     return (t.p, dl.t_pinv, dl.t_rmod, dl.t_rshoup, twp, itwp, t.ninv,
             t.ninv_shoup, md.qhat_inv, md.qhat_inv_shoup, md.src_p,
             md.src_q_f32, md.conv, md.conv_shoup, md.d_mod_t,
-            md.d_mod_t_shoup, dl.pinv_mod_q, dl.pinv_mod_q_shoup)
+            md.d_mod_t_shoup, dl.pinv_mod_q, dl.pinv_mod_q_shoup,
+            *kt["md_zs"])
 
 
 def ks_finish(ext, dl, ksk_data, ksk_shoup=None, trimmed=False,
@@ -453,7 +530,8 @@ def ks_convert_rows_plain(coeff, dl, blk):
 def ks_convert_rows(coeff, dl, blk: RowBlock):
     """Convert every digit of coeff (B, nl, N), the coefficients of all Q
     rows, onto the block's rows: ext (B, dnum, rows, N), NTT domain.  On
-    the card the `orion_ks_convert` launch (ks_decompose's grid B)."""
+    the card the `orion_ks_convert` launch: the hoisting prologue, then
+    ks_decompose's grid B (ext's buffer carries the scratch)."""
     if coeff.device.type == "cpu":
         return ks_convert_rows_plain(coeff, dl, blk)
     k = KS_CONVERT_ROWS
@@ -461,13 +539,14 @@ def ks_convert_rows(coeff, dl, blk: RowBlock):
     b, rows, dnum = coeff.shape[0], blk.hi - blk.lo, len(dl.digits)
     check_residues(k.name, coeff, (b, nl, n))
     d = blk.dig
-    ext = torch.empty((b, dnum, rows, n), dtype=torch.int64,
-                      device=coeff.device)
+    _check_alpha(k.name, d["amax"], "source rows in a digit")
+    ext = _with_scratch((b, dnum, rows, n), hoist_bytes(b, nl, dnum, n),
+                        coeff.device)
     k.launch(coeff.device, ext, coeff, b, nl, rows, dnum, d["amax"],
              blk.rows.logn, d["lo"], d["alpha"], d["qi"], d["qi_sh"],
              d["srcp"], d["srcq"], d["conv"], d["conv_sh"], d["dmod"],
              d["dmod_sh"], blk.rows.p, packed_twiddles(blk.rows)[0],
-             level=dl.level, items=b)
+             level=dl.level, items=b, grids=2)
     return ext
 
 
@@ -557,7 +636,9 @@ def ks_moddown_rows(x, dl, blk: RowBlock):
     """ModDown onto the block's Q rows: x (K, 2, nq + n_sp, N) holds the
     block's nq Q rows (NTT domain), then the level's n_sp special rows in
     the coefficient domain; returns (K, 2, nq, N), NTT domain.  On the
-    card the `orion_ks_moddown` launch (ks_finish's grid B)."""
+    card the `orion_ks_moddown` launch: the hoisting prologue over the
+    special rows, then ks_finish's grid B (the output's buffer carries the
+    scratch)."""
     if blk.nq == 0:
         raise ValueError("ks_moddown_rows: the block holds no Q row")
     if x.device.type == "cpu":
@@ -566,12 +647,13 @@ def ks_moddown_rows(x, dl, blk: RowBlock):
     n_sp, n = dl.s.p.shape[0], dl.ring_n
     items = x.shape[0]
     check_residues(k.name, x, (items, 2, blk.nq + n_sp, n))
-    out = torch.empty((items, 2, blk.nq, n), dtype=torch.int64,
-                      device=x.device)
+    _check_alpha(k.name, n_sp, "special primes")
+    out = _with_scratch((items, 2, blk.nq, n),
+                        hoist_bytes(2 * items, n_sp, 1, n), x.device)
     md, q = blk.moddown, blk.q_rows
     k.launch(x.device, out, x, items, blk.nq, blk.nq + n_sp, q.logn,
              md.qhat_inv, md.qhat_inv_shoup, md.src_p, md.src_q_f32,
              md.conv, md.conv_shoup, md.d_mod_t, md.d_mod_t_shoup,
              blk.pinv_mod_q, blk.pinv_mod_q_shoup, q.p,
-             packed_twiddles(q)[0], level=dl.level, items=items)
+             packed_twiddles(q)[0], level=dl.level, items=items, grids=2)
     return out
