@@ -14,7 +14,7 @@ stderr and exits 1:
      key-switch kernels' ConjugateInvariant forms at each lift size (more
      than one at LogN 13 and 14, or the run fails), and the device
      kernels of one key-switch from a profile (ks_decompose's and
-     ks_finish's three grids each, or the run fails);
+     ks_finish's two grids each, or the run fails);
   2. each hand-written kernel against its plain PyTorch version on the
      card (N = 8192) at every level of configs/mlp.yml (0-5), of
      configs/lenet.yml (0-7, 4 digits at levels 6-7) and at levels 1-43
@@ -372,15 +372,16 @@ def drop_work(groups, n_div, l, n, fbc, lift=None):
 
 
 def decompose_work(nl, n_t, dnum, alpha, n, lift=None):
-    """The function's work: the conversion's digit-invariant product (zq =
-    z * qhat_inv) once per source coefficient, beside the inverse's n^-1
-    scale; per target coefficient alpha products, one for v * dmod."""
+    """The function's work: the inverse's butterflies, one product per
+    source coefficient for its n^-1 scale and the conversion's zq = z *
+    qhat_inv together (one constant n^-1 * qhat_inv); per target
+    coefficient alpha products, one for v * dmod."""
     lift = lift or n
     i_prods, i_words = inv_work(n, lift)
     f_prods, f_words = fwd_work(n, lift)
     # c, ext, the inverse tables of the nl Q rows, the forward of n_t rows
     nbytes = 8 * n * (nl + dnum * n_t) + 8 * (nl * i_words + n_t * f_words)
-    ops = (3 * nl * i_prods + 3 * nl * n + 3 * nl * n
+    ops = (3 * nl * i_prods + 3 * nl * n
            + dnum * n_t * n * (3 * alpha + 3)
            + 3 * dnum * n_t * f_prods)
     return nbytes, ops
@@ -410,9 +411,10 @@ def finish_work(nl, n_t, dnum, n, lean, items=1, paired=False,
     f_prods, f_words = fwd_work(n, lift)
     nbytes = 8 * (ext_words + key_words + items * 2 * nl * n
                   + n_sp * i_words + nl * f_words)
-    # ModDown's zq product once per special coefficient, then n_sp + 1
-    # products per Q coefficient
-    ops += items * (2 * n_sp * (3 * i_prods + 3 * n + 3 * n)
+    # the special rows' inverse, its n^-1 scale and ModDown's zq one
+    # product per special coefficient, then n_sp + 1 products per Q
+    # coefficient
+    ops += items * (2 * n_sp * (3 * i_prods + 3 * n)
                     + 2 * nl * n * (3 * n_sp + 3)
                     + 2 * nl * (3 * f_prods + 3 * n))
     return nbytes, ops
@@ -781,7 +783,7 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
 
 OUR_KERNELS = ("ntt_fwd_cluster", "ntt_inv_cluster", "ntt_inv_zq",
                "fbc_ntt_digits", "ks_inner_intt", "moddown_rows",
-               "hoist_digits", "drop_intt_rows", "drop_lift_ntt",
+               "hoist_zq", "drop_intt_rows", "drop_lift_ntt",
                "rescale_lift_ntt")
 # kernels that no standard-ring forward of phases 3-4 launches: the generic
 # transforms serve PallasNTT and ring_ntt, rescale_ntt is rescale_poly's
@@ -808,10 +810,9 @@ def ring_kernels(ring):
 def launched_grids():
     """Device kernels by name that the port's wrappers launched since the
     counts were last set to 0: ntt_inv_zq is ks_decompose's first grid
-    (ntt_inv_cluster its CI form's), moddown_rows ks_finish's last
-    (ks_finish_raw has none); on the standard ring hoist_digits runs
-    between the two in both; the sharded entries launch one of these
-    grids each, ks_convert_rows and ks_moddown_rows after a hoist_digits
+    (ntt_inv_cluster its CI form's), moddown_rows ks_finish's second
+    (ks_finish_raw has none); the sharded entries launch one of these
+    grids each, ks_convert_rows and ks_moddown_rows after a hoist_zq
     pass.  A kernel's CI form is the same device kernel (its
     `CI = true` instantiation) or, for the key-switch kernels, one named
     after it (`fbc_ntt_digits_ci`, `ks_inner_intt_ci`, `moddown_rows_ci`,
@@ -820,9 +821,8 @@ def launched_grids():
 
     dec = k.KS_DECOMPOSE.launches + k.KS_DECOMPOSE_CI.launches
     fin = k.KS_FINISH.launches + k.KS_FINISH_CI.launches
-    # launches with ModDown: three grids each on the standard ring, two on
-    # the CI ring, one without
-    md = ((k.KS_FINISH.grids - k.KS_FINISH.launches) // 2
+    # launches with ModDown: two grids each, one without
+    md = (k.KS_FINISH.grids - k.KS_FINISH.launches
           + k.KS_FINISH_CI.grids - k.KS_FINISH_CI.launches)
     sharded = k.KS_CONVERT_ROWS.launches + k.KS_MODDOWN_ROWS.launches
     return {"ntt_fwd_cluster": k.NTT_FWD.grids + k.NTT_FWD_CI.grids,
@@ -833,9 +833,7 @@ def launched_grids():
             "fbc_ntt_digits": dec + k.KS_CONVERT_ROWS.launches,
             "ks_inner_intt": fin + k.KS_INNER_ROWS.grids,
             "moddown_rows": md + k.KS_MODDOWN_ROWS.launches,
-            "hoist_digits": (k.KS_DECOMPOSE.launches
-                             + (k.KS_FINISH.grids - k.KS_FINISH.launches) // 2
-                             + sharded),
+            "hoist_zq": sharded,
             "drop_intt_rows": k.DROP_INTT.grids + k.DROP_INTT_CI.grids,
             "drop_lift_ntt": k.DROP_NTT.grids,
             "rescale_lift_ntt": k.RESCALE_NTT.grids + k.RESCALE_NTT_CI.grids}
@@ -1407,7 +1405,8 @@ def _cts_digest(t):
     return h.hexdigest()
 
 
-def check_net(cfg, name, title, build, batch=1, extra=False, turn=None):
+def check_net(cfg, name, title, build, batch=1, extra=False, turn=None,
+              more_steady=0):
     """One bootstrapped net through the user entry points on cuda, from a
     fresh scheme: `build()` makes the net after the weight generator is
     reset to the seed orion_tpu's examples start from, one synthetic
@@ -1428,7 +1427,8 @@ def check_net(cfg, name, title, build, batch=1, extra=False, turn=None):
     one.  With `extra` (ResNet-20), `check_noise_and_resident` then runs
     the noise profile and the forwards with every buffer resident.  With
     `turn` (a process of its own: `net_process`) it calls turn() after
-    the compile and runs the forwards once that returns."""
+    the compile and runs the forwards once that returns.  With
+    `more_steady` it times that many more steady forwards last."""
     import orion_tpu_torch as orion
     from orion_tpu_torch import kernels
     from orion_tpu_torch.nn import linear
@@ -1607,6 +1607,16 @@ def check_net(cfg, name, title, build, batch=1, extra=False, turn=None):
         rec["extra"] = check_noise_and_resident(scheme, net, name, inp,
                                                 input_level, ct, out,
                                                 steady_s)
+    if more_steady:
+        rec["more_steady_s"] = []
+        for _ in range(more_steady):
+            t0 = time.perf_counter()
+            net(ct)
+            torch.cuda.synchronize()
+            rec["more_steady_s"].append(time.perf_counter() - t0)
+        print(f"  {more_steady} more steady forwards: "
+              + ", ".join(f"{t:.2f}" for t in rec["more_steady_s"]) + " s",
+              flush=True)
     orion.delete_scheme()
     return rec
 
@@ -1798,18 +1808,20 @@ def check_net_batch(scheme, net, name, cts, serial, out_clear, boots,
             "batches": batches, "profile": pr}
 
 
-def check_resnet(cfg, blocks=(3, 3, 3), batch=1, extra=False):
+def check_resnet(cfg, blocks=(3, 3, 3), batch=1, extra=False,
+                 more_steady=0):
     """ResNet-20 (or, with blocks (1, 1, 1), the same widths with one
     block per stage), with batch > 1 its batched forward (phase 8), with
     `extra` its noise profile and its forwards with every buffer
-    resident."""
+    resident, with `more_steady` that many more steady forwards timed."""
     from orion_tpu_torch.models import resnet
 
     name = "ResNet-20" if tuple(blocks) == (3, 3, 3) else f"ResNet{blocks}"
     rec = check_net(
         cfg, name, f"phase 6: {name} (widths 16/32/64) on configs/resnet.yml",
         lambda: resnet._make("cifar10", resnet.BasicBlock, list(blocks),
-                             [16, 32, 64]), batch=batch, extra=extra)
+                             [16, 32, 64]), batch=batch, extra=extra,
+        more_steady=more_steady)
     rec["blocks"] = list(blocks)
     return rec
 
@@ -3113,14 +3125,14 @@ def print_ptxas(libs):
 
 
 # the kernels of the standard key-switch's hoisted conversion
-HOISTED = ("ntt_inv_zq", "hoist_digits", "fbc_ntt_digits", "ks_inner_intt",
+HOISTED = ("ntt_inv_zq", "hoist_zq", "fbc_ntt_digits", "ks_inner_intt",
            "moddown_rows")
 
 
 def keyswitch_launches(cfg):
     """Phase 1: the device kernels of one key-switch (ks_decompose, then
     ks_finish with ModDown) at the config's top level, from a profile;
-    the run fails unless they are the three grids of each kernel."""
+    the run fails unless they are the two grids of each kernel."""
     from orion_tpu_torch.crypto import KeyChest
     from orion_tpu_torch.crypto.keyswitch import dev_level
     from orion_tpu_torch.kernels import keyswitch as kks
@@ -3137,11 +3149,9 @@ def keyswitch_launches(cfg):
             if any(o in n for o in OUR_KERNELS)]
     print(f"phase 1: launches per key-switch ({cfg_name('mlp')} level "
           f"{dl.level}): {len(ours)} device kernels, {', '.join(ours)} "
-          f"(4 before the hoisted conversion: no hoist_digits; the "
-          f"limb-sharded ks_convert_rows and ks_moddown_rows run "
-          f"hoist_digits before their grid)", flush=True)
-    want = ["ntt_inv_zq", "hoist_digits", "fbc_ntt_digits", "ks_inner_intt",
-            "hoist_digits", "moddown_rows"]
+          f"(the limb-sharded ks_convert_rows and ks_moddown_rows run "
+          f"hoist_zq before their grid)", flush=True)
+    want = ["ntt_inv_zq", "fbc_ntt_digits", "ks_inner_intt", "moddown_rows"]
     if ours != want:
         fail(f"one key-switch ran {ours}, not {want}")
 

@@ -2,22 +2,31 @@
 """The standard ring's key-switch kernels before and after the hoisted
 conversion, on one GPU.
 
-    python3 tools/ks_keyswitch_ab.py --unpack [--parent REV]   (needs git)
-    python3 tools/ks_keyswitch_ab.py [--no-resnet]             (on the GPU)
+    python3 tools/ks_keyswitch_ab.py --unpack          (needs git)
+    python3 tools/ks_keyswitch_ab.py [--order T,T,...] [--no-resnet]
+                                                       (on the GPU)
 
 `ks_decompose` and `ks_finish` (orion_tpu_torch/kernels/csrc/
 ks_decompose.cu, ks_finish.cu) computed each source coefficient's zq =
-z * qhat_inv and the float32 v-correction of the fast basis conversion
-again for every target row; they now compute both once per coefficient
-(csrc/hoist.cuh), and the target loops read them.  `--unpack` writes
-`git archive REV` (default d81e59b, the last tree before the hoist) to
-build/ks_ab/parent/; the run on the GPU then compares that parent with
-this checkout, each in its own process, in the order parent change change
-parent.  Each run prints one line `AB {...}` beside the card's name and
-power limit: ptxas' registers and spills of the
-key-switch kernels at LogN 13; device ms per call (chip_smoke.py
-`device_ms`: calls queued behind a sleep kernel), each call held bit for
-bit against its plain version, of
+z * qhat_inv and the float32 quotient zq / q of the fast basis
+conversion again for every target row; they now compute both once per
+coefficient (csrc/hoist.cuh), and the target loops read them.  Three
+trees are compared:
+  - parent (d81e59b): the last tree before the hoist, two grids per
+    kernel;
+  - pass (17f1e49): the hoist with a pass between the grids that sums
+    each digit's quotients into v, stored as one byte (three grids per
+    kernel);
+  - change: this checkout, the quotients stored beside zq and summed in
+    the target loops (two grids per kernel).
+`--unpack` writes `git archive REV` of each tree but this one to
+build/ks_ab/<tree>/; the run on the GPU measures each tree in its own
+process in the order given (default parent pass change change pass
+parent).  Each run prints one line `AB {...}` beside the card's name and
+power limit: ptxas' registers and spills of the key-switch kernels at
+LogN 13; device ms per call (chip_smoke.py `device_ms`: calls queued
+behind a sleep kernel), each call held bit for bit against its plain
+version, of
   - ks_decompose at configs/lenet.yml level 7 and configs/resnet.yml
     levels 1, 7, 17 and 43 (one poly), at resnet level 3 over B = 63 and
     B = 126 polys (ResNet-20's largest batches at B = 1 and 2 queries);
@@ -26,9 +35,11 @@ bit against its plain version, of
     (shared ext), its 126 items grouped by 2 queries (ResNet-20 at B = 2)
     and 120 items over 15 Shoup keys grouped by 8 queries at
     configs/mlp.yml level 1 (the MLP at B = 8);
-the device ms by device kernel of one profiled call of each; and
-(without --no-resnet) ResNet-20 on configs/resnet.yml through the user
-entry points (chip_smoke.py `check_resnet`): MAE, first and steady walls,
+the device ms by device kernel of one profiled call of each, and the
+host's ms to issue each call (`issue_ms`: 50 calls queued back to back,
+timed on the host clock before the device is waited for); and (without
+--no-resnet) ResNet-20 on configs/resnet.yml through the user entry
+points (chip_smoke.py `check_resnet`): MAE, first and four steady walls,
 the profiled forward's device time by kernel and its busy share, and a
 digest of the output ciphertexts, which must be equal in every tree.  The
 last lines give each case's device ms per run and tree.  chip_smoke.py
@@ -46,21 +57,24 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 OUT = ROOT / "build" / "ks_ab"
-# the key-switch kernels' device kernels, both designs
+# the key-switch kernels' device kernels, every design
 KS_GRIDS = ("ntt_inv_rows", "ntt_inv_zq", "fbc_ntt_digits",
-            "ks_inner_intt", "moddown_rows", "hoist_digits")
-ORDER = ("parent", "change", "change", "parent")
+            "ks_inner_intt", "moddown_rows", "hoist_digits", "hoist_zq")
+TREES = {"parent": "d81e59b", "pass": "17f1e49"}
+ORDER = "parent,pass,change,change,pass,parent"
+ISSUE_ITERS = 50
 
 
-def unpack(rev):
-    dest = OUT / "parent"
-    shutil.rmtree(dest, ignore_errors=True)
-    dest.mkdir(parents=True)
-    archive = subprocess.run(["git", "archive", rev], cwd=ROOT,
-                             capture_output=True, check=True).stdout
-    subprocess.run(["tar", "-x", "-C", str(dest)], input=archive,
-                   check=True)
-    print(f"unpacked {rev} to {dest}", flush=True)
+def unpack():
+    for tree, rev in TREES.items():
+        dest = OUT / tree
+        shutil.rmtree(dest, ignore_errors=True)
+        dest.mkdir(parents=True)
+        archive = subprocess.run(["git", "archive", rev], cwd=ROOT,
+                                 capture_output=True, check=True).stdout
+        subprocess.run(["tar", "-x", "-C", str(dest)], input=archive,
+                       check=True)
+        print(f"unpacked {rev} to {dest}", flush=True)
 
 
 def chip_smoke():
@@ -194,6 +208,25 @@ def cases(cs, cfgs, stats):
     return calls
 
 
+def issue_ms(calls):
+    """Host ms to issue one call of each: ISSUE_ITERS calls queued back to
+    back after a warm-up, on the host clock, before the device is waited
+    for (their few hundred launches stay within the launch queue)."""
+    import torch
+
+    out = {}
+    for what, fn in calls.items():
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ISSUE_ITERS):
+            fn()
+        out[what] = (time.perf_counter() - t0) * 1e3 / ISSUE_ITERS
+        torch.cuda.synchronize()
+    return out
+
+
 def kernel_split(cs, calls):
     """Device ms by device kernel of one profiled call of each."""
     from torch.profiler import ProfilerActivity
@@ -214,10 +247,11 @@ def kernel_split(cs, calls):
 
 def resnet(cs, cfg):
     """ResNet-20 through the user entry points; its profile by kernel."""
-    rec = cs.check_resnet(cfg)
+    rec = cs.check_resnet(cfg, more_steady=3)
     pr = rec["profile"]
     return {"mae": rec["mae"], "first_s": rec["first_s"],
-            "steady_s": rec["steady_s"], "compile_s": rec["compile_s"],
+            "steady_s": [rec["steady_s"]] + rec["more_steady_s"],
+            "compile_s": rec["compile_s"],
             "profiled_wall_ms": pr["wall_ms"], "device_ms": pr["device_ms"],
             "busy_share": pr["busy_share"], "device_ops": pr["device_ops"],
             "port_kernels_ms": pr["our_kernels_ms"],
@@ -243,24 +277,35 @@ def measure(label, with_resnet):
                          f"{orion_tpu_torch.__file__}, not from {tree}")
     cs = chip_smoke()
     csrc = tree / "orion_tpu_torch" / "kernels" / "csrc"
+    grids = cs.launched_grids
     if "ntt_inv_zq" not in (csrc / "ks_decompose.cu").read_text():
         # a tree before the hoist: ks_decompose's first grid is
-        # ntt_inv_rows, and no kernel runs the hoisting pass
+        # ntt_inv_rows; two grids per kernel, no pass
         cs.OUR_KERNELS = tuple("ntt_inv_rows" if k == "ntt_inv_zq"
                                else k for k in cs.OUR_KERNELS)
-        grids = cs.launched_grids
+
+        def launched_grids():
+            g = grids()
+            g["ntt_inv_rows"] = g.pop("ntt_inv_zq")
+            return g
+        cs.launched_grids = launched_grids
+    elif "hoist_digits" in (csrc / "hoist.cuh").read_text():
+        # the pass design: hoist_digits between the two grids of each
+        # standard kernel with ModDown (three grids each) and before the
+        # sharded entries' grid
+        cs.OUR_KERNELS = tuple("hoist_digits" if k == "hoist_zq"
+                               else k for k in cs.OUR_KERNELS)
 
         def launched_grids():
             from orion_tpu_torch import kernels as k
 
             g = grids()
-            g["ntt_inv_rows"] = g.pop("ntt_inv_zq")
-            # two grids per key-switch kernel with ModDown, no pass
-            g["moddown_rows"] = (k.KS_FINISH.grids - k.KS_FINISH.launches
-                                 + k.KS_FINISH_CI.grids
+            md = (k.KS_FINISH.grids - k.KS_FINISH.launches) // 2
+            g["moddown_rows"] = (md + k.KS_FINISH_CI.grids
                                  - k.KS_FINISH_CI.launches
                                  + k.KS_MODDOWN_ROWS.launches)
-            g["hoist_digits"] = 0
+            g["hoist_digits"] = (k.KS_DECOMPOSE.launches + md
+                                 + g.pop("hoist_zq"))
             return g
         cs.launched_grids = launched_grids
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -278,6 +323,7 @@ def measure(label, with_resnet):
     stats = {}
     calls = cases(cs, cfgs, stats)
     rec["kernel_ms"] = kernel_split(cs, calls)
+    rec["issue_ms"] = issue_ms(calls)
     rec["cases"] = {r["label"] + f" [{name}]": {
         "device_ms": r["device_ms"], "ms": r["ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -295,14 +341,15 @@ def measure(label, with_resnet):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--unpack", action="store_true",
-                    help="unpack the parent tree (needs git) and stop")
-    ap.add_argument("--parent", default="d81e59b")
+                    help="unpack the other trees (needs git) and stop")
+    ap.add_argument("--order", default=ORDER,
+                    help="the runs, by tree (parent, pass, change)")
     ap.add_argument("--no-resnet", action="store_true",
                     help="leave out ResNet-20's forward")
     ap.add_argument("--measure", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.unpack:
-        unpack(args.parent)
+        unpack()
         return 0
     if args.measure:
         return measure(args.measure, not args.no_resnet)
@@ -311,13 +358,16 @@ def main():
     if not torch.cuda.is_available():
         print("ks_keyswitch_ab: no CUDA device", file=sys.stderr)
         return 1
-    if not (OUT / "parent" / "orion_tpu_torch").is_dir():
-        print(f"ks_keyswitch_ab: no parent tree in {OUT / 'parent'}: run "
-              f"with --unpack where git is first", file=sys.stderr)
-        return 1
-    dirs = {"parent": OUT / "parent", "change": ROOT}
+    order = args.order.split(",")
+    dirs = {t: OUT / t for t in TREES}
+    dirs["change"] = ROOT
+    for t in order:
+        if t not in dirs or not (dirs[t] / "orion_tpu_torch").is_dir():
+            print(f"ks_keyswitch_ab: no {t} tree in {dirs.get(t)}: run with "
+                  f"--unpack where git is first", file=sys.stderr)
+            return 1
     runs = []
-    for label in ORDER:
+    for label in order:
         cmd = [sys.executable, str(Path(__file__).resolve()), "--measure",
                label] + (["--no-resnet"] if args.no_resnet else [])
         proc = subprocess.Popen(cmd, cwd=dirs[label], stdout=subprocess.PIPE,
@@ -352,11 +402,15 @@ def main():
         for call, by in r["kernel_ms"].items():
             for kernel, ms in by.items():
                 add(f"{call}: {kernel}", r["tree"], ms)
+        for call, ms in r["issue_ms"].items():
+            add(f"{call}: issue_ms", r["tree"], ms)
         res = r.get("resnet")
         if res:
             for key in ("device_ms", "port_kernels_ms", "profiled_wall_ms",
-                        "first_s", "steady_s", "busy_share"):
+                        "first_s", "busy_share"):
                 add(f"ResNet-20 {key}", r["tree"], res[key])
+            for t in res["steady_s"]:
+                add("ResNet-20 steady_s", r["tree"], t)
             for kernel, ms in res["by_kernel"].items():
                 add(f"ResNet-20 {kernel} ms", r["tree"], ms)
     for case, by in summary.items():
