@@ -14,7 +14,7 @@ stderr and exits 1:
      key-switch kernels' ConjugateInvariant forms at each lift size (more
      than one at LogN 13 and 14, or the run fails), and the device
      kernels of one key-switch from a profile (ks_decompose's and
-     ks_finish's two grids each, or the run fails);
+     ks_finish's three grids each, or the run fails);
   2. each hand-written kernel against its plain PyTorch version on the
      card (N = 8192) at every level of configs/mlp.yml (0-5), of
      configs/lenet.yml (0-7, 4 digits at levels 6-7) and at levels 1-43
@@ -783,7 +783,7 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
 
 OUR_KERNELS = ("ntt_fwd_cluster", "ntt_inv_cluster", "ntt_inv_zq",
                "fbc_ntt_digits", "ks_inner_intt", "moddown_rows",
-               "hoist_zq", "drop_intt_rows", "drop_lift_ntt",
+               "hoist_digits", "drop_intt_rows", "drop_lift_ntt",
                "rescale_lift_ntt")
 # kernels that no standard-ring forward of phases 3-4 launches: the generic
 # transforms serve PallasNTT and ring_ntt, rescale_ntt is rescale_poly's
@@ -810,9 +810,10 @@ def ring_kernels(ring):
 def launched_grids():
     """Device kernels by name that the port's wrappers launched since the
     counts were last set to 0: ntt_inv_zq is ks_decompose's first grid
-    (ntt_inv_cluster its CI form's), moddown_rows ks_finish's second
-    (ks_finish_raw has none); the sharded entries launch one of these
-    grids each, ks_convert_rows and ks_moddown_rows after a hoist_zq
+    (ntt_inv_cluster its CI form's), moddown_rows ks_finish's last
+    (ks_finish_raw has none); on the standard ring hoist_digits runs
+    between the two in both; the sharded entries launch one of these
+    grids each, ks_convert_rows and ks_moddown_rows after a hoist_digits
     pass.  A kernel's CI form is the same device kernel (its
     `CI = true` instantiation) or, for the key-switch kernels, one named
     after it (`fbc_ntt_digits_ci`, `ks_inner_intt_ci`, `moddown_rows_ci`,
@@ -821,8 +822,9 @@ def launched_grids():
 
     dec = k.KS_DECOMPOSE.launches + k.KS_DECOMPOSE_CI.launches
     fin = k.KS_FINISH.launches + k.KS_FINISH_CI.launches
-    # launches with ModDown: two grids each, one without
-    md = (k.KS_FINISH.grids - k.KS_FINISH.launches
+    # launches with ModDown: three grids each on the standard ring, two on
+    # the CI ring, one without
+    md = ((k.KS_FINISH.grids - k.KS_FINISH.launches) // 2
           + k.KS_FINISH_CI.grids - k.KS_FINISH_CI.launches)
     sharded = k.KS_CONVERT_ROWS.launches + k.KS_MODDOWN_ROWS.launches
     return {"ntt_fwd_cluster": k.NTT_FWD.grids + k.NTT_FWD_CI.grids,
@@ -833,7 +835,9 @@ def launched_grids():
             "fbc_ntt_digits": dec + k.KS_CONVERT_ROWS.launches,
             "ks_inner_intt": fin + k.KS_INNER_ROWS.grids,
             "moddown_rows": md + k.KS_MODDOWN_ROWS.launches,
-            "hoist_zq": sharded,
+            "hoist_digits": (k.KS_DECOMPOSE.launches
+                             + (k.KS_FINISH.grids - k.KS_FINISH.launches) // 2
+                             + sharded),
             "drop_intt_rows": k.DROP_INTT.grids + k.DROP_INTT_CI.grids,
             "drop_lift_ntt": k.DROP_NTT.grids,
             "rescale_lift_ntt": k.RESCALE_NTT.grids + k.RESCALE_NTT_CI.grids}
@@ -3125,14 +3129,14 @@ def print_ptxas(libs):
 
 
 # the kernels of the standard key-switch's hoisted conversion
-HOISTED = ("ntt_inv_zq", "hoist_zq", "fbc_ntt_digits", "ks_inner_intt",
+HOISTED = ("ntt_inv_zq", "hoist_digits", "fbc_ntt_digits", "ks_inner_intt",
            "moddown_rows")
 
 
 def keyswitch_launches(cfg):
     """Phase 1: the device kernels of one key-switch (ks_decompose, then
     ks_finish with ModDown) at the config's top level, from a profile;
-    the run fails unless they are the two grids of each kernel."""
+    the run fails unless they are the three grids of each kernel."""
     from orion_tpu_torch.crypto import KeyChest
     from orion_tpu_torch.crypto.keyswitch import dev_level
     from orion_tpu_torch.kernels import keyswitch as kks
@@ -3149,9 +3153,11 @@ def keyswitch_launches(cfg):
             if any(o in n for o in OUR_KERNELS)]
     print(f"phase 1: launches per key-switch ({cfg_name('mlp')} level "
           f"{dl.level}): {len(ours)} device kernels, {', '.join(ours)} "
-          f"(the limb-sharded ks_convert_rows and ks_moddown_rows run "
-          f"hoist_zq before their grid)", flush=True)
-    want = ["ntt_inv_zq", "fbc_ntt_digits", "ks_inner_intt", "moddown_rows"]
+          f"(4 before the hoisted conversion: no hoist_digits; the "
+          f"limb-sharded ks_convert_rows and ks_moddown_rows run "
+          f"hoist_digits before their grid)", flush=True)
+    want = ["ntt_inv_zq", "hoist_digits", "fbc_ntt_digits", "ks_inner_intt",
+            "hoist_digits", "moddown_rows"]
     if ours != want:
         fail(f"one key-switch ran {ours}, not {want}")
 

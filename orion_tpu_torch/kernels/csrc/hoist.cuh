@@ -7,28 +7,30 @@
 // dmod mod pt.  Only the last sum depends on the target.  A key-switch
 // converts every coefficient to n_t targets (ks_decompose: 50 rows at
 // configs/resnet.yml's level 43) or nl (ModDown: 44), so computing zq and
-// the quotients there once per target repeated a Shoup product and an
-// IEEE division per source residue n_t times.  Here the kernel whose
-// inverse transform produces a source coefficient stores, once:
-//   - zq as uint32, from the transform's store (its n^-1 scale and
-//     qhat_inv folded into one Shoup constant, so the store costs what the
-//     scale did);
-//   - the float32 quotient fbc_quot(zq, q) of its row (in the store, or
-//     in a loop after the transform where the store's registers run out);
-// and the target loops (fbc_target) sum a digit's alpha quotients with
-// __fadd_rn in source order from 0.0f, round by __float2uint_rn (v, as
-// fbc_one and the CPU form it, bit for bit), then do alpha Shoup
-// products, alpha modular adds and one Shoup product for v * dmod.  No
-// pass sits between the two launches of a kernel.  The limb-sharded
-// entries, whose source rows arrive as int64 coefficients, store zq and
-// the quotients in a prologue pass (hoist_zq).
+// v there once per target repeated a Shoup product, an IEEE division and
+// a float add per source residue n_t times.  Here they are computed once:
+//   - zq as uint32, one word per source coefficient, stored by the inverse
+//     transform that produces the coefficient (its n^-1 scale and qhat_inv
+//     folded into one Shoup constant, so the store costs what the scale
+//     did);
+//   - v as one byte per (digit, coefficient), v <= alpha <= MAX_ALPHA, by
+//     hoist_digits, a pass of one thread per (coefficient, digit, poly)
+//     between the inverse transforms and the target loops: a digit's alpha
+//     rows come from alpha transforms that run in no order, so their
+//     quotients meet at a launch boundary;
+// and the target loops (fbc_target) do alpha Shoup products, alpha
+// modular adds and one Shoup product for v * dmod.  v is the float32 sum
+// of fbc_quot in source order from 0.0f, rounded by __float2uint_rn, so it
+// is fbc_one's (and the CPU's) bit for bit.  The limb-sharded entries,
+// whose source rows arrive as int64 coefficients, run hoist_digits on
+// them, zq included.
 //
-// (Two other designs summed a digit's quotients once, into v: the blocks
-// of one digit a thread-block cluster exchanging them through distributed
-// shared memory, slower at batch (clusters of 4-6 CTAs of 1024 threads
-// left SMs of each GPC idle); and a pass of one thread per (coefficient,
-// digit, poly) storing v as a byte, one more launch per kernel.  PERF.md,
-// Findings, compares them.)
+// (A first design summed the quotients inside the inverse transforms'
+// launch, the blocks of one digit a thread-block cluster exchanging them
+// through distributed shared memory.  On the H100 the batched calls ran
+// slower than without the hoist: clusters of 4-6 CTAs of 1024 threads
+// left SMs of each GPC idle, and the inverse's extra registers halved its
+// blocks per SM.)
 #pragma once
 
 #include "modarith.cuh"
@@ -36,43 +38,8 @@
 namespace orion {
 
 // The most source rows of one digit (alpha, or ModDown's special primes)
-// the target loops take: they unroll over it (kernels/keyswitch.py
-// MAX_ALPHA).
+// the target loops take: they unroll over it.
 constexpr int MAX_ALPHA = 8;
-
-// The hoisted half of `rows` source rows of one poly, in rows * n int64
-// words of scratch: zq (rows, n) uint32, then the quotients (rows, n)
-// float32; row r's values at zq + r * n and qf + r * n.  ks_decompose keeps
-// it in its coefficient scratch (poly b's nl Q rows), ks_finish in each
-// work poly's special rows, and the limb-sharded entries behind their
-// outputs (kernels/keyswitch.py hoist_words: polys * rows * n words).
-struct Hoisted {
-    uint32_t* zq;
-    float* qf;
-};
-struct HoistedIn {
-    const uint32_t* zq;
-    const float* qf;
-};
-
-__host__ __device__ inline Hoisted hoisted(int64_t* words, int rows,
-                                           int n) {
-    uint32_t* zq = reinterpret_cast<uint32_t*>(words);
-    return {zq, reinterpret_cast<float*>(zq + (int64_t)rows * n)};
-}
-
-__host__ __device__ inline HoistedIn hoisted(const int64_t* words, int rows,
-                                             int n) {
-    const uint32_t* zq = reinterpret_cast<const uint32_t*>(words);
-    return {zq, reinterpret_cast<const float*>(zq + (int64_t)rows * n)};
-}
-
-// Store source coefficient i of row r: zq and its quotient by q.
-__device__ __forceinline__ void hoist_store(Hoisted h, int64_t at,
-                                            uint32_t zq, float q) {
-    h.zq[at] = zq;
-    h.qf[at] = fbc_quot(zq, q);
-}
 
 // A digit's conversion constants onto one target, packed conv | conv_sh
 // << 32, into shared memory cw[m] (m < alpha) by the block's first
@@ -90,42 +57,39 @@ __device__ __forceinline__ void stage_conv(u64* cw, const int64_t* conv,
                 | (u64)(uint32_t)conv_sh[m * stride] << 32;
 }
 
-// The target half of one coefficient's conversion from the hoisted zq and
-// quotients of its digit (rows n apart): v = round(sum_m qf_m), summed in
-// source order as fbc_one does, then sum_m zq_m * conv_m - v * dmod mod
-// pt, the constants staged in cw.
+// The target half of one coefficient's conversion: sum_m zq[m * zstride] *
+// conv_m - v * dmod mod pt, from the hoisted zq (uint32) and v, the
+// constants staged in cw.
 __device__ __forceinline__ uint32_t fbc_target(
-        const uint32_t* zq, const float* qf, int64_t n, int alpha,
+        const uint32_t* zq, int64_t zstride, uint32_t v, int alpha,
         const u64* cw, uint32_t dmod, uint32_t dmod_sh, uint32_t pt) {
-    uint32_t acc = 0;
-    float frac = 0.0f;
+    uint32_t z[MAX_ALPHA];
 #pragma unroll
     for (int m = 0; m < MAX_ALPHA; ++m)
-        if (m < alpha) {
-            frac = __fadd_rn(frac, __ldg(qf + m * n));
-            acc = add_mod(acc, shoup_mul(__ldg(zq + m * n), cw[m], pt), pt);
-        }
-    const uint32_t v = __float2uint_rn(frac);
+        z[m] = m < alpha ? __ldg(zq + m * zstride) : 0u;
+    uint32_t acc = 0;
+#pragma unroll
+    for (int m = 0; m < MAX_ALPHA; ++m)
+        if (m < alpha) acc = add_mod(acc, shoup_mul(z[m], cw[m], pt), pt);
     return sub_mod(acc, shoup_mul(v, dmod, dmod_sh, pt), pt);
 }
 
 // A row's target half into the transform's shared memory s (Ring<LOGN>'s
-// padded layout): coefficient i = threadIdx.x + k * T, k < R, from digit
-// rows h.zq + lo * N, h.qf + lo * N; the caller synchronises before the
+// padded layout): coefficient i = threadIdx.x + k * T, k < R, from zq
+// (its rows zstride apart) and v; the caller synchronises before the
 // transform reads s.  Converting apart from the transform's first pass
 // keeps the two from holding registers at once.
 template <int LOGN>
 __device__ __forceinline__ void hoist_target(
-        uint32_t* s, HoistedIn h, int lo, int alpha,
-        const u64* cw, uint32_t dmod, uint32_t dmod_sh, uint32_t pt) {
+        uint32_t* s, const uint32_t* zq, int64_t zstride, const uint8_t* v,
+        int alpha, const u64* cw, uint32_t dmod, uint32_t dmod_sh,
+        uint32_t pt) {
     using RG = Ring<LOGN>;
-    const uint32_t* zq = h.zq + (int64_t)lo * RG::N;
-    const float* qf = h.qf + (int64_t)lo * RG::N;
 #pragma unroll 1
     for (int k = 0; k < RG::R; ++k) {
         const int i = (int)threadIdx.x + k * RG::T;
-        s[pad(i)] = fbc_target(zq + i, qf + i, RG::N, alpha, cw, dmod,
-                               dmod_sh, pt);
+        s[pad(i)] = fbc_target(zq + i, zstride, __ldg(v + i), alpha, cw,
+                               dmod, dmod_sh, pt);
     }
 }
 
@@ -139,49 +103,69 @@ __device__ __forceinline__ void hoist_target(
 template <int LOGN>
 constexpr int ks_min_blocks() { return Ring<LOGN>::R <= 8 ? 2 : 1; }
 
-// The limb-sharded entries' prologue, one thread per (coefficient, digit,
-// poly): grid (n / HOIST_T, digits, polys).  Digit d has source rows lo_d
-// .. lo_d + alpha_d - 1 (dig_lo / dig_alpha null: one digit of `amax`
-// rows from row 0), poly b's row r at src + b * src_poly + r * n (int64
-// coefficients); each gets zq = z * qhat_inv mod q and its quotient into
-// poly b's hoisted rows at scratch + b * scratch_poly (`rows` rows).  qi,
-// qi_sh, srcp, srcq (digits, amax).
+// The hoisted half, one thread per (coefficient, digit, poly): grid
+// (n / HOIST_T, digits, polys).  Digit d has source rows lo_d .. lo_d +
+// alpha_d - 1 (dig_lo / dig_alpha null: one digit of `amax` rows from row
+// 0), poly b's row r at zq + b * zq_poly + r * n (uint32).  With src
+// null, zq holds the rows already (an inverse transform stored them);
+// otherwise src holds them as int64 coefficients (poly b's row r at src +
+// b * src_poly + r * n) and zq = z * qhat_inv mod q is stored first.  v of
+// digit d goes to vb + b * v_poly + d * n.  qi, qi_sh, srcp, srcq
+// (digits, amax).
 constexpr int HOIST_T = 256;  // threads per block
 
-__global__ void __launch_bounds__(HOIST_T) hoist_zq(
-        int64_t* scratch, int64_t scratch_poly, int rows, const int64_t* src,
-        int64_t src_poly, int n, int amax, const int64_t* dig_lo,
-        const int64_t* dig_alpha, const int64_t* qi, const int64_t* qi_sh,
-        const int64_t* srcp, const float* srcq) {
+__global__ void __launch_bounds__(HOIST_T) hoist_digits(
+        uint32_t* zq, uint8_t* vb, const int64_t* src, int64_t src_poly,
+        int64_t zq_poly, int64_t v_poly, int n, int amax,
+        const int64_t* dig_lo, const int64_t* dig_alpha, const int64_t* qi,
+        const int64_t* qi_sh, const int64_t* srcp, const float* srcq) {
     const int c = (int)(blockIdx.x * HOIST_T + threadIdx.x);
     const int d = blockIdx.y;
     const int64_t b = blockIdx.z;
     const int64_t lo = dig_lo == nullptr ? 0 : dig_lo[d];
     const int alpha = dig_alpha == nullptr ? amax : (int)dig_alpha[d];
     const int64_t dg = (int64_t)d * amax;
-    const Hoisted h = hoisted(scratch + b * scratch_poly, rows, n);
-    const int64_t* z = src + b * src_poly + lo * n + c;
-    for (int m = 0; m < alpha; ++m) {
-        const uint32_t zq = shoup_mul(
-            (uint32_t)z[(int64_t)m * n], (uint32_t)qi[dg + m],
-            (uint32_t)qi_sh[dg + m], (uint32_t)srcp[dg + m]);
-        hoist_store(h, (lo + m) * n + c, zq, srcq[dg + m]);
+    uint32_t* dz = zq + b * zq_poly + lo * n + c;
+    // every row's residue loaded before the sum, which runs in order
+    uint32_t q[MAX_ALPHA];
+    if (src == nullptr) {
+#pragma unroll
+        for (int m = 0; m < MAX_ALPHA; ++m)
+            q[m] = m < alpha ? dz[(int64_t)m * n] : 0u;
+    } else {
+        const int64_t* z = src + b * src_poly + lo * n + c;
+#pragma unroll
+        for (int m = 0; m < MAX_ALPHA; ++m)
+            q[m] = m < alpha ? (uint32_t)z[(int64_t)m * n] : 0u;
+#pragma unroll
+        for (int m = 0; m < MAX_ALPHA; ++m)
+            if (m < alpha) {
+                q[m] = shoup_mul(q[m], (uint32_t)qi[dg + m],
+                                 (uint32_t)qi_sh[dg + m],
+                                 (uint32_t)srcp[dg + m]);
+                dz[(int64_t)m * n] = q[m];
+            }
     }
+    float frac = 0.0f;
+#pragma unroll
+    for (int m = 0; m < MAX_ALPHA; ++m)
+        if (m < alpha) frac = __fadd_rn(frac, fbc_quot(q[m], srcq[dg + m]));
+    vb[b * v_poly + (int64_t)d * n + c] = (uint8_t)__float2uint_rn(frac);
 }
 
-// Launch hoist_zq (see above) over `digits` digits of `polys` polys.
+// Launch hoist_digits (see above) over `digits` digits of `polys` polys.
 inline cudaError_t launch_hoist(
-        int64_t* scratch, int64_t scratch_poly, int rows, const int64_t* src,
-        int64_t src_poly, int n, int digits, int polys, int amax,
-        const int64_t* dig_lo, const int64_t* dig_alpha, const int64_t* qi,
-        const int64_t* qi_sh, const int64_t* srcp, const float* srcq,
-        cudaStream_t st) {
+        uint32_t* zq, uint8_t* vb, const int64_t* src, int64_t src_poly,
+        int64_t zq_poly, int64_t v_poly, int n, int digits, int polys,
+        int amax, const int64_t* dig_lo, const int64_t* dig_alpha,
+        const int64_t* qi, const int64_t* qi_sh, const int64_t* srcp,
+        const float* srcq, cudaStream_t st) {
     if (n % HOIST_T || digits < 1 || digits > 65535 || polys < 1
         || polys > 65535 || amax < 1 || amax > MAX_ALPHA)
         return cudaErrorInvalidValue;
-    hoist_zq<<<dim3(n / HOIST_T, digits, polys), HOIST_T, 0, st>>>(
-        scratch, scratch_poly, rows, src, src_poly, n, amax, dig_lo,
-        dig_alpha, qi, qi_sh, srcp, srcq);
+    hoist_digits<<<dim3(n / HOIST_T, digits, polys), HOIST_T, 0, st>>>(
+        zq, vb, src, src_poly, zq_poly, v_poly, n, amax, dig_lo, dig_alpha,
+        qi, qi_sh, srcp, srcq);
     return cudaGetLastError();
 }
 

@@ -18,17 +18,19 @@
 //             work buffer as they are.  With ModDown each special row gets
 //             its inverse NTT in shared memory, whose store gives each
 //             coefficient's zq = z * qhat_inv mod p as uint32 (one Shoup
-//             product by n^-1 qhat_inv), then its float32 quotient zq / p,
-//             into the special rows' part of the work buffer (hoist.cuh):
-//             the digit-invariant half of ModDown's conversion, once per
-//             source coefficient;
+//             product by n^-1 qhat_inv) into the special rows' part of the
+//             work buffer;
+//   launch V: hoist_digits, grid (N / 256, 1, 2K): v of each coefficient
+//             of each poly from its n_sp zq, one byte, after them
+//             (hoist.cuh): with launch A the digit-invariant half of
+//             ModDown's conversion, once per source coefficient;
 //   launch B: moddown_rows, one block per (Q row i, poly q, item k) - the
-//             target half of the conversion of the special rows to q_i (v
-//             from the n_sp quotients, n_sp Shoup products and adds, one
-//             for v * dmod) into shared memory, the forward NTT from
-//             there, then (acc_q - lift) * P^-1 mod q_i.
+//             target half of the conversion of the special rows to q_i
+//             (n_sp Shoup products and adds, one for v * dmod) into shared
+//             memory, the forward NTT from there, then (acc_q - lift) *
+//             P^-1 mod q_i.
 // The conversion reads every special row of its poly, which is why the
-// halves meet at a launch boundary (blocks run in no order).  One launch
+// halves meet at launch boundaries (blocks run in no order).  One launch
 // pair covers a whole key pack (rotate_scan's baby steps, ext shared) or a
 // transform's giant steps (ext paired), not one key-switch.
 //
@@ -113,13 +115,17 @@ __device__ __forceinline__ void inner_pair(
 // What launch A does with the special rows t >= nl: nothing (every row
 // stays in the NTT domain: ks_finish_raw), their inverse NTT into int64
 // coefficients (a limb-sharded inner product, whose all-reduce sums them),
-// or the inverse NTT into zq and quotients for ModDown's hoisted
-// conversion, in the special rows' n_sp * N words of each work poly
-// (hoist.cuh hoisted).
+// or the inverse NTT into zq for ModDown's hoisted conversion.
 enum SpecialRows : int { SP_NONE = 0, SP_COEFF = 1, SP_HOIST = 2 };
 
-// md_zs, md_zs_sh (n_sp): n^-1 qhat_inv of each special row, md_srcq
-// (n_sp) its prime as float32 (SP_HOIST).
+// The hoisted ModDown source in the work buffer (K, 2, n_t, N) int64: the
+// special rows' part of a poly, n_sp * N words, holds zq (n_sp, N) uint32,
+// then v (N) bytes.
+__host__ __device__ inline uint32_t* md_zq(int64_t* poly, int nl, int n) {
+    return reinterpret_cast<uint32_t*>(poly + (int64_t)nl * n);
+}
+
+// md_zs, md_zs_sh (n_sp): n^-1 qhat_inv of each special row (SP_HOIST).
 template <int LOGN>
 __global__ void __launch_bounds__(Ring<LOGN>::T, ks_min_blocks<LOGN>())
 ks_inner_intt(
@@ -131,7 +137,7 @@ ks_inner_intt(
         const int64_t* t_pinv, const int64_t* t_rmod, const int64_t* t_rsh,
         const int64_t* t_itwp, const int64_t* t_ninv,
         const int64_t* t_ninv_sh, const int64_t* md_zs,
-        const int64_t* md_zs_sh, const float* md_srcq) {
+        const int64_t* md_zs_sh) {
     extern __shared__ uint32_t s[];
     using RG = Ring<LOGN>;
     constexpr int N = RG::N;
@@ -179,22 +185,10 @@ ks_inner_intt(
     }
     const uint32_t w = (uint32_t)md_zs[t - nl];
     const uint32_t w_sh = (uint32_t)md_zs_sh[t - nl];
-    const Hoisted h = hoisted(poly + (int64_t)nl * N, n_t - nl, N);
-    uint32_t* zq = h.zq + (int64_t)(t - nl) * N;
+    uint32_t* dz = md_zq(poly, nl, N) + (int64_t)(t - nl) * N;
     ntt_inv_row<LOGN>(
         s, t_itwp + (int64_t)t * N, p, own,
-        [&](int i, uint32_t v) { zq[i] = shoup_mul(v, w, w_sh, p); });
-    // the quotients after the transform, one value live at a time: in its
-    // store, with the row's values live, the division's slow path spilled
-    // at 32 registers
-    __syncthreads();
-    const float sq = md_srcq[t - nl];
-    float* qf = h.qf + (int64_t)(t - nl) * N;
-#pragma unroll 1
-    for (int k = 0; k < RG::R; ++k) {
-        const int i = (int)threadIdx.x + k * RG::T;
-        qf[i] = fbc_quot(zq[i], sq);
-    }
+        [&](int i, uint32_t v) { dz[i] = shoup_mul(v, w, w_sh, p); });
 }
 
 // The CI form of ks_inner_intt: cluster (x / C, y, z) = (t, q, k), rows
@@ -313,14 +307,14 @@ __global__ void __launch_bounds__(Split<LOGN>::T) ks_inner_intt_ci(
 
 // Launch B: block (i, q, k) divides Q row i of poly (k, q) by P.  Its Q
 // row is at work + (k * 2 + q) * work_poly + i * N (int64, NTT domain); the
-// hoisted special rows of the poly at hs + (k * 2 + q) * hs_poly (n_sp
-// rows, hoist.cuh hoisted).
+// hoisted special rows of the poly at zq + (k * 2 + q) * zq_poly (n_sp
+// rows of N uint32) and vb + (k * 2 + q) * v_poly (N bytes).
 template <int LOGN>
 __global__ void __launch_bounds__(Ring<LOGN>::T, ks_min_blocks<LOGN>())
 moddown_rows(
         int64_t* out, const int64_t* work, int64_t work_poly,
-        const int64_t* hs, int64_t hs_poly, int nl, int n_sp,
-        const int64_t* md_conv,
+        const uint32_t* zq, int64_t zq_poly, const uint8_t* vb,
+        int64_t v_poly, int nl, int n_sp, const int64_t* md_conv,
         const int64_t* md_conv_sh, const int64_t* md_dmod,
         const int64_t* md_dmod_sh, const int64_t* pinv_q,
         const int64_t* pinv_q_sh, const int64_t* t_p, const int64_t* t_twp) {
@@ -332,7 +326,8 @@ moddown_rows(
     const int64_t kq = k * 2 + q;
     const uint32_t p = (uint32_t)t_p[i];
     const int64_t* qrow = work + kq * work_poly + (int64_t)i * N;
-    const HoistedIn h = hoisted(hs + kq * hs_poly, n_sp, N);
+    const uint32_t* z = zq + kq * zq_poly;
+    const uint8_t* v = vb + kq * v_poly;
     int64_t* dst = out + (kq * nl + i) * N;
     u64* cw = reinterpret_cast<u64*>(s + Ring<LOGN>::SMEM / sizeof(uint32_t));
     stage_conv(cw, md_conv + i, md_conv_sh + i, nl, n_sp);
@@ -341,7 +336,7 @@ moddown_rows(
     const uint32_t pv = (uint32_t)pinv_q[i];
     const uint32_t pv_sh = (uint32_t)pinv_q_sh[i];
     __syncthreads();
-    hoist_target<LOGN>(s, h, 0, n_sp, cw, dm, dm_sh, p);
+    hoist_target<LOGN>(s, z, N, v, n_sp, cw, dm, dm_sh, p);
     __syncthreads();
     ntt_fwd_row<LOGN>(
         s, t_twp + (int64_t)i * N, p, [&](int c) { return s[pad(c)]; },
@@ -403,14 +398,14 @@ static cudaError_t inner_grid(
         const int64_t* t_pinv, const int64_t* t_rmod, const int64_t* t_rsh,
         const int64_t* t_itwp, const int64_t* t_ninv,
         const int64_t* t_ninv_sh, const int64_t* md_zs,
-        const int64_t* md_zs_sh, const float* md_srcq, cudaStream_t st) {
+        const int64_t* md_zs_sh, cudaStream_t st) {
     using RG = Ring<LOGN>;
     cudaError_t e = allow_smem(ks_inner_intt<LOGN>, RG::SMEM);
     if (e != cudaSuccess) return e;
     ks_inner_intt<LOGN><<<dim3(n_t, 2, items), RG::T, RG::SMEM, st>>>(
         work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx, kdig, krows,
         row_map, nl, n_t, dnum, special_rows, t_p, t_pinv, t_rmod, t_rsh,
-        t_itwp, t_ninv, t_ninv_sh, md_zs, md_zs_sh, md_srcq);
+        t_itwp, t_ninv, t_ninv_sh, md_zs, md_zs_sh);
     return cudaGetLastError();
 }
 
@@ -420,8 +415,8 @@ static cudaError_t inner_grid(
 template <int LOGN>
 static cudaError_t moddown_grid(
         int64_t* out, const int64_t* work, int64_t work_poly,
-        const int64_t* hs, int64_t hs_poly, int items, int nl, int n_sp,
-        const int64_t* md_conv,
+        const uint32_t* zq, int64_t zq_poly, const uint8_t* vb,
+        int64_t v_poly, int items, int nl, int n_sp, const int64_t* md_conv,
         const int64_t* md_conv_sh, const int64_t* md_dmod,
         const int64_t* md_dmod_sh, const int64_t* pinv_q,
         const int64_t* pinv_q_sh, const int64_t* t_p, const int64_t* t_twp,
@@ -432,8 +427,8 @@ static cudaError_t moddown_grid(
     cudaError_t e = allow_smem(moddown_rows<LOGN>, smem);
     if (e != cudaSuccess) return e;
     moddown_rows<LOGN><<<dim3(nl, 2, items), RG::T, smem, st>>>(
-        out, work, work_poly, hs, hs_poly, nl, n_sp, md_conv, md_conv_sh,
-        md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, t_p, t_twp);
+        out, work, work_poly, zq, zq_poly, vb, v_poly, nl, n_sp, md_conv,
+        md_conv_sh, md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, t_p, t_twp);
     return cudaGetLastError();
 }
 
@@ -477,13 +472,21 @@ static int finish_launch(
                 work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx,
                 row_map, items, kdig, krows, nl, n_t, dnum,
                 moddown ? SP_HOIST : SP_NONE, t_p, t_pinv, t_rmod, t_rsh,
-                t_itwp, t_ninv, t_ninv_sh, md_zs, md_zs_sh, md_srcq, st);
+                t_itwp, t_ninv, t_ninv_sh, md_zs, md_zs_sh, st);
             if (e != cudaSuccess || !moddown) return e;
-            // B: the hoisted rows of poly (k, q) in its special rows' part
-            // of work
+            // V, then B: zq (n_sp, N) and v (N) of poly (k, q) in its
+            // special rows' part of work
+            const int n_sp = n_t - nl;
+            uint32_t* zq = md_zq(work, nl, N);
+            uint8_t* vb = reinterpret_cast<uint8_t*>(zq + (int64_t)n_sp * N);
+            e = launch_hoist(zq, vb, nullptr, 0, (int64_t)2 * n_t * N,
+                             (int64_t)8 * n_t * N, N, 1, items * 2, n_sp,
+                             nullptr, nullptr, md_qi, md_qi_sh, md_srcp,
+                             md_srcq, st);
+            if (e != cudaSuccess) return e;
             return moddown_grid<LOGN>(
-                out, work, (int64_t)n_t * N, work + (int64_t)nl * N,
-                (int64_t)n_t * N, items, nl, n_t - nl, md_conv, md_conv_sh,
+                out, work, (int64_t)n_t * N, zq, (int64_t)2 * n_t * N, vb,
+                (int64_t)8 * n_t * N, items, nl, n_sp, md_conv, md_conv_sh,
                 md_dmod, md_dmod_sh, pinv_q, pinv_q_sh, t_p, t_twp, st);
         }
     });
@@ -528,10 +531,10 @@ extern "C" int orion_ks_finish(
 // the key row of row t, rows t >= nl special when moddown is set, left as
 // int64 coefficients); orion_ks_moddown over work (K, 2, nl + n_sp, N): a
 // rank's nl Q rows, then the n_sp special rows of the whole basis, summed
-// over the ranks, in the coefficient domain.  Its prologue pass (hoist_zq)
-// hoists their zq and quotients into scratch that the caller leaves behind
-// out: out's buffer holds K * 2 * n_sp * N more int64 words (hoist.cuh
-// hoisted) past its K * 2 * nl * N.
+// over the ranks, in the coefficient domain.  Its prologue pass
+// (hoist_digits) hoists their zq and v into scratch that the caller leaves
+// behind out: out's buffer holds K * 2 * N * (4 n_sp + 1) bytes past its
+// K * 2 * nl * N words.
 extern "C" int orion_ks_inner(
         int64_t* work, const int64_t* ext, int ext_item, int ext_count,
         const int64_t* ksk, const int64_t* ksk_sh, const int64_t* key_idx,
@@ -546,7 +549,7 @@ extern "C" int orion_ks_inner(
             work, ext, ext_item, ext_count, ksk, ksk_sh, key_idx, row_map,
             items, kdig, krows, nl, n_t, dnum, moddown ? SP_COEFF : SP_NONE,
             t_p, t_pinv, t_rmod, t_rsh, t_itwp, t_ninv, t_ninv_sh, nullptr,
-            nullptr, nullptr, (cudaStream_t)stream);
+            nullptr, (cudaStream_t)stream);
     });
 }
 
@@ -563,15 +566,18 @@ extern "C" int orion_ks_moddown(
         constexpr int N = 1 << LOGN;
         const cudaStream_t st = (cudaStream_t)stream;
         const int n_sp = n_t - nl;
-        int64_t* scratch = out + (int64_t)items * 2 * nl * N;
+        uint32_t* zq = reinterpret_cast<uint32_t*>(
+            out + (int64_t)items * 2 * nl * N);
+        uint8_t* vb = reinterpret_cast<uint8_t*>(
+            zq + (int64_t)items * 2 * n_sp * N);
         cudaError_t e = launch_hoist(
-            scratch, (int64_t)n_sp * N, n_sp, work + (int64_t)nl * N,
-            (int64_t)n_t * N, N, 1, items * 2, n_sp, nullptr, nullptr, md_qi,
-            md_qi_sh, md_srcp, md_srcq, st);
+            zq, vb, work + (int64_t)nl * N, (int64_t)n_t * N,
+            (int64_t)n_sp * N, N, N, 1, items * 2, n_sp, nullptr, nullptr,
+            md_qi, md_qi_sh, md_srcp, md_srcq, st);
         if (e != cudaSuccess) return e;
         return moddown_grid<LOGN>(
-            out, work, (int64_t)n_t * N, scratch, (int64_t)n_sp * N, items,
-            nl, n_sp, md_conv, md_conv_sh, md_dmod, md_dmod_sh, pinv_q,
-            pinv_q_sh, t_p, t_twp, st);
+            out, work, (int64_t)n_t * N, zq, (int64_t)n_sp * N, vb, N,
+            items, nl, n_sp, md_conv, md_conv_sh, md_dmod, md_dmod_sh,
+            pinv_q, pinv_q_sh, t_p, t_twp, st);
     });
 }

@@ -35,15 +35,16 @@ Standard ring only.
 
 On the standard ring the kernels hoist the digit-invariant half of every
 basis conversion (`csrc/hoist.cuh`): each source coefficient's zq = z *
-qhat_inv mod q is stored once as uint32 beside its float32 quotient zq /
-q, and the loops over the target rows read them, summing a digit's
-quotients into v = round(sum_m zq_m / q_m) in source order (at most
-`MAX_ALPHA` source rows per digit).  In the unsharded kernels the inverse
-transforms that produce the source rows store both (their n^-1 scale
-folded with qhat_inv: `_zq_scale`), so each key-switch kernel launches
-two grids.  The sharded `ks_convert_rows` and `ks_moddown_rows` get their
-source rows as int64 coefficients and hoist them in a prologue pass, into
-scratch that the wrapper allocates behind the output (`hoist_words`).
+qhat_inv mod q is stored once as uint32 and each (digit, coefficient)'s
+v = round(sum_m zq_m / q_m) once as a byte, and the loops over the target
+rows read them (at most `MAX_ALPHA` source rows per digit).  In the
+unsharded kernels the inverse transforms that produce the source rows
+store zq (their n^-1 scale folded with qhat_inv: `_zq_scale`), and a pass
+between the two launches computes v, so each key-switch kernel launches
+three grids.  The sharded `ks_convert_rows` and `ks_moddown_rows` get
+their source rows as int64 coefficients and hoist zq and v in that pass,
+into scratch that the wrapper allocates behind the output
+(`hoist_bytes`).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version in this module, which is the port of
@@ -82,7 +83,7 @@ from .ntt import (cluster_twiddles, ntt_fwd_plain, ntt_inv_plain,
 # kernels take (csrc/hoist.cuh MAX_ALPHA: the target loops unroll over it)
 MAX_ALPHA = 8
 
-_DECOMPOSE_SIG = "ppp" + "iiiiii" + "p" * 20
+_DECOMPOSE_SIG = "ppp" + "iiiiii" + "p" * 19
 _FINISH_SIG = "pppii" + "pppp" + "iiiiiiii" + "p" * 22
 KS_DECOMPOSE = Kernel(
     "ks_decompose", "ks_decompose.cu", "orion_ks_decompose", _DECOMPOSE_SIG,
@@ -259,7 +260,6 @@ def _digit_stack(dl) -> dict:
                 dl.t.ninv[:len(dl.q.p)],
                 torch.cat([dg.qhat_inv[:, 0] for dg in dl.digits]),
                 dl.q.p)
-            t["zf"] = torch.cat([dg.src_q_f32[:, 0] for dg in dl.digits])
         kt["dig"] = t
     return kt["dig"]
 
@@ -272,19 +272,20 @@ def _zq_scale(ninv, qhat_inv, p):
     return w.contiguous(), ((w << 32) // p).contiguous()
 
 
-def hoist_words(polys: int, rows: int, n: int) -> int:
-    """int64 words of the hoisted conversion's scratch over `polys` polys
-    of `rows` source rows (csrc/hoist.cuh `hoisted`): each poly's zq (rows,
-    n) uint32, then its quotients (rows, n) float32."""
-    return polys * rows * n
+def hoist_bytes(polys: int, rows: int, digits: int, n: int) -> int:
+    """Bytes of the hoisted conversion's scratch over `polys` polys of
+    `rows` source rows in `digits` digits: zq (polys, rows, n) uint32,
+    then v (polys, digits, n) bytes."""
+    return polys * n * (4 * rows + digits)
 
 
-def _with_scratch(shape, words, device):
-    """An int64 output of `shape` with `words` of scratch behind it in the
-    same buffer (the sharded entries' hoisted conversion)."""
-    size = torch.Size(shape).numel()
-    buf = torch.empty(size + words, dtype=torch.int64, device=device)
-    return buf[:size].view(shape)
+def _with_scratch(shape, nbytes, device):
+    """An int64 output of `shape` with `nbytes` of scratch behind it in
+    the same buffer (the sharded entries' hoisted conversion)."""
+    words = torch.Size(shape).numel()
+    buf = torch.empty(words + -(-nbytes // 8), dtype=torch.int64,
+                      device=device)
+    return buf[:words].view(shape)
 
 
 def _check_alpha(name, rows, what):
@@ -296,8 +297,8 @@ def _check_alpha(name, rows, what):
 def ks_decompose(c_ntt, dl):
     """Digit-decompose c, (nl, N) or (B, nl, N), and extend every digit to
     the full basis: (dnum, n_t, N) or (B, dnum, n_t, N), one launch of
-    ks_decompose.cu (its coefficient scratch holds the hoisted zq and
-    quotients on the standard ring)."""
+    ks_decompose.cu (its coefficient scratch holds the hoisted zq and v on
+    the standard ring)."""
     if c_ntt.device.type == "cpu":
         return ks_decompose_plain(c_ntt, dl)
     nl, n = dl.level + 1, dl.ring_n
@@ -321,8 +322,8 @@ def ks_decompose(c_ntt, dl):
         c_ntt.device, ext, coeff, c3, b, nl, n_t, dnum, d["amax"], t.logn,
         d["lo"], d["alpha"], d["qi"], d["qi_sh"], d["srcp"], d["srcq"],
         d["conv"], d["conv_sh"], d["dmod"], d["dmod_sh"], t.p, twp, itwp,
-        t.ninv, t.ninv_shoup, d.get("zs"), d.get("zs_sh"), d.get("zf"),
-        *_ci_maps(dl), level=dl.level, items=b, grids=2)
+        t.ninv, t.ninv_shoup, d.get("zs"), d.get("zs_sh"), *_ci_maps(dl),
+        level=dl.level, items=b, grids=2 if dl.ci is not None else 3)
     return ext if batched else ext[0]
 
 
@@ -409,7 +410,7 @@ def _finish(ext, dl, ksk_data, ksk_shoup, trimmed, key_index, moddown):
         dev, out, work, ext, dnum * n_t * n if paired else 0, e, pack,
         pack_sh, key_index, row_map, k, kdig, krows, nl, n_t, dnum, dl.t.logn,
         int(moddown), *_finish_tables(dl), *_ci_maps(dl), level=dl.level,
-        items=k, grids=2 if moddown else 1)
+        items=k, grids=(2 if dl.ci is not None else 3) if moddown else 1)
     res = out if moddown else work
     return res if batched else res[0]
 
@@ -539,7 +540,7 @@ def ks_convert_rows(coeff, dl, blk: RowBlock):
     check_residues(k.name, coeff, (b, nl, n))
     d = blk.dig
     _check_alpha(k.name, d["amax"], "source rows in a digit")
-    ext = _with_scratch((b, dnum, rows, n), hoist_words(b, nl, n),
+    ext = _with_scratch((b, dnum, rows, n), hoist_bytes(b, nl, dnum, n),
                         coeff.device)
     k.launch(coeff.device, ext, coeff, b, nl, rows, dnum, d["amax"],
              blk.rows.logn, d["lo"], d["alpha"], d["qi"], d["qi_sh"],
@@ -648,7 +649,7 @@ def ks_moddown_rows(x, dl, blk: RowBlock):
     check_residues(k.name, x, (items, 2, blk.nq + n_sp, n))
     _check_alpha(k.name, n_sp, "special primes")
     out = _with_scratch((items, 2, blk.nq, n),
-                        hoist_words(2 * items, n_sp, n), x.device)
+                        hoist_bytes(2 * items, n_sp, 1, n), x.device)
     md, q = blk.moddown, blk.q_rows
     k.launch(x.device, out, x, items, blk.nq, blk.nq + n_sp, q.logn,
              md.qhat_inv, md.qhat_inv_shoup, md.src_p, md.src_q_f32,

@@ -1,30 +1,32 @@
 """The standard ring's key-switch kernels hoist the digit-invariant half of
 every fast basis conversion (orion_tpu_torch/kernels/csrc/hoist.cuh): each
 source coefficient's zq = z * qhat_inv mod q is stored once as uint32,
-beside its float32 quotient zq / q, and the loops over the target rows
-read them, summing a digit's quotients in source order into v = round(sum_m
-f32(zq_m) / f32(q_m)).  The CUDA kernels run only on the card; this file
-models them in numpy on the CPU, walking their grids and byte layouts as
-the sources do, and holds the model bit for bit against orion_tpu's `fbc`
-(jitted) and the port's plain `fbc`:
+each (digit, coefficient)'s v = round(sum_m f32(zq_m) / f32(q_m)) once as
+one byte, and the loops over the target rows read them.  The CUDA kernels
+run only on the card; this file models them in numpy on the CPU, walking
+their grids and byte layouts as the sources do, and holds the model bit
+for bit against orion_tpu's `fbc` (jitted) and the port's plain `fbc`:
 
   - ks_decompose.cu: launch A (`ntt_inv_zq`, one thread-block cluster per
     (Q row, poly), CTA c of the split inverse storing outputs k M + c W +
-    col, its store giving zq through the folded constant n^-1 qhat_inv,
-    and the quotient) into the coefficient scratch, then launch B's target
-    half (`fbc_ntt_digits`);
+    col, its store giving zq through the folded constant n^-1 qhat_inv)
+    into the coefficient scratch, the pass `hoist_digits` (one thread per
+    (coefficient, digit, poly), v from the digit's zq in source order),
+    then launch B's target half (`fbc_ntt_digits`);
   - ks_finish.cu: launch A's grid (`ks_inner_intt`, the special rows' zq
-    and quotients in the special rows' part of the work buffer), then
-    `moddown_rows`' target half onto the Q rows;
-  - the limb-sharded entries' pass (`hoist_zq` from int64 coefficients)
-    into the scratch the wrappers leave behind their outputs
-    (`hoist_words`), which must hold the bytes the unsharded layout holds.
+    in the special rows' part of the work buffer), `hoist_digits` over the
+    special rows (v behind their zq), then `moddown_rows`' target half onto
+    the Q rows;
+  - the limb-sharded entries' pass (`hoist_digits` from int64
+    coefficients, zq included) into the scratch the wrappers leave behind
+    their outputs (`hoist_bytes`), which must hold the bytes the unsharded
+    layout holds.
 
-The model asserts that v <= alpha and that every zq and every quotient is
-written exactly once, within the scratch, and that the wrappers' folded
-constants give zq.  Levels: configs/mlp.yml 0-5, configs/lenet.yml 7 (4
-digits), configs/resnet.yml 1, 17 and 43 (alpha 6, up to 8 digits, an
-unequal last digit), at the configs' LogN 13.
+The model asserts that v <= alpha and that every zq and every v is written
+exactly once, within the scratch, and that the wrappers' folded constants
+give zq.  Levels: configs/mlp.yml 0-5, configs/lenet.yml 7 (4 digits),
+configs/resnet.yml 1, 17 and 43 (alpha 6, up to 8 digits, an unequal last
+digit), at the configs' LogN 13.
 """
 
 from pathlib import Path
@@ -45,7 +47,7 @@ from orion_tpu_torch.runtime.config import parse_config
 CONFIGS = Path(__file__).parent.parent / "configs"
 CASES = ([("mlp", lv) for lv in range(6)] + [("lenet", 7)]
          + [("resnet", lv) for lv in (1, 17, 43)])
-HOIST_T = 256    # hoist.cuh: threads per block of hoist_zq
+HOIST_T = 256    # hoist.cuh: threads per block of hoist_digits
 POLYS = 2        # polys per ks_decompose call in the model
 
 
@@ -93,15 +95,8 @@ class Scratch:
     def u32(self, off, count):
         return self.buf[off:off + 4 * count].view(np.uint32).astype(np.int64)
 
-    def f32(self, off, count):
-        return self.buf[off:off + 4 * count].view(np.float32)
-
-
-def hoisted(base, rows, n):
-    """hoist.cuh `hoisted`: byte offsets of zq and of the quotients of
-    `rows` source rows of one poly whose rows * n int64 words start at
-    byte `base`."""
-    return base, base + 4 * rows * n
+    def u8(self, off, count):
+        return self.buf[off:off + count].astype(np.int64)
 
 
 def _tables(dg):
@@ -117,53 +112,47 @@ def _zq(z, tb, m):
     return zq, zq.astype(np.float32) / np.float32(tb["sq"][m])
 
 
-def _store(sc, h, row, n, z, tb, m):
-    """hoist_store of source row `row` (digit row m) at hoisted offsets
-    h: its zq and quotients."""
-    zq, qf = _zq(z, tb, m)
-    sc.put(h[0] + 4 * row * n, zq)
-    sc.put(h[1] + 4 * row * n, qf)
-
-
-def _target(sc, h, lo, alpha, n, tb, pt):
-    """fbc_target onto the target primes pt (n_t,) from a digit's hoisted
-    rows lo.. : v = round(sum_m qf_m) in source order from 0.0f, then
-    sum_m zq_m conv_m - v dmod mod pt."""
-    frac = np.zeros(n, np.float32)
-    zq = []
-    for m in range(alpha):
-        frac = frac + sc.f32(h[1] + 4 * (lo + m) * n, n)
-        zq.append(sc.u32(h[0] + 4 * (lo + m) * n, n))
-    v = np.rint(frac).astype(np.int64)
-    assert v.max() <= alpha
+def _target(zq, v, tb, pt):
+    """fbc_target onto the target primes pt (n_t,): sum_m zq_m conv_m -
+    v dmod mod pt, from zq (alpha, n) and v (n,)."""
     pt = pt[:, None]
-    acc = np.zeros((pt.shape[0], n), np.int64)
-    for m in range(alpha):
+    acc = np.zeros((pt.shape[0], zq.shape[1]), np.int64)
+    for m in range(zq.shape[0]):
         acc = (acc + zq[m][None] * tb["conv"][m][:, None] % pt) % pt
     return (acc - v[None] * tb["dmod"][:, None] % pt) % pt
 
 
-def hoist_zq_model(sc, polys, n, rows, scratch_poly, tbs, lo, alpha, src,
-                   src_poly):
-    """hoist_zq over grid (n / HOIST_T, digits, polys) on scratch sc:
-    thread c of block (x, d, b) takes digit d's rows r = lo_d.. of poly b
-    from src (flat int64, row r of poly b at b * src_poly + r * n) into
-    poly b's hoisted rows at word b * scratch_poly."""
+def hoist_digits_model(sc, zq_base, v_base, polys, n, zq_poly, v_poly,
+                       tbs, lo, alpha, src=None, src_poly=0):
+    """hoist_digits over grid (n / HOIST_T, digits, polys) on scratch sc:
+    thread c of block (x, d, b) takes digit d's rows r = lo_d.. of poly b,
+    zq at byte zq_base + 4 * (b * zq_poly + r * n + c), stored first from
+    src (flat int64, row r of poly b at b * src_poly + r * n) when given,
+    read otherwise; v at byte v_base + b * v_poly + d * n + c."""
     assert n % HOIST_T == 0
     for b in range(polys):
-        h = hoisted(8 * b * scratch_poly, rows, n)
         for d, tb in enumerate(tbs):
+            frac = np.zeros(n, np.float32)
             for m in range(alpha[d]):
                 r = lo[d] + m
-                z = src[b * src_poly + r * n:b * src_poly + (r + 1) * n]
-                _store(sc, h, r, n, z, tb, m)
+                at = zq_base + 4 * (b * zq_poly + r * n)
+                if src is None:
+                    zq = sc.u32(at, n).astype(np.uint32)
+                else:
+                    z = src[b * src_poly + r * n:b * src_poly + (r + 1) * n]
+                    zq = _zq(z, tb, m)[0]
+                    sc.put(at, zq)
+                frac = frac + zq.astype(np.float32) / np.float32(tb["sq"][m])
+            v = np.rint(frac)
+            assert v.max() <= alpha[d]
+            sc.put(v_base + b * v_poly + d * n, v.astype(np.uint8))
 
 
 def decompose_model(coeff, tdl):
     """ks_decompose.cu's conversion of coeff (B, nl, n), coefficients of
-    the Q rows: launch A into the coefficient scratch, then launch B's
-    target half.  Returns the converted digits (B, dnum, n_t, n) before
-    their forward NTT and the scratch."""
+    the Q rows: launch A into the coefficient scratch, the pass, launch
+    B's target half.  Returns the converted digits (B, dnum, n_t, n)
+    before their forward NTT and the scratch."""
     b_, nl, n = coeff.shape
     tbs = [_tables(dg) for dg in tdl.digits]
     lo = [dg.src_lo for dg in tdl.digits]
@@ -173,6 +162,7 @@ def decompose_model(coeff, tdl):
     assert lo == [sum(alpha[:d]) for d in range(dnum)] and sum(alpha) == nl
     t_p = tdl.t.p.numpy()
     sc = Scratch(8 * b_ * nl * n)           # the (B, nl, n) int64 scratch
+    v_base = 4 * b_ * nl * n
     # launch A: cluster (row, b) of C CTAs (cluster_ntt.cuh Split): CTA c
     # stores outputs k * M + c * W + col, col < W = M / C, k < C
     logc = kks.split_logc(n.bit_length() - 1)
@@ -180,34 +170,38 @@ def decompose_model(coeff, tdl):
     w_ = m_ // c_ if c_ > 1 else n
     digit_of = [(d, m) for d in range(dnum) for m in range(alpha[d])]
     for b in range(b_):
-        h = hoisted(8 * b * nl * n, nl, n)
         for row in range(nl):
             d, m = digit_of[row]
             assert tbs[d]["sp"][m] == t_p[row]   # the kernel's modulus
+            zq = _zq(coeff[b, row], tbs[d], m)[0]
+            base = 4 * (b * nl + row) * n
             for cta in range(c_):
                 for k in range(c_ if c_ > 1 else 1):
                     at = k * m_ + cta * w_ if c_ > 1 else 0
-                    cut = coeff[b, row, at:at + w_]
-                    zq, qf = _zq(cut, tbs[d], m)
-                    sc.put(h[0] + 4 * (row * n + at), zq)
-                    sc.put(h[1] + 4 * (row * n + at), qf)
-    words = kks.hoist_words(b_, nl, n)
-    assert 8 * words == sc.buf.size and (sc.writes == 1).all()
+                    sc.put(base + 4 * at, zq[at:at + w_])
+    # the pass, from the stored zq
+    hoist_digits_model(sc, 0, v_base, b_, n, nl * n, dnum * n, tbs, lo,
+                       alpha)
+    used = kks.hoist_bytes(b_, nl, dnum, n)
+    assert used == v_base + b_ * dnum * n <= sc.buf.size
+    assert (sc.writes[:used] == 1).all() and not sc.writes[used:].any()
     # launch B: block (t, d, b), all t at once
     out = np.empty((b_, dnum, t_p.shape[0], n), np.int64)
     for b in range(b_):
-        h = hoisted(8 * b * nl * n, nl, n)
         for d in range(dnum):
-            out[b, d] = _target(sc, h, lo[d], alpha[d], n, tbs[d], t_p)
+            zq = np.stack([sc.u32(4 * (b * nl + lo[d] + m) * n, n)
+                           for m in range(alpha[d])])
+            out[b, d] = _target(zq, sc.u8(v_base + (b * dnum + d) * n, n),
+                                tbs[d], t_p)
     return out, sc
 
 
 def moddown_model(work_sp, tdl):
     """ks_finish.cu's ModDown conversion of the special rows work_sp (P,
     n_sp, n), coefficients, of P = 2K polys: launch A's grid (n_t, P) into
-    the work buffer (P, n_t, n), then launch B's target half onto the Q
-    rows.  Returns (P, nl, n) and the special rows' part of each poly's
-    work buffer."""
+    the work buffer (P, n_t, n), the pass over the special rows, launch B's
+    target half onto the Q rows.  Returns (P, nl, n) and the special rows'
+    part of each poly's work buffer."""
     polys, n_sp, n = work_sp.shape
     nl = tdl.level + 1
     n_t = nl + n_sp
@@ -215,20 +209,30 @@ def moddown_model(work_sp, tdl):
     tb = _tables(tdl.moddown)
     assert (tb["sp"] == tdl.t.p.numpy()[nl:]).all()
     sc = Scratch(8 * polys * n_t * n)       # work (K, 2, n_t, n) int64
+    zq_base = 8 * nl * n                    # poly 0's special rows
     for k in range(polys):
-        h = hoisted(8 * (k * n_t + nl) * n, n_sp, n)
         for t in range(n_t):
             if t < nl:                      # a Q row, int64 as it is
                 sc.put(8 * (k * n_t + t) * n, np.zeros(n, np.int64))
-            else:                           # a special row's zq, quotients
-                _store(sc, h, t - nl, n, work_sp[k, t - nl], tb, t - nl)
-    assert (sc.writes == 1).all()
+            else:                           # a special row's zq
+                m = t - nl
+                sc.put(zq_base + 4 * (2 * k * n_t * n + m * n),
+                       _zq(work_sp[k, m], tb, m)[0])
+    v_base = zq_base + 4 * n_sp * n
+    hoist_digits_model(sc, zq_base, v_base, polys, n, 2 * n_t * n,
+                       8 * n_t * n, [tb], [0], [n_sp])
+    assert (sc.writes <= 1).all()
     out, regions = [], []
+    used = 4 * n_sp * n + n
+    assert used <= 8 * n_sp * n
     for k in range(polys):
         at = 8 * (k * n_t + nl) * n
-        out.append(_target(sc, hoisted(at, n_sp, n), 0, n_sp, n, tb,
+        region = sc.writes[at:at + 8 * n_sp * n]
+        assert (region[:used] == 1).all() and not region[used:].any()
+        zq = np.stack([sc.u32(at + 4 * m * n, n) for m in range(n_sp)])
+        out.append(_target(zq, sc.u8(at + 4 * n_sp * n, n), tb,
                            tdl.q.p.numpy()))
-        regions.append(sc.buf[at:at + 8 * n_sp * n].copy())
+        regions.append(sc.buf[at:at + used].copy())
     return np.stack(out), regions
 
 
@@ -256,16 +260,17 @@ def test_hoisted_decompose_equals_fbc(tag, level):
             assert np.array_equal(want.astype(np.int64), got[b, d])
             plain = kks.fbc(torch.from_numpy(z), tdg, tdl.t.p[:, None])
             assert np.array_equal(plain.numpy(), got[b, d])
-    # orion_ks_convert's pass over the same coefficients into the scratch
-    # behind ext: the same bytes
-    pro = Scratch(8 * kks.hoist_words(POLYS, nl, n))
-    hoist_zq_model(pro, POLYS, n, nl, nl * n,
-                   [_tables(dg) for dg in tdl.digits],
-                   [dg.src_lo for dg in tdl.digits],
-                   [dg.src_hi - dg.src_lo for dg in tdl.digits],
-                   coeff.reshape(-1), nl * n)
+    # orion_ks_convert's pass over the same coefficients, zq included,
+    # into the scratch behind ext: the same bytes
+    dnum = len(tdl.digits)
+    pro = Scratch(kks.hoist_bytes(POLYS, nl, dnum, n))
+    hoist_digits_model(pro, 0, 4 * POLYS * nl * n, POLYS, n, nl * n,
+                       dnum * n, [_tables(dg) for dg in tdl.digits],
+                       [dg.src_lo for dg in tdl.digits],
+                       [dg.src_hi - dg.src_lo for dg in tdl.digits],
+                       src=coeff.reshape(-1), src_poly=nl * n)
     assert (pro.writes == 1).all()
-    assert np.array_equal(pro.buf, sc.buf)
+    assert np.array_equal(pro.buf, sc.buf[:pro.buf.size])
     # the wrapper's launch A constants give zq: x * zs = (x * n^-1) * qhat_inv
     d = kks._digit_stack(tdl)
     p = tdl.q.p.numpy()
@@ -281,7 +286,7 @@ def test_hoisted_decompose_equals_fbc(tag, level):
 @pytest.mark.parametrize("tag,level", CASES)
 def test_hoisted_moddown_equals_fbc(tag, level):
     """ModDown's hoisted conversion of the special rows onto the Q rows
-    (ks_finish's launch A, moddown_rows' target half) and the
+    (ks_finish's launch A clusters, moddown_rows' target half) and the
     sharded prologue's, against orion_tpu's jitted fbc and the port's
     plain fbc."""
     jctx, tctx = _contexts(tag)
@@ -300,18 +305,23 @@ def test_hoisted_moddown_equals_fbc(tag, level):
                         tdl.q.p[:, None])
         assert np.array_equal(plain.numpy(), got[k])
     # orion_ks_moddown's pass: work (K, 2, nl + n_sp, n) with the summed
-    # special rows behind the Q rows; each poly's hoisted rows behind the
-    # output
+    # special rows behind the Q rows; zq (2K, n_sp, n), then v (2K, n),
+    # behind the output
     nl = level + 1
     full = np.zeros((2 * items, nl + n_sp, n), np.int64)
     full[:, nl:] = work_sp
-    pro = Scratch(8 * kks.hoist_words(2 * items, n_sp, n))
-    hoist_zq_model(pro, 2 * items, n, n_sp, n_sp * n, [_tables(tdl.moddown)],
-                   [0], [n_sp], full.reshape(-1)[nl * n:], (nl + n_sp) * n)
+    pro = Scratch(kks.hoist_bytes(2 * items, n_sp, 1, n))
+    zq_bytes = 4 * 2 * items * n_sp * n
+    hoist_digits_model(pro, 0, zq_bytes, 2 * items, n, n_sp * n, n,
+                       [_tables(tdl.moddown)], [0], [n_sp],
+                       src=full.reshape(-1)[nl * n:],
+                       src_poly=(nl + n_sp) * n)
     assert (pro.writes == 1).all()
     for k, region in enumerate(regions):
-        assert np.array_equal(region, pro.buf[8 * k * n_sp * n:
-                                              8 * (k + 1) * n_sp * n])
+        assert np.array_equal(region[:4 * n_sp * n],
+                              pro.buf[4 * k * n_sp * n:4 * (k + 1) * n_sp * n])
+        assert np.array_equal(region[4 * n_sp * n:],
+                              pro.buf[zq_bytes + k * n:zq_bytes + (k + 1) * n])
     # the wrapper's constants of the special rows' inverse give zq
     tables = kks._finish_tables(tdl)
     zs, zs_sh = tables[-2].numpy(), tables[-1].numpy()

@@ -14,14 +14,15 @@ coefficient (csrc/hoist.cuh), and the target loops read them.  Three
 trees are compared:
   - parent (d81e59b): the last tree before the hoist, two grids per
     kernel;
-  - pass (17f1e49): the hoist with a pass between the grids that sums
-    each digit's quotients into v, stored as one byte (three grids per
-    kernel);
-  - change: this checkout, the quotients stored beside zq and summed in
-    the target loops (two grids per kernel).
+  - quot (068eeab): the hoist with each coefficient's float32 quotient
+    stored beside its zq and a digit's quotients summed in the target
+    loops (two grids per kernel);
+  - change: this checkout, a pass between the grids that sums each
+    digit's quotients into v, stored as one byte (three grids per
+    kernel).
 `--unpack` writes `git archive REV` of each tree but this one to
 build/ks_ab/<tree>/; the run on the GPU measures each tree in its own
-process in the order given (default parent pass change change pass
+process in the order given (default parent quot change change quot
 parent).  Each run prints one line `AB {...}` beside the card's name and
 power limit: ptxas' registers and spills of the key-switch kernels at
 LogN 13; device ms per call (chip_smoke.py `device_ms`: calls queued
@@ -60,8 +61,8 @@ OUT = ROOT / "build" / "ks_ab"
 # the key-switch kernels' device kernels, every design
 KS_GRIDS = ("ntt_inv_rows", "ntt_inv_zq", "fbc_ntt_digits",
             "ks_inner_intt", "moddown_rows", "hoist_digits", "hoist_zq")
-TREES = {"parent": "d81e59b", "pass": "17f1e49"}
-ORDER = "parent,pass,change,change,pass,parent"
+TREES = {"parent": "d81e59b", "quot": "068eeab"}
+ORDER = "parent,quot,change,change,quot,parent"
 ISSUE_ITERS = 50
 
 
@@ -278,6 +279,16 @@ def measure(label, with_resnet):
     cs = chip_smoke()
     csrc = tree / "orion_tpu_torch" / "kernels" / "csrc"
     grids = cs.launched_grids
+
+    def two_grid_moddown():
+        """moddown_rows launches where each ks_finish with ModDown runs
+        two grids, and the sharded entry's."""
+        from orion_tpu_torch import kernels as k
+
+        return (k.KS_FINISH.grids - k.KS_FINISH.launches
+                + k.KS_FINISH_CI.grids - k.KS_FINISH_CI.launches
+                + k.KS_MODDOWN_ROWS.launches)
+
     if "ntt_inv_zq" not in (csrc / "ks_decompose.cu").read_text():
         # a tree before the hoist: ks_decompose's first grid is
         # ntt_inv_rows; two grids per kernel, no pass
@@ -287,25 +298,24 @@ def measure(label, with_resnet):
         def launched_grids():
             g = grids()
             g["ntt_inv_rows"] = g.pop("ntt_inv_zq")
+            g["moddown_rows"] = two_grid_moddown()
+            g["hoist_digits"] = 0
             return g
         cs.launched_grids = launched_grids
-    elif "hoist_digits" in (csrc / "hoist.cuh").read_text():
-        # the pass design: hoist_digits between the two grids of each
-        # standard kernel with ModDown (three grids each) and before the
-        # sharded entries' grid
-        cs.OUR_KERNELS = tuple("hoist_digits" if k == "hoist_zq"
+    elif "hoist_zq" in (csrc / "hoist.cuh").read_text():
+        # the stored quotients: two grids per kernel, hoist_zq before the
+        # sharded entries' grid only
+        cs.OUR_KERNELS = tuple("hoist_zq" if k == "hoist_digits"
                                else k for k in cs.OUR_KERNELS)
 
         def launched_grids():
             from orion_tpu_torch import kernels as k
 
             g = grids()
-            md = (k.KS_FINISH.grids - k.KS_FINISH.launches) // 2
-            g["moddown_rows"] = (md + k.KS_FINISH_CI.grids
-                                 - k.KS_FINISH_CI.launches
-                                 + k.KS_MODDOWN_ROWS.launches)
-            g["hoist_digits"] = (k.KS_DECOMPOSE.launches + md
-                                 + g.pop("hoist_zq"))
+            g["moddown_rows"] = two_grid_moddown()
+            g.pop("hoist_digits")
+            g["hoist_zq"] = (k.KS_CONVERT_ROWS.launches
+                             + k.KS_MODDOWN_ROWS.launches)
             return g
         cs.launched_grids = launched_grids
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -343,7 +353,7 @@ def main():
     ap.add_argument("--unpack", action="store_true",
                     help="unpack the other trees (needs git) and stop")
     ap.add_argument("--order", default=ORDER,
-                    help="the runs, by tree (parent, pass, change)")
+                    help="the runs, by tree (parent, quot, change)")
     ap.add_argument("--no-resnet", action="store_true",
                     help="leave out ResNet-20's forward")
     ap.add_argument("--measure", help=argparse.SUPPRESS)

@@ -32,8 +32,8 @@ import chip_smoke as cs  # noqa: E402
 
 # device kernels of each wrapper's launch, in order
 GRIDS = {"ntt_fwd": ["ntt_fwd_cluster"], "ntt_inv": ["ntt_inv_cluster"],
-         "ks_decompose": ["ntt_inv_zq", "fbc_ntt_digits"],
-         "ks_finish": ["ks_inner_intt", "moddown_rows"],
+         "ks_decompose": ["ntt_inv_zq", "hoist_digits", "fbc_ntt_digits"],
+         "ks_finish": ["ks_inner_intt", "hoist_digits", "moddown_rows"],
          "drop_intt": ["drop_intt_rows"], "drop_ntt": ["drop_lift_ntt"],
          "rescale_ntt": ["rescale_lift_ntt"]}
 
