@@ -37,7 +37,7 @@ version, of
     and 120 items over 15 Shoup keys grouped by 8 queries at
     configs/mlp.yml level 1 (the MLP at B = 8);
 the device ms by device kernel of one profiled call of each, and the
-host's ms to issue each call (`issue_ms`: 50 calls queued back to back,
+host's ms to enqueue each call (`enqueue_ms`: 50 calls queued back to back,
 timed on the host clock before the device is waited for); and (without
 --no-resnet) ResNet-20 on configs/resnet.yml through the user entry
 points (chip_smoke.py `check_resnet`): MAE, first and four steady walls,
@@ -63,7 +63,7 @@ KS_GRIDS = ("ntt_inv_rows", "ntt_inv_zq", "fbc_ntt_digits",
             "ks_inner_intt", "moddown_rows", "hoist_digits", "hoist_zq")
 TREES = {"parent": "d81e59b", "quot": "068eeab"}
 ORDER = "parent,quot,change,change,quot,parent"
-ISSUE_ITERS = 50
+ENQUEUE_ITERS = 50
 
 
 def unpack():
@@ -209,10 +209,11 @@ def cases(cs, cfgs, stats):
     return calls
 
 
-def issue_ms(calls):
-    """Host ms to issue one call of each: ISSUE_ITERS calls queued back to
-    back after a warm-up, on the host clock, before the device is waited
-    for (their few hundred launches stay within the launch queue)."""
+def enqueue_ms(calls):
+    """Host ms to enqueue one call of each: ENQUEUE_ITERS calls queued
+    back to back after a warm-up, on the host clock, before the device is
+    waited for (their few hundred launches stay within the launch
+    queue)."""
     import torch
 
     out = {}
@@ -221,9 +222,9 @@ def issue_ms(calls):
             fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(ISSUE_ITERS):
+        for _ in range(ENQUEUE_ITERS):
             fn()
-        out[what] = (time.perf_counter() - t0) * 1e3 / ISSUE_ITERS
+        out[what] = (time.perf_counter() - t0) * 1e3 / ENQUEUE_ITERS
         torch.cuda.synchronize()
     return out
 
@@ -333,7 +334,7 @@ def measure(label, with_resnet):
     stats = {}
     calls = cases(cs, cfgs, stats)
     rec["kernel_ms"] = kernel_split(cs, calls)
-    rec["issue_ms"] = issue_ms(calls)
+    rec["enqueue_ms"] = enqueue_ms(calls)
     rec["cases"] = {r["label"] + f" [{name}]": {
         "device_ms": r["device_ms"], "ms": r["ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -412,8 +413,8 @@ def main():
         for call, by in r["kernel_ms"].items():
             for kernel, ms in by.items():
                 add(f"{call}: {kernel}", r["tree"], ms)
-        for call, ms in r["issue_ms"].items():
-            add(f"{call}: issue_ms", r["tree"], ms)
+        for call, ms in r["enqueue_ms"].items():
+            add(f"{call}: enqueue_ms", r["tree"], ms)
         res = r.get("resnet")
         if res:
             for key in ("device_ms", "port_kernels_ms", "profiled_wall_ms",
