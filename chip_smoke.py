@@ -9,7 +9,8 @@ stderr and exits 1:
   1. the card's name and power limit, the kernel build time (every CUDA
      source of the port is compiled here, in parallel), ptxas' registers
      and spills of each kernel at LogN 13 and 14 (the run fails if a
-     kernel of the standard key-switch's hoisted conversion spills), the
+     kernel of the standard key-switch's hoisted conversion or of
+     rescale_poly spills), the
      CTAs per row of the cluster transforms at each ring size and of the
      key-switch kernels' ConjugateInvariant forms at each lift size (more
      than one at LogN 13 and 14, or the run fails), and the device
@@ -17,9 +18,12 @@ stderr and exits 1:
      ks_finish's three grids each, or the run fails);
   2. each hand-written kernel against its plain PyTorch version on the
      card (N = 8192) at every level of configs/mlp.yml (0-5), of
-     configs/lenet.yml (0-7, 4 digits at levels 6-7) and at levels 1-43
-     of configs/resnet.yml (44 Q primes, 6 special primes: 50 extended
-     rows and 8 digits at the top), one key-switch per call: the
+     configs/lenet.yml (0-7, 4 digits at levels 6-7) and of
+     configs/resnet.yml (44 Q primes, 6 special primes: 50 extended
+     rows and 8 digits at the top) at levels 1, 17, 42, 43 (timed), 2-5,
+     8-10 and each sixth level (with the timed ones: each digit count and
+     each size of the last digit), the rescale epilogues at all of 1-43,
+     one key-switch per call: the
      transforms also batched over two polys as rescale_poly gives them,
      ks_finish with full-chain and trimmed keys, Shoup and lean,
      ks_finish_raw (no ModDown), the rescale epilogues at every
@@ -40,6 +44,13 @@ stderr and exits 1:
      rescale_poly pair (the CI ring has no fused drop), ks_decompose and
      ks_finish; one profiled CI rescale_poly must record exactly its two
      kernels, both the CI instantiations;
+  2c. 200 rescale_poly calls on distinct ciphertexts queued back to back
+     at configs/lenet.yml level 7, configs/resnet.yml level 43 and
+     configs/lola.yml level 5 (CI), each output against the plain
+     version: launch B starts beside the end of launch A (programmatic
+     dependent launch) and must not read A's scratch before A stored it;
+     the first of them, a fresh context's first call at the level, also
+     against the plain version before the others are queued;
   3. the full-width MLP 784-128-128-10 on configs/mlp.yml through the
      user entry points on `cuda` (then once more with io_mode: stream,
      whose output must equal this one bit for bit, with its compile peak,
@@ -91,9 +102,9 @@ stderr and exits 1:
      12-ciphertext tensor must be bootstrapped;
   6c. VGG-11 at full width on configs/vgg.yml the same way; a bootstrap
      on the 2048-slot circuit must run.  6b and 6c each run in a process
-     of their own: AlexNet fits and compiles while phase 6 runs, VGG-11
-     once AlexNet has compiled, and each runs its forwards alone on the
-     card in its turn after phase 6 (`spawn_nets`);
+     of their own, started after phase 2: AlexNet fits and compiles while
+     phases 3-6 run, VGG-11 once AlexNet has compiled, and each runs its
+     forwards alone on the card in its turn after phase 6 (`spawn_nets`);
   8. batched serving (runtime/jit.make_batched_forward: B queries stacked
      on a leading axis of every ciphertext, one forward): the MLP on
      configs/mlp.yml at B = 1, 2, 4, 8 and LoLA on configs/lola.yml (CI)
@@ -131,7 +142,8 @@ stderr and exits 1:
      MLP and LoLA-CI at B = 8 and ResNet-20 at B = 2, over K items grouped
      by query (K / E keys, ext k % E), B and K the largest batch of that
      level in that config's forward (4 where it has none; for the bootstrapped
-     nets only the levels their forwards batch, a shape run for one of
+     nets each kernel's lowest and highest batched level and the level of
+     its largest batch, `batched_levels`, a shape run for one of
      them not run again; for phase 8 the
      level of its largest ks_finish launch), bit-exact against the plain versions, with ms per launch,
      per key-switch and the bound per launch; then every kernel once at
@@ -169,7 +181,10 @@ stderr and exits 1:
      line.
 
 Every profiled forward also counts its host-to-device copies (device
-records) and the host's stream synchronisations (runtime calls).
+records) and the host's stream synchronisations (runtime calls).  Its
+device time is the union of its device records' intervals: rescale_poly's
+launch B overlaps the end of its launch A; each kernel's time is the sum
+of its own records.
 
 Imports only torch, numpy, yaml and orion_tpu_torch.
 """
@@ -511,9 +526,10 @@ class Cases:
 
 
 def check_kernels(cfg, tag, stats, logn=None, levels=None, iters=50,
-                  plain_iters=3):
+                  plain_iters=3, epilogues_only=False):
     """Every kernel, one key-switch per call, at every level of one config
-    (or at `levels`, on a ring of 2^logn when given); records go to
+    (or at `levels`, on a ring of 2^logn when given; with
+    `epilogues_only` the rescale epilogues alone); records go to
     `stats` (kernel -> list of per-case records).  On a ConjugateInvariant
     config the kernels run with the CI map and are recorded under their
     `*_ci` names; that ring has no fused drop (no drop-down tables)."""
@@ -536,6 +552,10 @@ def check_kernels(cfg, tag, stats, logn=None, levels=None, iters=50,
           f"{', '.join(map(str, levels))})", flush=True)
     for level in levels:
         dl = dev_level(ctx, level)
+        if epilogues_only:
+            if level >= 1:
+                check_epilogues(cs, dl, krs, batches=((2,),))
+            continue
         nl = level + 1
         n_t = dl.t.p.shape[0]
         dnum = len(dl.digits)
@@ -617,11 +637,15 @@ def check_kernels(cfg, tag, stats, logn=None, levels=None, iters=50,
     return ctx
 
 
-def check_epilogues(cs, dl, krs):
+def check_epilogues(cs, dl, krs, batches=((2,), (2, 2))):
     """mod_drop_rescale and rescale_poly at one level >= 1, over one
-    ciphertext (2, rows, N) and a batch of two (2, 2, rows, N): launch A,
-    launch B (from launch A's scratch) and the pair, each against its plain
-    version.  The ConjugateInvariant ring has rescale_poly only."""
+    ciphertext (2, rows, N) and a batch of two (2, 2, rows, N), or the
+    leading shapes `batches`: launch A, launch B (from launch A's scratch)
+    and the pair, each against its plain version.  rescale_poly's launch
+    B reads c before it waits for the kernel ahead of it, which here is
+    itself, the poisoning fill of free memory or the timing's sleep
+    kernel: none writes c.  The ConjugateInvariant ring has rescale_poly
+    only."""
     n, level, lift = cs.ctx.n, dl.level, cs.ctx.lift_n
     kn = kernel_names(cs.ctx)
     ci = "" if dl.ci is None else "_ci"
@@ -634,7 +658,7 @@ def check_epilogues(cs, dl, krs):
         forms.insert(0, ("drop", n_t, dl.t.p, n_sp1, True, "drop_ntt",
                          krs.drop_lift_ntt, krs.drop_lift_ntt_plain,
                          krs.mod_drop_rescale, krs.mod_drop_rescale_plain))
-    for batch in ((2,), (2, 2)):
+    for batch in batches:
         groups = int(np.prod(batch))
         for what, rows, rr_p, n_div, fbc, b_name, b_fn, b_plain, pair, \
                 pair_plain in forms:
@@ -652,6 +676,47 @@ def check_epilogues(cs, dl, krs):
             cs.case(f"{what}_pair{ci}", level, label, lambda: pair(x, dl),
                     lambda: pair_plain(x, dl),
                     drop_work(groups, n_div, level, n, fbc, lift))
+
+
+STRESS_PAIRS = 200
+
+
+def stress_rescale(cfg, tag, level):
+    """Phase 2c: STRESS_PAIRS rescale_poly calls on distinct ciphertexts
+    queued back to back, then each output against its plain version.
+    Launch B starts beside the end of launch A (programmatic dependent
+    launch) and each launch A writes its scratch where the last one did:
+    a B that read z before its A had stored it would take the last
+    pair's and differ."""
+    from orion_tpu_torch.crypto.keyswitch import dev_level
+    from orion_tpu_torch.kernels import rescale as krs
+
+    ctx = make_context(cfg)
+    dl = dev_level(ctx, level)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    shape = (STRESS_PAIRS, 2, level + 1, ctx.n)
+    cts = torch.randint(0, 1 << 62, shape, generator=gen,
+                        device="cuda") % dl.q.p[:, None]
+    # a fresh context's first call at the level: every table launch B
+    # reads is built before launch A, so nothing runs between them
+    first = krs.rescale_poly(cts[0], dl)
+    if not torch.equal(first, krs.rescale_poly_plain(cts[0], dl)):
+        fail(f"a fresh context's first rescale_poly at {tag} level {level} "
+             f"differs from the plain version")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [krs.rescale_poly(ct, dl) for ct in cts]
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    bad = [i for i, (ct, out) in enumerate(zip(cts, outs))
+           if not torch.equal(out, krs.rescale_poly_plain(ct, dl))]
+    print(f"phase 2c: {cfg_name(tag)} level {level}: {STRESS_PAIRS} "
+          f"rescale_poly pairs back to back on distinct ciphertexts "
+          f"{tuple(shape[1:])}: bit-exact={not bad} ({wall_ms:.1f} ms "
+          f"for all, host included)", flush=True)
+    if bad:
+        fail(f"rescale_poly back to back at {tag} level {level}: pairs "
+             f"{bad[:10]} differ from the plain version")
 
 
 def profile_epilogues(dl, tag, krs):
@@ -775,6 +840,21 @@ def check_batched(ctx, tag, stats, sizes, levels=None, default=4,
                                     moddown=not raw, lift=lift),
                         iters=20, items=k, plain_iters=plain_iters)
         del pack, pack_sh, ext1, extk, variants
+
+
+def batched_levels(sizes):
+    """Phase 7's levels of a bootstrapped net: for ks_decompose and
+    ks_finish, the level of the forward's largest batch and its lowest
+    and highest batched levels (phase 2 holds them one key-switch per
+    call at resnet.yml's timed levels and at the first level of each
+    digit count)."""
+    levels = set()
+    for kernel in ("ks_decompose", "ks_finish"):
+        by = sizes.get(kernel, {})
+        if by:
+            levels |= {min(by), max(by),
+                       max(by, key=lambda lv: max(by[lv]))}
+    return sorted(levels)
 
 
 # ------------------------------------------------------------------ #
@@ -1222,6 +1302,10 @@ PROFILE_PAD_S = 0.05
 MARK_CYCLES = 1000
 # profiles taken of one call at most, while they lose records
 PROFILE_ATTEMPTS = 2
+# ... of one short call (a fraction of a second each): the CI rescale pair
+# at a 2^14 lift lost a marker in 2 of 2 profiles in one run, in 1 of 2 in
+# another, and in none in others
+SHORT_PROFILE_ATTEMPTS = 6
 
 
 def profiled(fn, activities):
@@ -1302,22 +1386,40 @@ def call_records(recs):
     return kept, left
 
 
+def busy_ms(recs):
+    """ms in which at least one of the device records ran: the union of
+    their intervals.  A programmatic dependent launch (rescale_poly's
+    launch B) runs beside the end of the kernel ahead of it, so the sum of
+    the records' durations would count that overlap twice."""
+    total, end = 0, None
+    for e in sorted(recs, key=lambda e: e.start):
+        if end is None or e.start >= end:
+            total += e.end - e.start
+            end = e.end
+        elif e.end > end:
+            total += e.end - end
+            end = e.end
+    return total / 1e6
+
+
 def device_kernels(fn):
     """Names of the device kernels one call of fn ran, from a CUDA-only
     torch.profiler profile (a first call warms the profiler up and is not
     recorded), taken again while its markers are missing, up to
-    PROFILE_ATTEMPTS profiles.  (A CPU and CUDA profile of a rescale
+    SHORT_PROFILE_ATTEMPTS profiles.  (A CPU and CUDA profile of a rescale
     recorded no device event at all once, after phase 2's thousand
     resnet cases.)"""
     from torch.profiler import ProfilerActivity
 
-    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+    for attempt in range(1, SHORT_PROFILE_ATTEMPTS + 1):
         recs = records(profiled(fn, [ProfilerActivity.CUDA])[0])
         got = call_records(recs)
         if got is not None:
             return [e.name for e in got[0]]
-        print(f"  profile {attempt} of {PROFILE_ATTEMPTS}: the markers "
-              f"around the call were not recorded; device records: "
+        recs = sorted(recs, key=lambda e: e.start)
+        print(f"  profile {attempt} of {SHORT_PROFILE_ATTEMPTS}: the "
+              f"markers around the call were not recorded; device records "
+              f"by start: "
               + ", ".join(e.name[:40] for e in recs if e.device),
               flush=True)
     fail("the profiler did not record the two marker kernels around a call")
@@ -1326,7 +1428,9 @@ def device_kernels(fn):
 def profile_device(fn):
     """Device time of one call of fn by kernel from a CUDA-only profile (a
     deep forward makes too many host events to keep), after a warm-up
-    call that is not recorded; the port's kernels recorded by name beside
+    call that is not recorded: the call's device ms (the union of its
+    records' intervals, `busy_ms`) and each kernel's summed durations;
+    the port's kernels recorded by name beside
     those their wrappers launched in the recorded call.  A profile whose
     markers are missing, that lost records of the port's kernels or that
     left out a record overlapping the call is said so and taken again, up
@@ -1353,7 +1457,7 @@ def profile_device(fn):
               f"port kernels recorded {seen}, launched {launched}; "
               + ("markers not recorded" if left is None
                  else f"records left out {left}"), flush=True)
-    dev_ms = sum(by_name.values())
+    dev_ms = busy_ms(kept)
     ours_by = {o: sum(v for k, v in by_name.items() if o in k)
                for o in OUR_KERNELS}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -3131,6 +3235,8 @@ def print_ptxas(libs):
 # the kernels of the standard key-switch's hoisted conversion
 HOISTED = ("ntt_inv_zq", "hoist_digits", "fbc_ntt_digits", "ks_inner_intt",
            "moddown_rows")
+# rescale_poly's two kernels
+RESCALE = ("drop_intt_rows", "rescale_lift_ntt")
 
 
 def keyswitch_launches(cfg):
@@ -3184,9 +3290,10 @@ def main():
           f"({', '.join(_build.SOURCES)})", flush=True)
     spilled = print_ptxas(libs)
     spills = {k: v for k, v in spilled.items()
-              if v and k.split("<")[0] in HOISTED}
+              if v and k.split("<")[0] in HOISTED + RESCALE}
     if spills:
-        fail(f"the hoisted key-switch kernels spill registers: {spills}")
+        fail(f"the hoisted key-switch kernels or rescale_poly's spill "
+             f"registers: {spills}")
     from orion_tpu_torch.kernels import ntt as kntt
 
     ctas = {logn: kntt.cluster_size(logn) for logn in range(8, 15)}
@@ -3222,17 +3329,31 @@ def main():
     check_kernels(cfgs["mlp_ci"], "mlp_ci", stats)
     print(f"phase 2b done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    # every level that rescales: timed in full at four levels, with a few
-    # calls and the plain version once (for the comparison) at the others
+    # every level that rescales: timed in full at four levels; at the
+    # others a few calls and the plain version once (for the comparison).
+    # Every kernel runs at the untimed levels that, with the timed ones,
+    # hold each digit count and each size of the last digit (alpha 6):
+    # each sixth level (2 to 7 digits, the last of one row), levels 2-5
+    # (one digit of 3 to 6 rows) and 8-10 (two, the last of 3 to 5 rows);
+    # the rescale epilogues alone at the others
     timed = (1, 17, 42, 43)
     check_kernels(cfgs["resnet"], "resnet", stats, levels=timed, iters=10,
                   plain_iters=1)
+    full = sorted({2, 3, 4, 5, 8, 9, 10} | set(range(6, 42, 6)))
+    check_kernels(cfgs["resnet"], "resnet", stats, levels=full, iters=3,
+                  plain_iters=0)
     check_kernels(cfgs["resnet"], "resnet", stats,
-                  levels=[lv for lv in range(1, 44) if lv not in timed],
-                  iters=3, plain_iters=0)
+                  levels=[lv for lv in range(1, 44)
+                          if lv not in timed and lv not in full],
+                  iters=3, plain_iters=0, epilogues_only=True)
+    for tag, level in (("lenet", 7), ("resnet", 43), ("lola", 5)):
+        stress_rescale(cfgs[tag], tag, level)
     torch.cuda.empty_cache()
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    # AlexNet and VGG-11 fit and compile in processes of their own while
+    # phases 3-6 run (phase 7, which times kernels, runs after their turns)
+    nets = spawn_nets(cfgs)
 
     paths = {
         "mlp": check_model(cfgs["mlp"], "MLP",
@@ -3265,7 +3386,6 @@ def main():
     torch.cuda.empty_cache()
     print(f"phase 5 on the card done at {time.perf_counter() - t_start:.1f}"
           f" s", flush=True)
-    nets = spawn_nets(cfgs)
     paths["resnet"] = check_resnet(cfgs["resnet"], batch=2, extra=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3322,8 +3442,7 @@ def main():
     for tag in BOOTSTRAPPED:
         b = paths[tag]["batches"]
         check_batched(ctx, tag, stats, b, lean=True, done=done,
-                      levels=sorted({lv for k in ("ks_decompose", "ks_finish")
-                                     for lv in b.get(k, {})}))
+                      levels=batched_levels(b))
         print(f"phase 7 {tag} done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
     # phase 8's batched forwards: the batches of ResNet-20 at B = 2, of

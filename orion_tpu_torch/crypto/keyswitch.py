@@ -228,6 +228,9 @@ def _build_dev_level(ctx: CKKSContext, level: int) -> DevLevel:
         ring_n=ctx.n,
         ci=ctx.ci,
     )
+    # rescale_poly's Shoup constants, built here and not at its first call:
+    # nothing may run on the stream between its two launches
+    out.kernel_tables["one_shoup"] = _rescale.one_shoup(out.q.p)
     # the CI ring builds no drop-down tables (orion_tpu's dev_level), so
     # its multiplies rescale through rescale_poly
     if lt.dropdown is not None and ctx.ci is None:

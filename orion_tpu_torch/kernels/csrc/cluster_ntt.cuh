@@ -137,13 +137,17 @@ __device__ __forceinline__ void fwd_exchange(
     cl.sync();
     if (c >= KEEP) return;  // uniform per CTA
     auto own = [&](int i) { return s[pad(i)]; };
-    auto out = [&](int i, uint32_t v) { store(c * SP::M + i, v); };
+    auto out = [&](int i, int slot, uint32_t v) {
+        store_at(store, c * SP::M + i, slot, v);
+    };
     fwd_passes<SP::LOGM, 0>(s, tw + (int64_t)c * SP::M, p, own, out);
 }
 
 // Forward NTT of one row by the calling cluster: load(g) -> uint32 input g
-// (g < N), store(g, v) takes output g.  twp: the row's packed table in the
-// split's order.  s: Split<LOGN>::SMEM_FWD bytes of shared memory.
+// (g < N), store(g, v) takes output g (or store(g, slot, v): see
+// `store_at`; the slots of CTA c's outputs c * M + fwd_out_elem<LOGM>(slot)).
+// twp: the row's packed table in the split's order.  s:
+// Split<LOGN>::SMEM_FWD bytes of shared memory.
 template <int LOGN, class Load, class Store>
 __device__ __forceinline__ void ntt_fwd_split(uint32_t* s, const int64_t* twp,
                                               uint32_t p, Load load,
@@ -332,11 +336,27 @@ ntt_inv_cluster(int64_t* out, const int64_t* in, int L, const int64_t* p,
         });
 }
 
+// Programmatic dependent launch (sm_90).  A kernel launched with
+// PDL = true below may start before the kernel ahead of it on the stream
+// has finished: it may run what does not read that kernel's output, then
+// `grid_dependency_wait`, which returns once the kernel ahead has
+// completed and its writes are visible (at once without the attribute).
+// The kernel ahead lets it start by `launch_dependents` from every thread
+// after its last store (or by exiting).
+__device__ __forceinline__ void grid_dependency_wait() {
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void launch_dependents() {
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 // Launch `kernel` over a grid of (rows, gy, gz) rows, one cluster of
 // Split<LOGN>::C CTAs per row (grid x = rows * C: a CTA's row is
-// blockIdx.x / C), on `stream`.  A refused launch returns its error:
-// there is no single-block fallback.
-template <int LOGN, class... Exp, class... Act>
+// blockIdx.x / C), on `stream`; with PDL, as a programmatic dependent of
+// the kernel ahead of it.  A refused launch returns its error: there is no
+// single-block fallback.
+template <int LOGN, bool PDL = false, class... Exp, class... Act>
 inline cudaError_t launch_split_grid(void (*kernel)(Exp...), int64_t rows,
                                      int gy, int gz, size_t smem,
                                      cudaStream_t stream, Act... args) {
@@ -351,13 +371,15 @@ inline cudaError_t launch_split_grid(void (*kernel)(Exp...), int64_t rows,
     cfg.blockDim = dim3(SP::T);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
+    cudaLaunchAttribute attr[2];
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = SP::C;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
+    attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[1].val.programmaticStreamSerializationAllowed = 1;
     cfg.attrs = attr;
-    cfg.numAttrs = 1;
+    cfg.numAttrs = PDL ? 2 : 1;
     e = cudaLaunchKernelEx(&cfg, kernel, args...);
     if (e != cudaSuccess) return e;
     return cudaGetLastError();

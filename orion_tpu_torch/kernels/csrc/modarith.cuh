@@ -106,6 +106,28 @@ __device__ __forceinline__ int pass_elem(int k, int j) {
     return ((q >> LG) << (LOGN - A)) + (q & ((1 << LG) - 1)) + (j << LG);
 }
 
+// The output of the forward's last pass that this thread holds in
+// register `slot` < R (its store(i, slot, v) call, `store_at`).
+template <int LOGN>
+__device__ __forceinline__ int fwd_out_elem(int slot) {
+    using RG = Ring<LOGN>;
+    constexpr int S = RG::PASSES == 1 ? RG::S0 : RG::LOGR;
+    return pass_elem<LOGN, LOGN - S, S>(slot >> S, slot & ((1 << S) - 1));
+}
+
+// A forward's store functor takes output i as store(i, v), or as
+// store(i, slot, v) with the register slot that held it: a constant once
+// the passes are unrolled, so a caller can fetch what each output needs
+// into registers before the transform (rescale_lift_ntt).
+template <class Store>
+__device__ __forceinline__ void store_at(Store& store, int i, int slot,
+                                         uint32_t v) {
+    if constexpr (std::is_invocable_v<Store&, int, int, uint32_t>)
+        store(i, slot, v);
+    else
+        store(i, v);
+}
+
 template <int LOGN, int A, int S>
 __device__ __forceinline__ const u64* pass_tw(const u64* twp, int k) {
     const int q = (int)threadIdx.x + k * Ring<LOGN>::T;
@@ -183,7 +205,7 @@ __device__ __forceinline__ void fwd_passes(uint32_t* s, const u64* twp,
 #pragma unroll
         for (int j = 0; j < (1 << S); ++j) {
             const int i = pass_elem<LOGN, A, S>(k, j);
-            if (last) store(i, x[(k << S) + j]);
+            if (last) store_at(store, i, (k << S) + j, x[(k << S) + j]);
             else s[pad(i)] = x[(k << S) + j];
         }
     if constexpr (!last) {

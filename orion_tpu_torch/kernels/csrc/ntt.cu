@@ -10,6 +10,10 @@
 //                (acc_j - lift) * (P q_l)^-1 mod q_j in the store functor;
 //   rescale_ntt: launch B of rescale_poly - the centered lift of the last
 //                limb to q_j, the forward NTT, (c_j - lift) * q_l^-1.
+//                rescale_poly launches it as a programmatic dependent of
+//                launch A (sm_90): it fetches c's values for its stores,
+//                then waits for A's z, so its start and prologue overlap
+//                A's end; A lets it start after its last store.
 //
 // ntt_fwd, ntt_inv, drop_intt and rescale_ntt also come with the
 // ConjugateInvariant ring's map (CI = true, modarith.cuh): rows of n
@@ -97,6 +101,8 @@ SPLIT_KERNEL_CI(drop_intt_rows)(uint32_t* z, const int64_t* in, int n_src,
         [&](int i, uint32_t v) {
             if (!CI || i < W) dst[i] = shoup_mul(v, nv, nv_sh, pd);
         });
+    // z is stored: launch B, a programmatic dependent, may start
+    launch_dependents();
 }
 
 // out (groups, l, N) = (acc[g, j] - NTT(fbc(z[g]) -> q_j)) * scale_j mod
@@ -135,47 +141,71 @@ SPLIT_KERNEL(drop_lift_ntt)(int64_t* out, const int64_t* acc,
 }
 
 // out (groups, l, W) = (c[g, j] - NTT(lift_j(z[g]))) * scale_j mod q_j,
-// c (groups, n_src, W), z (groups, 1, W) the last limb in coefficients;
-// lift_j(x) = x mod q_j - [x >= half] * (q_l mod q_j), the centered lift
-// (on the CI ring then lifted to 2n, and stored through the map).
+// c (groups, n_src, W), z (groups, 1, W) the last limb in coefficients,
+// one cluster per (g, j) in row-major order; lift_j(x) = x mod q_j - [x >=
+// half] * (q_l mod q_j), the centered lift, its x mod q_j a Shoup product
+// by one (one_sh = floor(2^32 / q_j), exact for x < 2^32); on the CI ring
+// the lift of each value to 2n is formed once (ntt_fwd_lift, the kept half
+// of the outputs only) and stored through the map.  Launched as the
+// programmatic dependent of launch A: each thread first fetches the values
+// of c its stores need, into registers, and waits for A's z only then, so
+// the fetch runs while A ends.  Without the launch attribute the wait
+// returns at once.
 SPLIT_KERNEL_CI(rescale_lift_ntt)(int64_t* out, const int64_t* c,
                                   const uint32_t* z, int n_src, int l,
                                   int half, const int64_t* p,
                                   const int64_t* twc,
                                   const int64_t* qlast_mod,
+                                  const int64_t* one_sh,
                                   const int64_t* scale,
                                   const int64_t* scale_sh,
                                   const int64_t* ci_pos) {
     extern __shared__ uint32_t s[];
-    constexpr int N = 1 << LOGN;
+    using SP = Split<LOGN>;
+    constexpr int N = 1 << LOGN, R = SP::Core::R;
     constexpr int W = row_width<LOGN, CI>();
-    const int64_t row = blockIdx.x / Split<LOGN>::C;
+    // the CTAs that store (on the CI lift with a cluster: the first half)
+    constexpr int KEEP = CI && SP::C > 1 ? SP::C / 2 : SP::C;
+    const int64_t row = blockIdx.x / SP::C;
     const int64_t g = row / l;
     const int j = (int)(row % l);
+    const int cr = SP::C == 1 ? 0 : (int)cg::this_cluster().block_rank();
     const uint32_t pj = (uint32_t)p[j];
     const uint32_t qm = (uint32_t)qlast_mod[j];
+    const uint32_t osh = (uint32_t)one_sh[j];
     const uint32_t sc = (uint32_t)scale[j];
     const uint32_t sc_sh = (uint32_t)scale_sh[j];
     const uint32_t* zg = z + g * W;
     const int64_t* a = c + (g * n_src + j) * W;
     int64_t* dst = out + row * W;
-    ntt_fwd_split<LOGN>(
-        s, twc + (int64_t)j * N, pj,
-        [&](int i) {
-            return lift_at<CI>(
-                [&](int k) {
-                    const uint32_t x = zg[k];
-                    return sub_mod(x % pj, x >= (uint32_t)half ? qm : 0u,
-                                   pj);
-                },
-                i, W, pj);
-        },
-        [&](int i, uint32_t v) {
-            keep_at<CI>(ci_pos, i, [&](int k) {
-                dst[k] = shoup_mul(sub_mod((uint32_t)a[k], v, pj), sc,
-                                   sc_sh, pj);
-            });
-        });
+    // output cr * M + fwd_out_elem(slot) goes to pos[slot]: itself, or on
+    // the CI ring its slot in the map (< 0: dropped)
+    int pos[R];
+    uint32_t pre[R];
+    if (cr < KEEP) {
+#pragma unroll
+        for (int slot = 0; slot < R; ++slot) {
+            const int o = cr * SP::M + fwd_out_elem<SP::LOGM>(slot);
+            pos[slot] = CI ? (int)ci_pos[o] : o;
+            pre[slot] = !CI || pos[slot] >= 0 ? (uint32_t)a[pos[slot]] : 0u;
+        }
+    }
+    grid_dependency_wait();
+    auto lift = [&](int k) {
+        const uint32_t x = zg[k];
+        const uint32_t v = x >= (uint32_t)half ? qm : 0u;
+        return sub_mod(shoup_mul(x, 1u, osh, pj), v, pj);
+    };
+    auto store = [&](int o, int slot, uint32_t v) {
+        const int k = CI ? pos[slot] : o;
+        if (CI && k < 0) return;
+        dst[k] = shoup_mul(sub_mod(pre[slot], v, pj), sc, sc_sh, pj);
+    };
+    const int64_t* tw = twc + (int64_t)j * N;
+    if constexpr (CI)
+        ntt_fwd_lift<LOGN>(s, tw, pj, lift, store);
+    else
+        ntt_fwd_split<LOGN>(s, tw, pj, lift, store);
 }
 
 extern "C" int orion_ntt_cluster_size(int logn) {
@@ -279,20 +309,24 @@ extern "C" int orion_drop_ntt(
     });
 }
 
+// Launched as the programmatic dependent of the kernel ahead of it on the
+// stream, launch A of rescale_poly: c was complete before that started.
 template <bool CI>
 static int rescale_ntt_launch(int64_t* out, const int64_t* c,
                               const uint32_t* z, int groups, int n_src,
                               int l, int logn, int half, const int64_t* p,
                               const int64_t* twc, const int64_t* qlast_mod,
-                              const int64_t* scale, const int64_t* scale_sh,
-                              const int64_t* ci_pos, void* stream) {
+                              const int64_t* one_sh, const int64_t* scale,
+                              const int64_t* scale_sh, const int64_t* ci_pos,
+                              void* stream) {
     return (int)with_logn(logn, [&](auto k) {
         constexpr int LOGN = decltype(k)::value;
-        return launch_split<LOGN>(rescale_lift_ntt<LOGN, CI>,
-                                  (int64_t)groups * l, Split<LOGN>::SMEM_FWD,
-                                  (cudaStream_t)stream, out, c, z, n_src, l,
-                                  half, p, twc, qlast_mod, scale, scale_sh,
-                                  ci_pos);
+        const size_t smem = CI ? Split<LOGN>::SMEM_LIFT
+                               : Split<LOGN>::SMEM_FWD;
+        return launch_split_grid<LOGN, true>(
+            rescale_lift_ntt<LOGN, CI>, (int64_t)groups * l, 1, 1, smem,
+            (cudaStream_t)stream, out, c, z, n_src, l, half, p, twc,
+            qlast_mod, one_sh, scale, scale_sh, ci_pos);
     });
 }
 
@@ -300,11 +334,11 @@ extern "C" int orion_rescale_ntt(int64_t* out, const int64_t* c,
                                  const uint32_t* z, int groups, int n_src,
                                  int l, int logn, int half, const int64_t* p,
                                  const int64_t* twc, const int64_t* qlast_mod,
-                                 const int64_t* scale,
+                                 const int64_t* one_sh, const int64_t* scale,
                                  const int64_t* scale_sh,
                                  const int64_t* ci_pos, void* stream) {
     auto launch = ci_pos != nullptr ? rescale_ntt_launch<true>
                                     : rescale_ntt_launch<false>;
     return launch(out, c, z, groups, n_src, l, logn, half, p, twc, qlast_mod,
-                  scale, scale_sh, ci_pos, stream);
+                  one_sh, scale, scale_sh, ci_pos, stream);
 }

@@ -11,10 +11,16 @@ takes one launch pair:
   - `drop_ntt` / `rescale_ntt` (launch B): per (group, target row j < l)
     the lift to q_j in the transform's load functor (the basis conversion
     over the scratch rows with the level's `dropdown` digit, or the
-    centered lift of the last limb), the forward NTT, and the
-    subtract-and-scale by (P q_l)^-1 or q_l^-1 in its store functor.
+    centered lift of the last limb, reduced by a Shoup product by one,
+    `one_shoup`), the forward NTT, and the subtract-and-scale by
+    (P q_l)^-1 or q_l^-1 in its store functor.
 Both transforms are the cluster transforms of `ntt.py`; nothing runs
-between the two launches but the allocation of the output and scratch.
+between the two launches but the allocation of the output and scratch
+(every table they read is built with the level, or before launch A).
+`rescale_ntt` is launched as the programmatic dependent of launch A:
+launch B's clusters start as A's last ones store, fetch the values of c
+their stores need, and wait for A's z only then.  `drop_ntt` is an
+ordinary launch.
 
 On the ConjugateInvariant ring `rescale_poly` runs with the CI map
 (`drop_intt_ci`, `rescale_ntt_ci`): launch A reads the last limb's n
@@ -51,7 +57,7 @@ DROP_NTT = Kernel(
     "fbc and subtract-and-scale of orion_tpu/crypto/keyswitch.py:446 "
     "mod_drop_rescale (jnp)")
 RESCALE_NTT = Kernel(
-    "rescale_ntt", "ntt.cu", "orion_rescale_ntt", "ppp" + "iiiii" + "p" * 6,
+    "rescale_ntt", "ntt.cu", "orion_rescale_ntt", "ppp" + "i" * 5 + "p" * 7,
     "orion_tpu/crypto/ks_pallas.py:351 pallas_ntt4 (_kntt :82) with the "
     "centered lift and subtract-and-scale of "
     "orion_tpu/crypto/keyswitch.py:503 rescale_poly (jnp)")
@@ -61,7 +67,7 @@ DROP_INTT_CI = Kernel(
     "CI gather of orion_tpu/crypto/keyswitch.py:254 ring_intt in "
     ":503 rescale_poly (jnp)")
 RESCALE_NTT_CI = Kernel(
-    "rescale_ntt_ci", "ntt.cu", "orion_rescale_ntt", "ppp" + "iiiii" + "p" * 6,
+    "rescale_ntt_ci", "ntt.cu", "orion_rescale_ntt", "ppp" + "i" * 5 + "p" * 7,
     "orion_tpu/crypto/ks_pallas.py:351 pallas_ntt4 (_kntt :82) with the "
     "centered lift, CI lift and keep and subtract-and-scale of "
     "orion_tpu/crypto/keyswitch.py:503 rescale_poly (jnp)")
@@ -232,8 +238,20 @@ def drop_lift_ntt(acc, z, dl):
     return out
 
 
+def one_shoup(p: torch.Tensor) -> torch.Tensor:
+    """floor(2^32 / p) of each prime: x mod p = x - umulhi(x, it) * p,
+    less p once more if that is >= p, exactly for every x < 2^32 (a Shoup
+    product by one, orion_tpu's `one_shoup_q`); in each level's
+    `kernel_tables` (crypto/keyswitch.py `_build_dev_level`)."""
+    return torch.div(1 << 32, p, rounding_mode="floor")
+
+
 def rescale_lift_ntt(c, z, dl):
-    """Launch B of rescale_poly, from launch A's scratch z."""
+    """Launch B of rescale_poly, from launch A's scratch z.  It is launched
+    as the programmatic dependent of the kernel ahead of it on the stream
+    and reads c before it waits for that kernel: call it right after
+    `divisor_intt` of this c (rescale_poly), or behind any kernel that does
+    not write c."""
     if c.device.type == "cpu":
         return rescale_lift_ntt_plain(c, z, dl)
     lvl, n = dl.level, dl.ring_n
@@ -243,8 +261,8 @@ def rescale_lift_ntt(c, z, dl):
                       device=c.device)
     k.launch(c.device, out, c, z, groups, lvl + 1, lvl, dl.q.logn,
              dl.qlast_half, dl.q.p, cluster_twiddles(dl.q)[0],
-             dl.qlast_mod_t, dl.qlast_inv, dl.qlast_inv_shoup,
-             None if dl.ci is None else dl.ci.pos,
+             dl.qlast_mod_t, dl.kernel_tables["one_shoup"], dl.qlast_inv,
+             dl.qlast_inv_shoup, None if dl.ci is None else dl.ci.pos,
              level=lvl, items=groups * lvl)
     return out
 

@@ -20,6 +20,7 @@ the plain path launches no kernel.
 """
 
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -34,7 +35,7 @@ from orion_tpu_torch.kernels import launch_counts
 from orion_tpu_torch.models import load_jax_params
 from orion_tpu_torch.utils import ArrayLoader, mae
 
-from .test_torch_mlp import run_flow, seed_jax_net
+from .test_torch_mlp import plain, run_flow, seed_jax_net, shared
 
 CONFIG = Path(__file__).parent.parent / "configs" / "lenet.yml"
 
@@ -65,8 +66,7 @@ def narrow_lenet(on):
     return NarrowLeNet()
 
 
-@pytest.fixture(scope="module")
-def runs():
+def _runs():
     with open(CONFIG) as f:
         cfg = yaml.safe_load(f)
     cfg["ckks_params"]["LogN"] = 9
@@ -96,18 +96,28 @@ def runs():
         jax_run = run_flow(jorion, jnet, cfg, loader, x, module_jit=True)
     finally:
         jax.config.update("jax_disable_most_optimizations", prev)
-    return jax_run, port, tnet
+    shapes = SimpleNamespace(
+        level=tnet.conv1.level, grid1=sorted(tnet.conv1.compiled),
+        grid2=sorted(tnet.conv2.compiled),
+        fhe_output_shape=tnet.conv1.fhe_output_shape,
+        output_gap=tnet.conv2.output_gap)
+    return plain(jax_run), plain(port), shapes
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return shared(tmp_path_factory, "lenet", _runs)
 
 
 def test_shapes_of_the_slice(runs):
     """The input enters at level 7, conv1's output spans two ciphertexts
     in a 2x1 block grid and conv2 reads them in a 1x2 grid."""
-    _, (_, tout, _), tnet = runs
-    assert tnet.conv1.level == 7
-    assert sorted(tnet.conv1.compiled) == [(0, 0), (1, 0)]
-    assert sorted(tnet.conv2.compiled) == [(0, 0), (0, 1)]
-    assert tnet.conv1.fhe_output_shape == (1, 2, 16, 16)
-    assert tnet.conv2.output_gap == 4
+    _, (_, tout, _), shapes = runs
+    assert shapes.level == 7
+    assert shapes.grid1 == [(0, 0), (1, 0)]
+    assert shapes.grid2 == [(0, 0), (0, 1)]
+    assert shapes.fhe_output_shape == (1, 2, 16, 16)
+    assert shapes.output_gap == 4
     assert tout.cts[0].level == 0
 
 

@@ -35,7 +35,7 @@ from orion_tpu_torch.kernels import launch_counts
 from orion_tpu_torch.models import load_jax_params
 from orion_tpu_torch.utils import ArrayLoader, mae
 
-from .test_torch_mlp import narrow_mlp, run_flow, seed_jax_net
+from .test_torch_mlp import narrow_mlp, plain, run_flow, seed_jax_net, shared
 
 CONFIG = Path(__file__).parent / "configs" / "mlp.yml"
 
@@ -81,12 +81,13 @@ def _flows(name):
         jax_run = run_flow(jorion, jnet, cfg, loader, x, module_jit=True)
     finally:
         jax.config.update("jax_disable_most_optimizations", prev)
-    return jax_run, port
+    return plain(jax_run), plain(port)
 
 
 @pytest.fixture(scope="module", params=sorted(NETS))
-def runs(request):
-    return _flows(request.param)
+def runs(request, tmp_path_factory):
+    return shared(tmp_path_factory, f"lola_{request.param}",
+                  lambda: _flows(request.param))
 
 
 def test_cleartext_outputs_agree(runs):

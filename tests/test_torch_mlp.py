@@ -15,11 +15,16 @@ order), output ciphertexts equal bit for bit (so decrypted outputs agree
 to 1e-9), MAE vs cleartext < 0.005.
 """
 
+import fcntl
+import os
+import pickle
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import numpy as np
 import pytest
+import torch
 import yaml
 
 import orion_tpu as jorion
@@ -92,8 +97,41 @@ def run_flow(orion, net, cfg, loader, x, module_jit=False, **kw):
     return np.asarray(clear, dtype=np.float64), out, out.decrypt().decode()
 
 
-@pytest.fixture(scope="module")
-def runs():
+def plain(run):
+    """run_flow's (clear, out, decrypted) as plain data: out's ciphertexts
+    as (level, scale, data) records, data as the package holds it (numpy
+    for orion_tpu, a torch tensor for the port), so a run pickles."""
+    clear, out, dec = run
+    cts = [SimpleNamespace(level=c.level, scale=c.scale,
+                           data=c.data if isinstance(c.data, torch.Tensor)
+                           else np.asarray(c.data)) for c in out.cts]
+    return clear, SimpleNamespace(cts=cts), np.asarray(dec)
+
+
+def shared(tmp_path_factory, name, compute):
+    """compute() once per test session.  Under pytest-xdist a file's tests
+    may go to several workers, and each would run the module fixture
+    again: the first worker to ask computes under a file lock in the
+    session's temporary root and pickles the result, and the others wait
+    on the lock and load it.  Without xdist it just computes."""
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        return compute()
+    root = tmp_path_factory.getbasetemp().parent
+    path = root / f"{name}.pkl"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        out = compute()
+        tmp = path.with_suffix(".tmp")
+        with open(tmp, "wb") as f:
+            pickle.dump(out, f)
+        tmp.replace(path)
+        return out
+
+
+def _runs():
     with open(CONFIG) as f:
         cfg = yaml.safe_load(f)
     cfg["ckks_params"]["LogN"] = 10
@@ -119,7 +157,12 @@ def runs():
         jax_run = run_flow(jorion, jnet, cfg, loader, x, module_jit=True)
     finally:
         jax.config.update("jax_disable_most_optimizations", prev)
-    return jax_run, port
+    return plain(jax_run), plain(port)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return shared(tmp_path_factory, "mlp", _runs)
 
 
 def test_cleartext_outputs_agree(runs):

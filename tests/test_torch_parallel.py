@@ -44,6 +44,7 @@ import pytest
 from jax.sharding import Mesh
 
 from .parallel.test_mesh_forward import TinyMLP
+from .test_torch_mlp import shared
 
 ROOT = Path(__file__).resolve().parent.parent
 WORLD = 4
@@ -298,8 +299,7 @@ def _reference(inp, dpmp, jnet):
     return ref
 
 
-@pytest.fixture(scope="module")
-def world(tmp_path_factory):
+def _world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("world")
     inp, dpmp, jnet = _inputs(tmp)
     port = _free_port()
@@ -327,7 +327,16 @@ def world(tmp_path_factory):
     ranks = [(dict(np.load(tmp / f"rank{r}.npz")),
               json.loads((tmp / f"rank{r}.json").read_text()))
              for r in range(WORLD)]
-    return inp, ref, ranks
+    return ref, ranks
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """(orion_tpu's results, each rank's), computed once per test session
+    (`shared`): the world of ranks and orion_tpu's programs are the file's
+    whole cost."""
+    return shared(tmp_path_factory, "parallel_world",
+                  lambda: _world(tmp_path_factory))
 
 
 @pytest.mark.parametrize("m", [2, 4])
@@ -336,7 +345,7 @@ def test_sharded_keyswitch_equals_orion_tpu(world, m, level):
     """Every rank's gathered result, by row blocks and by the seam, equals
     orion_tpu's sharded key-switch and the unsharded one residue for
     residue (Q rows; orion_tpu's output holds garbage in special rows)."""
-    _, ref, ranks = world
+    ref, ranks = world
     nl = level + 1
     want = ref[f"ks_l{level}"].astype(np.int64)
     sharded = ref[f"ks_m{m}_l{level}"].astype(np.int64)
@@ -348,7 +357,7 @@ def test_sharded_keyswitch_equals_orion_tpu(world, m, level):
 
 
 def test_dcn_mesh_layout_and_errors(world):
-    _, _, ranks = world
+    _, ranks = world
     for _, rec in ranks:
         rep = rec["report"]
         assert rep["shape"] == {"dp": 2, "limb": 2}, rep
@@ -362,7 +371,7 @@ def test_dcn_mesh_layout_and_errors(world):
 
 
 def test_dp_mp_step_equals_orion_tpu(world):
-    _, ref, ranks = world
+    ref, ranks = world
     want = ref["dpmp"].astype(np.int64)
     assert want.shape[:2] == (2, 2)
     for out, _ in ranks:
@@ -370,7 +379,7 @@ def test_dp_mp_step_equals_orion_tpu(world):
 
 
 def test_sharded_forward_equals_orion_tpu(world):
-    _, ref, ranks = world
+    ref, ranks = world
     for out, rec in ranks:
         for b, (cts, clear) in enumerate(zip(ref["fwd"], ref["clear"])):
             assert rec[f"fwd_q{b}_meta"] == [[lv, sc] for _, lv, sc in cts]
@@ -381,7 +390,7 @@ def test_sharded_forward_equals_orion_tpu(world):
 
 
 def test_sharded_bootstrap_equals_unsharded(world):
-    _, _, ranks = world
+    _, ranks = world
     for _, rec in ranks:
         boot = rec["boot"]
         assert boot["limb"] == 2 and boot["bootstraps"] >= 1, boot
