@@ -9,8 +9,9 @@ stderr and exits 1:
   1. the card's name and power limit, the kernel build time (every CUDA
      source of the port is compiled here, in parallel), ptxas' registers
      and spills of each kernel at LogN 13 and 14 (the run fails if a
-     kernel of the standard key-switch's hoisted conversion or of
-     rescale_poly spills), the
+     kernel of the standard key-switch's hoisted conversion or of the
+     rescale epilogues spills: drop_intt_rows, the pass hoist_digits,
+     drop_lift_ntt, rescale_lift_ntt), the
      CTAs per row of the cluster transforms at each ring size and of the
      key-switch kernels' ConjugateInvariant forms at each lift size (more
      than one at LogN 13 and 14, or the run fails), and the device
@@ -30,8 +31,10 @@ stderr and exits 1:
      level >= 1 (mod_drop_rescale and rescale_poly over one ciphertext and
      over a batch of 2: each of their two launches and the pair), and the
      PallasNTT counterpart (crypto/ntt_pallas.py) over chosen limb rows;
-     one profiled call of each epilogue must record exactly its two
-     kernels on the card: all must be bit-exact
+     one profiled call of each epilogue must record exactly its kernels
+     on the card (rescale_poly: drop_intt_rows, rescale_lift_ntt;
+     mod_drop_rescale: drop_intt_rows, the pass hoist_digits,
+     drop_lift_ntt): all must be bit-exact
      (torch.equal, the kernel's output allocated from memory filled with
      -1); per call the kernel's ms (calls back to back, host included,
      as the earlier slices took it), its device ms (calls queued behind
@@ -46,11 +49,14 @@ stderr and exits 1:
      kernels, both the CI instantiations;
   2c. 200 rescale_poly calls on distinct ciphertexts queued back to back
      at configs/lenet.yml level 7, configs/resnet.yml level 43 and
-     configs/lola.yml level 5 (CI), each output against the plain
-     version: launch B starts beside the end of launch A (programmatic
-     dependent launch) and must not read A's scratch before A stored it;
-     the first of them, a fresh context's first call at the level, also
-     against the plain version before the others are queued;
+     configs/lola.yml level 5 (CI), and 200 mod_drop_rescale calls on
+     distinct accs at lenet level 7 and resnet level 43, each output
+     against the plain version: each grid after launch A starts beside
+     the grid ahead of it (programmatic dependent launch), reads c or acc
+     before it waits, and must not read A's scratch (or the pass's v)
+     before it was stored; the first call at each, a fresh context's
+     first call at the level, also against the plain version before the
+     others are queued;
   3. the full-width MLP 784-128-128-10 on configs/mlp.yml through the
      user entry points on `cuda` (then once more with io_mode: stream,
      whose output must equal this one bit for bit, with its compile peak,
@@ -367,19 +373,24 @@ def divisor_intt_work(groups, n_div, n, lift=None):
 
 def lift_ntt_work(groups, n_div, l, n, fbc, lift=None):
     """Launch B: the scratch, acc's (or c's) l target rows and their
-    forward tables read, the output written; per coefficient the lift (the
-    basis conversion over n_div rows, or the centered lift's reduction),
+    forward tables read, the output written; per target coefficient the
+    lift (the basis conversion's target half, n_div products and one for
+    v * dmod, from zq: its zq products belong to launch A, one per source
+    coefficient with the n^-1 scale; or the centered lift's reduction),
     the butterflies and the subtract-and-scale."""
     prods, words = fwd_work(n, lift or n)
     nbytes = 4 * groups * n_div * n + 8 * l * words + 16 * groups * l * n
-    per = 6 * n_div + 3 if fbc else 3
+    per = 3 * n_div + 3 if fbc else 3
     return nbytes, groups * l * (n * (per + 3) + 3 * prods)
 
 
 def drop_work(groups, n_div, l, n, fbc, lift=None):
     """The launch pair of mod_drop_rescale (fbc) or rescale_poly, each
     input once: the divisor rows, the target rows, the packed twiddles of
-    both transforms, and the output (the scratch is internal)."""
+    both transforms, and the output (the scratch is internal).  Launch A
+    counts one product per divisor coefficient, its n^-1 scale and, for
+    mod_drop_rescale, the conversion's zq = z * qhat_inv together (one
+    constant n^-1 * qhat_inv), as `decompose_work` does."""
     a_bytes, a_ops = divisor_intt_work(groups, n_div, n, lift)
     b_bytes, b_ops = lift_ntt_work(groups, n_div, l, n, fbc, lift)
     nbytes = a_bytes + b_bytes - 8 * groups * n_div * n
@@ -641,11 +652,11 @@ def check_epilogues(cs, dl, krs, batches=((2,), (2, 2))):
     """mod_drop_rescale and rescale_poly at one level >= 1, over one
     ciphertext (2, rows, N) and a batch of two (2, 2, rows, N), or the
     leading shapes `batches`: launch A, launch B (from launch A's scratch)
-    and the pair, each against its plain version.  rescale_poly's launch
-    B reads c before it waits for the kernel ahead of it, which here is
-    itself, the poisoning fill of free memory or the timing's sleep
-    kernel: none writes c.  The ConjugateInvariant ring has rescale_poly
-    only."""
+    and the pair, each against its plain version.  Launch B reads c (or
+    acc) before it waits for the grid ahead of it, which here is its own
+    pass, launch B itself, the poisoning fill of free memory or the
+    timing's sleep kernel: none writes c or acc.  The ConjugateInvariant
+    ring has rescale_poly only."""
     n, level, lift = cs.ctx.n, dl.level, cs.ctx.lift_n
     kn = kernel_names(cs.ctx)
     ci = "" if dl.ci is None else "_ci"
@@ -681,47 +692,53 @@ def check_epilogues(cs, dl, krs, batches=((2,), (2, 2))):
 STRESS_PAIRS = 200
 
 
-def stress_rescale(cfg, tag, level):
-    """Phase 2c: STRESS_PAIRS rescale_poly calls on distinct ciphertexts
-    queued back to back, then each output against its plain version.
-    Launch B starts beside the end of launch A (programmatic dependent
-    launch) and each launch A writes its scratch where the last one did:
-    a B that read z before its A had stored it would take the last
-    pair's and differ."""
+def stress_rescale(cfg, tag, level, drop=False):
+    """Phase 2c: STRESS_PAIRS rescale_poly calls (with `drop`,
+    mod_drop_rescale calls) on distinct inputs queued back to back, then
+    each output against its plain version.  Each grid after launch A
+    starts beside the grid ahead of it (programmatic dependent launch) and
+    each launch A writes its scratch where the last one did: a launch B
+    (or the drop's pass) that read A's scratch, or B the pass's v, before
+    it was stored would take the last call's and differ."""
     from orion_tpu_torch.crypto.keyswitch import dev_level
     from orion_tpu_torch.kernels import rescale as krs
 
     ctx = make_context(cfg)
     dl = dev_level(ctx, level)
     gen = torch.Generator(device="cuda").manual_seed(13)
-    shape = (STRESS_PAIRS, 2, level + 1, ctx.n)
+    name, fn, plain, rows = (
+        ("mod_drop_rescale", krs.mod_drop_rescale, krs.mod_drop_rescale_plain,
+         dl.t.p) if drop else
+        ("rescale_poly", krs.rescale_poly, krs.rescale_poly_plain, dl.q.p))
+    shape = (STRESS_PAIRS, 2, rows.shape[0], ctx.n)
     cts = torch.randint(0, 1 << 62, shape, generator=gen,
-                        device="cuda") % dl.q.p[:, None]
-    # a fresh context's first call at the level: every table launch B
-    # reads is built before launch A, so nothing runs between them
-    first = krs.rescale_poly(cts[0], dl)
-    if not torch.equal(first, krs.rescale_poly_plain(cts[0], dl)):
-        fail(f"a fresh context's first rescale_poly at {tag} level {level} "
+                        device="cuda") % rows[:, None]
+    # a fresh context's first call at the level: every table the launches
+    # after A read is built before launch A, so nothing runs between them
+    first = fn(cts[0], dl)
+    if not torch.equal(first, plain(cts[0], dl)):
+        fail(f"a fresh context's first {name} at {tag} level {level} "
              f"differs from the plain version")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs = [krs.rescale_poly(ct, dl) for ct in cts]
+    outs = [fn(ct, dl) for ct in cts]
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     bad = [i for i, (ct, out) in enumerate(zip(cts, outs))
-           if not torch.equal(out, krs.rescale_poly_plain(ct, dl))]
+           if not torch.equal(out, plain(ct, dl))]
     print(f"phase 2c: {cfg_name(tag)} level {level}: {STRESS_PAIRS} "
-          f"rescale_poly pairs back to back on distinct ciphertexts "
+          f"{name} calls back to back on distinct inputs "
           f"{tuple(shape[1:])}: bit-exact={not bad} ({wall_ms:.1f} ms "
           f"for all, host included)", flush=True)
     if bad:
-        fail(f"rescale_poly back to back at {tag} level {level}: pairs "
+        fail(f"{name} back to back at {tag} level {level}: calls "
              f"{bad[:10]} differ from the plain version")
 
 
 def profile_epilogues(dl, tag, krs):
     """One profiled call of each rescale epilogue on a ciphertext must run
-    exactly its two kernels on the card: no torch op between them (on the
+    exactly its kernels on the card, no torch op between them: launch A
+    and launch B, and for mod_drop_rescale the pass between them (on the
     ConjugateInvariant ring rescale_poly's, with the CI map)."""
     n = dl.ring_n
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -729,7 +746,8 @@ def profile_epilogues(dl, tag, krs):
               ("drop_intt_rows", "rescale_lift_ntt"))]
     if dl.dropdown is not None:
         forms.insert(0, ("mod_drop_rescale", dl.t.p, krs.mod_drop_rescale,
-                         ("drop_intt_rows", "drop_lift_ntt")))
+                         ("drop_intt_rows", "hoist_digits",
+                          "drop_lift_ntt")))
     for name, rows, fn, want in forms:
         x = torch.randint(0, 1 << 62, (2, rows.shape[0], n), generator=gen,
                           device="cuda") % rows[:, None]
@@ -737,9 +755,9 @@ def profile_epilogues(dl, tag, krs):
         print(f"  {tag:5s} one profiled {name} call at level {dl.level}: "
               f"{len(names)} device kernels: "
               f"{', '.join(k[:40] for k in names)}", flush=True)
-        if len(names) != 2 or not all(w in k for w, k in zip(want, names)):
-            fail(f"{name} ran {names} on the card, not its two kernels "
-                 f"{want}")
+        if (len(names) != len(want)
+                or not all(w in k for w, k in zip(want, names))):
+            fail(f"{name} ran {names} on the card, not its kernels {want}")
         if dl.ci is not None and not all("true" in k for k in names):
             fail(f"{name} ran {names}: not the kernels' CI forms")
 
@@ -865,6 +883,10 @@ OUR_KERNELS = ("ntt_fwd_cluster", "ntt_inv_cluster", "ntt_inv_zq",
                "fbc_ntt_digits", "ks_inner_intt", "moddown_rows",
                "hoist_digits", "drop_intt_rows", "drop_lift_ntt",
                "rescale_lift_ntt")
+# mod_drop_rescale's pass: the device kernel hoist_digits, which the
+# key-switch's passes run too; a profile tells it apart by the port's
+# kernel after it, drop_lift_ntt (`port_records`)
+DROP_PASS = "drop_pass"
 # kernels that no standard-ring forward of phases 3-4 launches: the generic
 # transforms serve PallasNTT and ring_ntt, rescale_ntt is rescale_poly's
 # second launch (Evaluator.rescale); every multiply of those networks
@@ -887,12 +909,28 @@ def ring_kernels(ring):
             and k not in kernels.SHARDED]
 
 
+def port_records(recs):
+    """The port's device records among `recs`, by start, each with its
+    kernel: the entry of OUR_KERNELS its name holds, or DROP_PASS for a
+    hoist_digits whose next record of the port's is drop_lift_ntt (the
+    port runs on one stream, and drop_ntt launches its pass just before
+    drop_lift_ntt)."""
+    ours = [(e, next((o for o in OUR_KERNELS if o in e.name), None))
+            for e in sorted(recs, key=lambda e: e.start)]
+    ours = [(e, o) for e, o in ours if o]
+    return [(e, DROP_PASS if o == "hoist_digits" and i + 1 < len(ours)
+             and ours[i + 1][1] == "drop_lift_ntt" else o)
+            for i, (e, o) in enumerate(ours)]
+
+
 def launched_grids():
     """Device kernels by name that the port's wrappers launched since the
     counts were last set to 0: ntt_inv_zq is ks_decompose's first grid
     (ntt_inv_cluster its CI form's), moddown_rows ks_finish's last
     (ks_finish_raw has none); on the standard ring hoist_digits runs
-    between the two in both; the sharded entries launch one of these
+    between the two in both, and the same device kernel runs as
+    DROP_PASS before drop_lift_ntt in drop_ntt's
+    launch B; the sharded entries launch one of these
     grids each, ks_convert_rows and ks_moddown_rows after a hoist_digits
     pass.  A kernel's CI form is the same device kernel (its
     `CI = true` instantiation) or, for the key-switch kernels, one named
@@ -918,8 +956,9 @@ def launched_grids():
             "hoist_digits": (k.KS_DECOMPOSE.launches
                              + (k.KS_FINISH.grids - k.KS_FINISH.launches) // 2
                              + sharded),
+            DROP_PASS: k.DROP_NTT.grids - k.DROP_NTT.launches,
             "drop_intt_rows": k.DROP_INTT.grids + k.DROP_INTT_CI.grids,
-            "drop_lift_ntt": k.DROP_NTT.grids,
+            "drop_lift_ntt": k.DROP_NTT.launches,
             "rescale_lift_ntt": k.RESCALE_NTT.grids + k.RESCALE_NTT_CI.grids}
 
 
@@ -1445,12 +1484,14 @@ def profile_device(fn):
         recs = records(prof)
         got = call_records(recs)
         kept, left = got if got else ([], None)
-        by_name, seen = {}, dict.fromkeys(OUR_KERNELS, 0)
+        by_name, seen = {}, dict.fromkeys(OUR_KERNELS + (DROP_PASS,), 0)
+        ours_by = dict.fromkeys(seen, 0.0)
         for e in kept:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + (e.end - e.start) / 1e6)
-            for o in OUR_KERNELS:
-                seen[o] += o in e.name
+        for e, o in port_records(kept):
+            seen[o] += 1
+            ours_by[o] += (e.end - e.start) / 1e6
         if seen == launched and left and not left["overlapping"]:
             break
         print(f"  profile {attempt} of {PROFILE_ATTEMPTS} is not whole: "
@@ -1458,8 +1499,6 @@ def profile_device(fn):
               + ("markers not recorded" if left is None
                  else f"records left out {left}"), flush=True)
     dev_ms = busy_ms(kept)
-    ours_by = {o: sum(v for k, v in by_name.items() if o in k)
-               for o in OUR_KERNELS}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     # host-to-device copies among the call's device records; the host's
     # stream synchronisations (runtime calls) in the recorded step, less
@@ -1470,7 +1509,8 @@ def profile_device(fn):
     return dict(wall_ms=wall_ms, device_ms=dev_ms, h2d_copies=h2d,
                 stream_syncs=syncs - 1 if syncs else None,
                 our_kernels_ms=sum(ours_by.values()),
-                our_kernels_by_name=ours_by, our_kernels_recorded=seen,
+                our_kernels_by_name=ours_by,
+                our_kernels_recorded=seen,
                 our_kernels_launched=launched, device_ops=len(kept),
                 busy_share=dev_ms / wall_ms if wall_ms else None,
                 top=[(k[:60], v) for k, v in top], profiles=attempt,
@@ -3235,8 +3275,16 @@ def print_ptxas(libs):
 # the kernels of the standard key-switch's hoisted conversion
 HOISTED = ("ntt_inv_zq", "hoist_digits", "fbc_ntt_digits", "ks_inner_intt",
            "moddown_rows")
-# rescale_poly's two kernels
-RESCALE = ("drop_intt_rows", "rescale_lift_ntt")
+# the rescale epilogues' kernels (mod_drop_rescale's pass, hoist_digits,
+# is among HOISTED)
+RESCALE = ("drop_intt_rows", "rescale_lift_ntt", "drop_lift_ntt")
+
+
+# the device kernels each C entry launches where it launches more than one
+# (standard ring): the passes that hoist the conversions' v among them
+GRIDS = {"ks_decompose": ["ntt_inv_zq", "hoist_digits", "fbc_ntt_digits"],
+         "ks_finish": ["ks_inner_intt", "hoist_digits", "moddown_rows"],
+         "drop_ntt": ["hoist_digits", "drop_lift_ntt"]}
 
 
 def keyswitch_launches(cfg):
@@ -3292,8 +3340,8 @@ def main():
     spills = {k: v for k, v in spilled.items()
               if v and k.split("<")[0] in HOISTED + RESCALE}
     if spills:
-        fail(f"the hoisted key-switch kernels or rescale_poly's spill "
-             f"registers: {spills}")
+        fail(f"the hoisted key-switch kernels or the rescale epilogues' "
+             f"spill registers: {spills}")
     from orion_tpu_torch.kernels import ntt as kntt
 
     ctas = {logn: kntt.cluster_size(logn) for logn in range(8, 15)}
@@ -3348,6 +3396,8 @@ def main():
                   iters=3, plain_iters=0, epilogues_only=True)
     for tag, level in (("lenet", 7), ("resnet", 43), ("lola", 5)):
         stress_rescale(cfgs[tag], tag, level)
+    for tag, level in (("lenet", 7), ("resnet", 43)):
+        stress_rescale(cfgs[tag], tag, level, drop=True)
     torch.cuda.empty_cache()
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -3511,6 +3561,8 @@ def main():
         })
         if k.source == "ntt.cu" or ci:
             line[-1]["cluster_ctas"] = ctas[14 if ci else 13]
+        if k.name in GRIDS:
+            line[-1]["grids"] = GRIDS[k.name]
         # the top level of configs/resnet.yml (44 Q rows, 50 extended
         # rows, 8 digits), lean trimmed keys for ks_finish; the CI forms
         # at the top level of tests/configs/mlp.yml (transforms of 2^13)

@@ -239,9 +239,13 @@ def _build_dev_level(ctx: CKKSContext, level: int) -> DevLevel:
         out.dqinv_shoup = _col(ctx, lt.dqinv_mod_q_shoup)
         out.p_mod_q = _col(ctx, lt.p_mod_q)
         out.p_mod_q_shoup = _col(ctx, lt.p_mod_q_shoup)
-        # divisor rows of the fused drop: [specials..., q_l]
-        out.kernel_tables["drop_rows"] = RingRows.from_ctx(
-            ctx, sp_rows + [level])
+        # divisor rows of the fused drop: [specials..., q_l], and launch
+        # A's constants that give their zq (built here for the reason
+        # one_shoup is)
+        rr = RingRows.from_ctx(ctx, sp_rows + [level])
+        out.kernel_tables["drop_rows"] = rr
+        out.kernel_tables["drop_zs"] = _kks._zq_scale(
+            rr.ninv, out.dropdown.qhat_inv[:, 0], rr.p)
     return out
 
 

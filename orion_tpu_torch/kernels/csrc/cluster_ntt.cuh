@@ -29,7 +29,8 @@
 // its own passes, which other CTAs may still run while it is written.
 // A CTA may write another's shared memory only once that CTA has started:
 // the forward arrives on the cluster barrier as it starts and waits on it
-// before its stores, the inverse syncs before its passes.
+// before its stores, the inverse syncs before its passes (or, EARLY,
+// arrives as it starts and waits before its pushes).
 // On the ConjugateInvariant ring `ntt_fwd_lift` builds the 2n lift of n
 // converted values inside the split, each value converted once
 // (its comment says how).
@@ -273,7 +274,13 @@ __device__ __forceinline__ void cross_inv(uint32_t* x, const u64* tw,
 
 // Inverse NTT of one row by the calling cluster (without the n^-1 scale):
 // load(g) and store(g, v) as above.  s: Split<LOGN>::SMEM_INV bytes.
-template <int LOGN, class Load, class Store>
+// The CTA syncs with its cluster before its passes (a caller may have
+// pushed values into other CTAs' memory that this barrier orders:
+// ks_finish.cu's CI inner product); with EARLY it arrives on the barrier
+// as it starts and waits on it only before its last local pass pushes
+// into the other CTAs' receive buffers, so its loads and first passes run
+// while the cluster's other CTAs start.
+template <int LOGN, bool EARLY = false, class Load, class Store>
 __device__ __forceinline__ void ntt_inv_split(uint32_t* s, const int64_t* itwp,
                                               uint32_t p, Load load,
                                               Store store) {
@@ -286,15 +293,22 @@ __device__ __forceinline__ void ntt_inv_split(uint32_t* s, const int64_t* itwp,
         const int c = (int)cl.block_rank();
         const u64* tw = reinterpret_cast<const u64*>(itwp);
         uint32_t* recv = s + SP::Core::SMEM / sizeof(uint32_t);
-        cl.sync();  // every CTA of the cluster has started
+        // every CTA of the cluster has started (by the first push)
+        if constexpr (EARLY) cluster_arrive_relaxed();
+        else cl.sync();
         // local stages on sub-row c; output i goes to the CTA owning
         // column i, as value c of that column
         auto in = [&](int i) { return load(c * M + i); };
         auto push = [&](int i, uint32_t v) {
             cl.map_shared_rank(recv, i / W)[pad(c * W + i % W)] = v;
         };
-        inv_passes<SP::LOGM, SP::LOGM - SP::Core::LOGR>(
-            s, tw + (int64_t)c * M, p, in, push);
+        constexpr int A0 = SP::LOGM - SP::Core::LOGR;
+        const u64* twc = tw + (int64_t)c * M;
+        if constexpr (EARLY)
+            inv_passes<SP::LOGM, A0>(s, twc, p, in, push,
+                                     [] { cluster_wait(); });
+        else
+            inv_passes<SP::LOGM, A0>(s, twc, p, in, push);
         cl.sync();
 #pragma unroll
         for (int r = 0; r < SP::CPT; ++r) {

@@ -1,5 +1,6 @@
 // The fast basis conversion with its digit-invariant half hoisted (the
-// standard ring's ks_decompose.cu and ks_finish.cu).
+// standard ring's ks_decompose.cu and ks_finish.cu, and ntt.cu's
+// mod_drop_rescale, whose one digit is the divisor rows [specials..., q_l]).
 //
 // fbc_one (modarith.cuh) converts the alpha source residues z_m of one
 // coefficient to one target prime pt: zq_m = z_m * qhat_inv_m mod q_m,
@@ -33,7 +34,7 @@
 // blocks per SM.)
 #pragma once
 
-#include "modarith.cuh"
+#include "cluster_ntt.cuh"
 
 namespace orion {
 
@@ -59,14 +60,22 @@ __device__ __forceinline__ void stage_conv(u64* cw, const int64_t* conv,
 
 // The target half of one coefficient's conversion: sum_m zq[m * zstride] *
 // conv_m - v * dmod mod pt, from the hoisted zq (uint32) and v, the
-// constants staged in cw.
+// constants staged in cw.  NC reads zq through the read-only path
+// (__ldg), which holds only for data that no grid writes while the
+// kernel runs: a programmatic dependent that reads the zq of the grid
+// ahead of it (ntt.cu's drop_lift_ntt) passes false and loads zq cached
+// in L2 only (__ldcg, ld.global.cg: coherent with the grid ahead's
+// stores once griddepcontrol.wait returned; plain loads made it slower:
+// PERF.md, Findings).
+template <bool NC = true>
 __device__ __forceinline__ uint32_t fbc_target(
         const uint32_t* zq, int64_t zstride, uint32_t v, int alpha,
         const u64* cw, uint32_t dmod, uint32_t dmod_sh, uint32_t pt) {
     uint32_t z[MAX_ALPHA];
 #pragma unroll
     for (int m = 0; m < MAX_ALPHA; ++m)
-        z[m] = m < alpha ? __ldg(zq + m * zstride) : 0u;
+        z[m] = m >= alpha ? 0u : NC ? __ldg(zq + m * zstride)
+                                    : __ldcg(zq + m * zstride);
     uint32_t acc = 0;
 #pragma unroll
     for (int m = 0; m < MAX_ALPHA; ++m)
@@ -111,7 +120,11 @@ constexpr int ks_min_blocks() { return Ring<LOGN>::R <= 8 ? 2 : 1; }
 // otherwise src holds them as int64 coefficients (poly b's row r at src +
 // b * src_poly + r * n) and zq = z * qhat_inv mod q is stored first.  v of
 // digit d goes to vb + b * v_poly + d * n.  qi, qi_sh, srcp, srcq
-// (digits, amax).
+// (digits, amax).  It waits for the grid ahead before it reads: ntt.cu's
+// drop launches it as the programmatic dependent of the kernel that
+// stores zq (an ordinary launch's wait returns at once); its own
+// dependent starts as it ends (an early trigger here made back-to-back
+// drops 2-9 us slower: PERF.md, Findings).
 constexpr int HOIST_T = 256;  // threads per block
 
 __global__ void __launch_bounds__(HOIST_T) hoist_digits(
@@ -119,6 +132,7 @@ __global__ void __launch_bounds__(HOIST_T) hoist_digits(
         int64_t zq_poly, int64_t v_poly, int n, int amax,
         const int64_t* dig_lo, const int64_t* dig_alpha, const int64_t* qi,
         const int64_t* qi_sh, const int64_t* srcp, const float* srcq) {
+    grid_dependency_wait();
     const int c = (int)(blockIdx.x * HOIST_T + threadIdx.x);
     const int d = blockIdx.y;
     const int64_t b = blockIdx.z;
@@ -153,19 +167,31 @@ __global__ void __launch_bounds__(HOIST_T) hoist_digits(
     vb[b * v_poly + (int64_t)d * n + c] = (uint8_t)__float2uint_rn(frac);
 }
 
-// Launch hoist_digits (see above) over `digits` digits of `polys` polys.
+// Launch hoist_digits (see above) over `digits` digits of `polys` polys;
+// with pdl as the programmatic dependent of the kernel ahead of it.
 inline cudaError_t launch_hoist(
         uint32_t* zq, uint8_t* vb, const int64_t* src, int64_t src_poly,
         int64_t zq_poly, int64_t v_poly, int n, int digits, int polys,
         int amax, const int64_t* dig_lo, const int64_t* dig_alpha,
         const int64_t* qi, const int64_t* qi_sh, const int64_t* srcp,
-        const float* srcq, cudaStream_t st) {
+        const float* srcq, cudaStream_t st, bool pdl = false) {
     if (n % HOIST_T || digits < 1 || digits > 65535 || polys < 1
         || polys > 65535 || amax < 1 || amax > MAX_ALPHA)
         return cudaErrorInvalidValue;
-    hoist_digits<<<dim3(n / HOIST_T, digits, polys), HOIST_T, 0, st>>>(
-        zq, vb, src, src_poly, zq_poly, v_poly, n, amax, dig_lo, dig_alpha,
-        qi, qi_sh, srcp, srcq);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(n / HOIST_T, digits, polys);
+    cfg.blockDim = dim3(HOIST_T);
+    cfg.stream = st;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr.val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = pdl ? 1 : 0;
+    cudaError_t e = cudaLaunchKernelEx(&cfg, hoist_digits, zq, vb, src,
+                                       src_poly, zq_poly, v_poly, n, amax,
+                                       dig_lo, dig_alpha, qi, qi_sh, srcp,
+                                       srcq);
+    if (e != cudaSuccess) return e;
     return cudaGetLastError();
 }
 

@@ -214,11 +214,18 @@ __device__ __forceinline__ void fwd_passes(uint32_t* s, const u64* twp,
     }
 }
 
+// Nothing: the default of inv_passes' `last`.
+struct NoHook {
+    __device__ __forceinline__ void operator()() const {}
+};
+
 // The inverse passes from the pass that starts at stage A down to stage 0.
-template <int LOGN, int A, class Load, class Store>
+// The last pass calls last() after its butterflies, before its first
+// store (cluster_ntt.cuh's early-arriving inverse waits there).
+template <int LOGN, int A, class Load, class Store, class Last = NoHook>
 __device__ __forceinline__ void inv_passes(uint32_t* s, const u64* twp,
                                            uint32_t p, Load& load,
-                                           Store& store) {
+                                           Store& store, Last last = {}) {
     using RG = Ring<LOGN>;
     constexpr int S = A == 0 ? RG::S0 : RG::LOGR;
     constexpr bool first = A + S == LOGN;
@@ -231,6 +238,7 @@ __device__ __forceinline__ void inv_passes(uint32_t* s, const u64* twp,
             x[(k << S) + j] = first ? load(i) : s[pad(i)];
         }
     gs_stages<LOGN, A, S>(x, twp, p);
+    if constexpr (A == 0) last();
 #pragma unroll
     for (int k = 0; k < (RG::R >> S); ++k)
 #pragma unroll
@@ -242,7 +250,7 @@ __device__ __forceinline__ void inv_passes(uint32_t* s, const u64* twp,
     if constexpr (A != 0) {
         __syncthreads();
         inv_passes<LOGN, (A == RG::S0 ? 0 : A - RG::LOGR)>(s, twp, p, load,
-                                                           store);
+                                                           store, last);
     }
 }
 

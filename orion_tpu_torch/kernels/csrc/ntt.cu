@@ -3,17 +3,24 @@
 // rescale epilogues built on them, two launches each:
 //   drop_intt:   launch A of mod_drop_rescale and rescale_poly - the
 //                inverse NTT of the divisor rows, read in place from the
-//                ciphertext through a row map, into a uint32 scratch;
-//   drop_ntt:    launch B of mod_drop_rescale - per (item, poly, target
-//                row j < l) the fast basis conversion of the scratch rows
-//                to q_j in the load functor, the forward NTT, and
-//                (acc_j - lift) * (P q_l)^-1 mod q_j in the store functor;
+//                ciphertext through a row map, into a uint32 scratch: z,
+//                or for mod_drop_rescale each coefficient's zq = z *
+//                qhat_inv mod q (one Shoup constant n^-1 qhat_inv per row);
+//   drop_ntt:    launch B of mod_drop_rescale, two grids - the pass
+//                hoist_digits (hoist.cuh: each coefficient's v of the
+//                basis conversion from its L zq, one byte), then per
+//                (item, poly, target row j < l) the conversion's target
+//                half (L Shoup products and one for v * dmod) in the load
+//                functor, the forward NTT, and (acc_j - lift) * (P q_l)^-1
+//                mod q_j in the store functor: zq and v are computed once
+//                per divisor coefficient, not once per target row;
 //   rescale_ntt: launch B of rescale_poly - the centered lift of the last
 //                limb to q_j, the forward NTT, (c_j - lift) * q_l^-1.
-//                rescale_poly launches it as a programmatic dependent of
-//                launch A (sm_90): it fetches c's values for its stores,
-//                then waits for A's z, so its start and prologue overlap
-//                A's end; A lets it start after its last store.
+// Each launch B (and the drop's pass) is a programmatic dependent of the
+// grid ahead of it (sm_90): it fetches the values of c or acc its stores
+// need (complete before launch A, an ordinary launch, started), then
+// waits for the grid ahead, so its start and prologue overlap that grid.
+// Launch A lets its dependent start as it starts.
 //
 // ntt_fwd, ntt_inv, drop_intt and rescale_ntt also come with the
 // ConjugateInvariant ring's map (CI = true, modarith.cuh): rows of n
@@ -33,13 +40,14 @@
 // LogN * N/2 Shoup butterflies are far below the card's integer rate.
 // The fused pair reads the divisor rows and the target rows of acc once,
 // writes the output once, and makes one round trip of a uint32 scratch of
-// the divisor rows; the conversion re-reads those rows per target row,
-// from L2.  Every other value stays in registers and shared memory.
+// the divisor rows (and of v, a byte per coefficient); the conversion
+// re-reads those rows per target row, from L2.  Every other value stays
+// in registers and shared memory.
 //
 // C interface (ctypes): pointers to contiguous device arrays, the CUDA
 // stream as an opaque pointer; returns the cudaError_t of the launch.
 
-#include "cluster_ntt.cuh"
+#include "hoist.cuh"
 
 using namespace orion;
 
@@ -77,8 +85,15 @@ SPLIT_KERNEL_CI(ntt_fwd_cluster)(int64_t* out, const int64_t* in, int L,
 
 // ntt_inv_cluster: cluster_ntt.cuh (ks_decompose.cu's CI form runs it too).
 
-// z (groups, L, W) uint32 = n^-1 iNTT of in[g, rmap[d]], in (groups,
-// n_src, W) int64; cluster (g, d) in row-major order.
+// z (groups, L, W) uint32 = iNTT of in[g, rmap[d]] times w_d, in (groups,
+// n_src, W) int64; cluster (g, d) in row-major order.  w_d (ninv, ninv_sh)
+// is n^-1, or for mod_drop_rescale n^-1 qhat_inv_d, whose product gives
+// the coefficient's zq (the level's kernel_tables["drop_zs"]).  Each CTA
+// arrives on its cluster barrier as it starts and waits only before its
+// first push (ntt_inv_split's EARLY), so its loads do not wait for the
+// cluster's other CTAs; and it lets its programmatic dependent (launch B,
+// or the drop's pass) start at once: the dependent's wait still waits
+// for this grid's completion and its stores.
 SPLIT_KERNEL_CI(drop_intt_rows)(uint32_t* z, const int64_t* in, int n_src,
                                 int L, const int64_t* rmap, const int64_t* p,
                                 const int64_t* itwc, const int64_t* ninv,
@@ -87,6 +102,7 @@ SPLIT_KERNEL_CI(drop_intt_rows)(uint32_t* z, const int64_t* in, int n_src,
     extern __shared__ uint32_t s[];
     constexpr int N = 1 << LOGN;
     constexpr int W = row_width<LOGN, CI>();
+    launch_dependents();
     const int64_t row = blockIdx.x / Split<LOGN>::C;
     const int64_t g = row / L;
     const int d = (int)(row % L);
@@ -95,48 +111,66 @@ SPLIT_KERNEL_CI(drop_intt_rows)(uint32_t* z, const int64_t* in, int n_src,
     const uint32_t nv_sh = (uint32_t)ninv_sh[d];
     const int64_t* src = in + (g * n_src + rmap[d]) * W;
     uint32_t* dst = z + row * W;
-    ntt_inv_split<LOGN>(
+    ntt_inv_split<LOGN, true>(
         s, itwc + (int64_t)d * N, pd,
         [&](int i) { return (uint32_t)src[gather_at<CI>(ci_src, i)]; },
         [&](int i, uint32_t v) {
             if (!CI || i < W) dst[i] = shoup_mul(v, nv, nv_sh, pd);
         });
-    // z is stored: launch B, a programmatic dependent, may start
-    launch_dependents();
 }
 
 // out (groups, l, N) = (acc[g, j] - NTT(fbc(z[g]) -> q_j)) * scale_j mod
-// q_j, acc (groups, n_src, N); z's L rows are the digit's source rows.
+// q_j, acc (groups, n_src, N), one cluster per (g, j) in row-major order:
+// the target half of the conversion (hoist.cuh fbc_target) from the
+// digit's L rows of zq (z, launch A's) and each coefficient's v (vb,
+// (groups, N) bytes, the pass's).  Launched as the programmatic dependent
+// of the pass: each thread first fetches the values of acc its stores
+// need and the conversion constants of row j (conv (L, l)) into
+// registers, then waits for the pass (which waited for launch A).  It
+// reads zq and v cached in L2 only (__ldcg): they were written while it
+// was resident, so the read-only path (__ldg) does not hold for them.
 SPLIT_KERNEL(drop_lift_ntt)(int64_t* out, const int64_t* acc,
-                            const uint32_t* z, int n_src, int l, int L,
-                            const int64_t* qi, const int64_t* qi_sh,
-                            const int64_t* srcp, const float* srcq,
-                            const int64_t* conv, const int64_t* conv_sh,
-                            const int64_t* dmod, const int64_t* dmod_sh,
-                            const int64_t* p, const int64_t* twc,
-                            const int64_t* scale, const int64_t* scale_sh) {
+                            const uint32_t* z, const uint8_t* vb, int n_src,
+                            int l, int L, const int64_t* conv,
+                            const int64_t* conv_sh, const int64_t* dmod,
+                            const int64_t* dmod_sh, const int64_t* p,
+                            const int64_t* twc, const int64_t* scale,
+                            const int64_t* scale_sh) {
     extern __shared__ uint32_t s[];
-    constexpr int N = 1 << LOGN;
-    const int64_t row = blockIdx.x / Split<LOGN>::C;
+    using SP = Split<LOGN>;
+    constexpr int N = 1 << LOGN, R = SP::Core::R;
+    const int64_t row = blockIdx.x / SP::C;
     const int64_t g = row / l;
     const int j = (int)(row % l);
+    const int cr = SP::C == 1 ? 0 : (int)cg::this_cluster().block_rank();
     const uint32_t pj = (uint32_t)p[j];
     const uint32_t dm = (uint32_t)dmod[j];
     const uint32_t dm_sh = (uint32_t)dmod_sh[j];
     const uint32_t sc = (uint32_t)scale[j];
     const uint32_t sc_sh = (uint32_t)scale_sh[j];
     const uint32_t* zg = z + g * L * N;
+    const uint8_t* vg = vb + g * N;
     const int64_t* a = acc + (g * n_src + j) * N;
     int64_t* dst = out + row * N;
+    uint32_t pre[R];
+#pragma unroll
+    for (int slot = 0; slot < R; ++slot)
+        pre[slot] = (uint32_t)a[cr * SP::M + fwd_out_elem<SP::LOGM>(slot)];
+    u64 cw[MAX_ALPHA];
+#pragma unroll
+    for (int m = 0; m < MAX_ALPHA; ++m)
+        cw[m] = m < L ? (u64)(uint32_t)conv[m * l + j]
+                            | (u64)(uint32_t)conv_sh[m * l + j] << 32
+                      : 0ull;
+    grid_dependency_wait();
     ntt_fwd_split<LOGN>(
         s, twc + (int64_t)j * N, pj,
         [&](int i) {
-            return fbc_one(zg + i, N, L, qi, qi_sh, srcp, srcq, conv + j,
-                           conv_sh + j, l, dm, dm_sh, pj);
+            return fbc_target<false>(zg + i, N, __ldcg(vg + i), L, cw, dm,
+                                     dm_sh, pj);
         },
-        [&](int i, uint32_t v) {
-            dst[i] = shoup_mul(sub_mod((uint32_t)a[i], v, pj), sc, sc_sh,
-                               pj);
+        [&](int o, int slot, uint32_t v) {
+            dst[o] = shoup_mul(sub_mod(pre[slot], v, pj), sc, sc_sh, pj);
         });
 }
 
@@ -149,8 +183,8 @@ SPLIT_KERNEL(drop_lift_ntt)(int64_t* out, const int64_t* acc,
 // of the outputs only) and stored through the map.  Launched as the
 // programmatic dependent of launch A: each thread first fetches the values
 // of c its stores need, into registers, and waits for A's z only then, so
-// the fetch runs while A ends.  Without the launch attribute the wait
-// returns at once.
+// the fetch runs while A runs (A lets it start as A starts).  Without the
+// launch attribute the wait returns at once.
 SPLIT_KERNEL_CI(rescale_lift_ntt)(int64_t* out, const int64_t* c,
                                   const uint32_t* z, int n_src, int l,
                                   int half, const int64_t* p,
@@ -292,20 +326,31 @@ extern "C" int orion_drop_intt(uint32_t* z, const int64_t* in, int groups,
                   ninv_sh, ci_src, stream);
 }
 
+// Launch B of mod_drop_rescale, two grids, each the programmatic dependent
+// of the one ahead: the pass hoist_digits (v of each coefficient from
+// z's L rows of zq, one digit, into vb), then drop_lift_ntt.  acc was
+// complete before launch A, an ordinary launch, started.  qi, qi_sh,
+// srcp, srcq (L): the digit's tables (the pass reads srcq).
 extern "C" int orion_drop_ntt(
-        int64_t* out, const int64_t* acc, const uint32_t* z, int groups,
-        int n_src, int l, int L, int logn, const int64_t* qi,
+        int64_t* out, const int64_t* acc, uint32_t* z, uint8_t* vb,
+        int groups, int n_src, int l, int L, int logn, const int64_t* qi,
         const int64_t* qi_sh, const int64_t* srcp, const float* srcq,
         const int64_t* conv, const int64_t* conv_sh, const int64_t* dmod,
         const int64_t* dmod_sh, const int64_t* p, const int64_t* twc,
         const int64_t* scale, const int64_t* scale_sh, void* stream) {
     return (int)with_logn(logn, [&](auto k) {
         constexpr int LOGN = decltype(k)::value;
-        return launch_split<LOGN>(drop_lift_ntt<LOGN>, (int64_t)groups * l,
-                                  Split<LOGN>::SMEM_FWD, (cudaStream_t)stream,
-                                  out, acc, z, n_src, l, L, qi, qi_sh, srcp,
-                                  srcq, conv, conv_sh, dmod, dmod_sh, p, twc,
-                                  scale, scale_sh);
+        constexpr int N = 1 << LOGN;
+        const cudaStream_t st = (cudaStream_t)stream;
+        cudaError_t e = launch_hoist(
+            z, vb, nullptr, 0, (int64_t)L * N, N, N, 1, groups, L, nullptr,
+            nullptr, qi, qi_sh, srcp, srcq, st, true);
+        if (e != cudaSuccess) return e;
+        return launch_split_grid<LOGN, true>(
+            drop_lift_ntt<LOGN>, (int64_t)groups * l, 1, 1,
+            Split<LOGN>::SMEM_FWD, st, out, acc, (const uint32_t*)z,
+            (const uint8_t*)vb, n_src, l, L, conv, conv_sh, dmod, dmod_sh,
+            p, twc, scale, scale_sh);
     });
 }
 

@@ -133,7 +133,14 @@ def fbc(z, dg, tgt_p):
     """Convert coeff-domain residues z (alpha, N) in the digit's base to
     the target base (n_t, N).  Approximate HPS with a float32 v-correction
     summed in source order, as orion_tpu's `fbc` and the kernels do."""
-    zq = z * dg.qhat_inv % dg.src_p
+    return fbc_from_zq(z * dg.qhat_inv % dg.src_p, dg, tgt_p)
+
+
+def fbc_from_zq(zq, dg, tgt_p):
+    """`fbc` from each source coefficient's zq = z * qhat_inv mod q
+    (alpha, N), the half the kernels compute once per source coefficient
+    (csrc/hoist.cuh): v = round(sum_m f32(zq_m) / f32(q_m)) in source
+    order, then sum_m zq_m * conv_m - v * dmod mod each target."""
     zf = zq.to(torch.float32) / dg.src_q_f32
     frac = zf[0]
     for m in range(1, zf.shape[0]):

@@ -7,20 +7,27 @@ the last limb dropped with centered rounding.  Any leading batch shape
 takes one launch pair:
   - `drop_intt` (launch A): the inverse NTT of the divisor rows, read in
     place through a row map ([specials..., q_l] of acc, or q_l of c), into
-    a uint32 scratch (groups, L, N);
+    a uint32 scratch (groups, L, N): for rescale_poly the coefficients z,
+    for mod_drop_rescale each coefficient's zq = z * qhat_inv mod q of the
+    level's `dropdown` digit (n^-1 and qhat_inv folded into one Shoup
+    constant per row, `kernel_tables["drop_zs"]`);
   - `drop_ntt` / `rescale_ntt` (launch B): per (group, target row j < l)
-    the lift to q_j in the transform's load functor (the basis conversion
-    over the scratch rows with the level's `dropdown` digit, or the
-    centered lift of the last limb, reduced by a Shoup product by one,
-    `one_shoup`), the forward NTT, and the subtract-and-scale by
-    (P q_l)^-1 or q_l^-1 in its store functor.
+    the lift to q_j in the transform's load functor (the target half of
+    the basis conversion from zq and v, or the centered lift of the last
+    limb, reduced by a Shoup product by one, `one_shoup`), the forward
+    NTT, and the subtract-and-scale by (P q_l)^-1 or q_l^-1 in its store
+    functor.  `drop_ntt` first runs a pass (`csrc/hoist.cuh`
+    hoist_digits) that sums each coefficient's float32 quotients zq_m /
+    q_m in source order into v, one byte: so zq and v are computed once
+    per divisor coefficient, not once per target row (at most `MAX_ALPHA`
+    divisor rows).
 Both transforms are the cluster transforms of `ntt.py`; nothing runs
-between the two launches but the allocation of the output and scratch
+between the launches but the allocation of the output and scratch
 (every table they read is built with the level, or before launch A).
-`rescale_ntt` is launched as the programmatic dependent of launch A:
-launch B's clusters start as A's last ones store, fetch the values of c
-their stores need, and wait for A's z only then.  `drop_ntt` is an
-ordinary launch.
+Every launch after A is the programmatic dependent of the one ahead of
+it, and A lets its dependent start as A starts: launch B's clusters
+fetch the values of c or acc their stores need (and the drop's the
+conversion constants of their row), then wait for the grid ahead.
 
 On the ConjugateInvariant ring `rescale_poly` runs with the CI map
 (`drop_intt_ci`, `rescale_ntt_ci`): launch A reads the last limb's n
@@ -42,7 +49,7 @@ import torch
 from ..crypto.modops import sub_mod
 from ..crypto.ntt4 import intt4, ntt4
 from ._launch import Kernel, check_residues
-from .keyswitch import fbc
+from .keyswitch import MAX_ALPHA, fbc, fbc_from_zq
 from .ntt import cluster_twiddles, ntt_fwd_plain, ntt_inv_plain
 
 _EPILOGUES = ("orion_tpu/crypto/keyswitch.py:446 mod_drop_rescale, "
@@ -52,7 +59,7 @@ DROP_INTT = Kernel(
     "orion_tpu/crypto/ks_pallas.py:387 pallas_intt4 (_kintt :106) in "
     + _EPILOGUES)
 DROP_NTT = Kernel(
-    "drop_ntt", "ntt.cu", "orion_drop_ntt", "ppp" + "iiiii" + "p" * 12,
+    "drop_ntt", "ntt.cu", "orion_drop_ntt", "pppp" + "iiiii" + "p" * 12,
     "orion_tpu/crypto/ks_pallas.py:351 pallas_ntt4 (_kntt :82) with the "
     "fbc and subtract-and-scale of orion_tpu/crypto/keyswitch.py:446 "
     "mod_drop_rescale (jnp)")
@@ -117,21 +124,26 @@ def rescale_poly_plain(c, dl):
 
 def divisor_intt_plain(x, dl, drop: bool):
     """Launch A's plain version: the divisor rows of x (read through the
-    row map), inverse-transformed, as int32 (groups, L, n)."""
+    row map), inverse-transformed, as int32 (groups, L, n): the
+    coefficients z, or with `drop` each one's zq = z * qhat_inv mod q."""
     lvl = dl.level
     rr = dl.kernel_tables["drop_rows"] if drop else dl.q.rows(lvl, lvl + 1)
     rows = x.index_select(-2, divisor_row_map(dl, drop))
     z = ntt_inv_plain(rows, rr)
+    if drop:
+        dg = dl.dropdown
+        z = z * dg.qhat_inv % dg.src_p
     return z.reshape(-1, *z.shape[-2:]).to(torch.int32)
 
 
 def drop_lift_ntt_plain(acc, z, dl):
-    """Launch B's plain version for mod_drop_rescale, from launch A's z."""
+    """Launch B's plain version for mod_drop_rescale, from launch A's zq
+    (the pass's v computed again from it)."""
     _no_dropdown(dl)
     lvl = dl.level
     qp = dl.q.p[:lvl, None]
     a = acc.reshape(-1, *acc.shape[-2:])
-    lift = torch.stack([fbc(zg.to(torch.int64), dl.dropdown, qp)
+    lift = torch.stack([fbc_from_zq(zg.to(torch.int64), dl.dropdown, qp)
                         for zg in z])
     lift_ntt = ntt4(lift, {k: v[:lvl] for k, v in dl.q.t4.items()},
                     dl.q.p[:lvl])
@@ -190,8 +202,8 @@ def divisor_intt(x, dl, drop: bool):
     if drop:
         _no_dropdown(dl)
         rr = dl.kernel_tables["drop_rows"]
-        p, itwc, ninv, ninv_sh = (rr.p, cluster_twiddles(rr)[1], rr.ninv,
-                                  rr.ninv_shoup)
+        p, itwc = rr.p, cluster_twiddles(rr)[1]
+        ninv, ninv_sh = dl.kernel_tables["drop_zs"]
         n_src = dl.t.p.shape[0]
     else:
         q, last = dl.q, slice(lvl, lvl + 1)
@@ -219,22 +231,32 @@ def _check_scratch(name, z, x, rows, dl):
 
 
 def drop_lift_ntt(acc, z, dl):
-    """Launch B of mod_drop_rescale, from launch A's scratch z."""
+    """Launch B of mod_drop_rescale, from launch A's zq scratch z: the pass
+    (v of each coefficient into a byte scratch), then the conversion's
+    target half, transform and subtract-and-scale, each grid the
+    programmatic dependent of the one ahead.  Launch B reads acc before
+    it waits: call it right after `divisor_intt` of this acc
+    (mod_drop_rescale), or behind any kernel that does not write acc."""
     if acc.device.type == "cpu":
         return drop_lift_ntt_plain(acc, z, dl)
     _no_dropdown(dl)
     lvl, n = dl.level, dl.ring_n
     n_t = dl.t.p.shape[0]
     groups = _check_scratch(DROP_NTT.name, z, acc, n_t, dl)
+    n_div = z.shape[1]
+    if n_div > MAX_ALPHA:
+        raise ValueError(f"{DROP_NTT.name}: {n_div} divisor rows; the "
+                         f"kernel takes at most {MAX_ALPHA}")
     dg = dl.dropdown
+    vb = torch.empty((groups, n), dtype=torch.uint8, device=acc.device)
     out = torch.empty(acc.shape[:-2] + (lvl, n), dtype=torch.int64,
                       device=acc.device)
-    DROP_NTT.launch(acc.device, out, acc, z, groups, n_t, lvl, z.shape[1],
+    DROP_NTT.launch(acc.device, out, acc, z, vb, groups, n_t, lvl, n_div,
                     n.bit_length() - 1, dg.qhat_inv, dg.qhat_inv_shoup,
                     dg.src_p, dg.src_q_f32, dg.conv, dg.conv_shoup,
                     dg.d_mod_t, dg.d_mod_t_shoup, dl.q.p,
                     cluster_twiddles(dl.q)[0], dl.dqinv, dl.dqinv_shoup,
-                    level=lvl, items=groups * lvl)
+                    level=lvl, items=groups * lvl, grids=2)
     return out
 
 

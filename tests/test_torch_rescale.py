@@ -1,8 +1,9 @@
-"""rescale_poly's launch B (orion_tpu_torch/kernels/csrc/ntt.cu
-`rescale_lift_ntt`) as the card runs it, modelled in numpy on the CPU.
+"""The rescale epilogues' kernels (orion_tpu_torch/kernels/csrc/ntt.cu) as
+the card runs them, modelled in numpy on the CPU.
 
-The CUDA kernel runs only on the card.  Two of its choices are checked
-here against the plain versions and orion_tpu:
+The CUDA kernels run only on the card.  rescale_poly's launch B
+(`rescale_lift_ntt`): two of its choices are checked here against the
+plain versions and orion_tpu:
 
   - the centered lift reduces x mod q_j as a Shoup product by one,
     x - umulhi(x, floor(2^32 / q_j)) * q_j less q_j once more where that is
@@ -20,6 +21,23 @@ here against the plain versions and orion_tpu:
     level (orion_tpu's level tables and program cost about 4 s a level at
     LogN 13) and on a LogN-10 chain over one ciphertext, a stack of 3
     polys and a single poly.
+
+mod_drop_rescale converts each divisor coefficient once: launch A
+(`drop_intt_rows`) stores zq = z * qhat_inv mod q of the level's
+drop-down digit (its inverse transform's output times one Shoup constant
+n^-1 * qhat_inv per row, the level's `kernel_tables["drop_zs"]`), the pass
+(`hoist.cuh` hoist_digits, one digit of L rows) sums each coefficient's
+float32 quotients zq_m / q_m in source order into v, one byte, and
+launch B (`drop_lift_ntt`) runs the conversion's target half (L Shoup
+products and one for v * dmod) before its transform and its
+subtract-and-scale.  The model of the three, walked over one ciphertext,
+must equal orion_tpu's jitted `fbc` (the lift) and `mod_drop_rescale`
+(the result) bit for bit at every level of configs/mlp.yml, at
+configs/lenet.yml level 7 and on the LogN-10 chain, and the port's plain
+launches (`divisor_intt_plain` gives zq, `drop_lift_ntt_plain`); at
+configs/resnet.yml's top level (7 divisor rows, 43 targets) it is held
+against the port's `fbc` only (orion_tpu's tables and program there cost
+too much for this file).
 """
 
 from pathlib import Path
@@ -35,8 +53,9 @@ from orion_tpu.crypto import keyswitch as jks
 from orion_tpu.crypto.context import CKKSContext as JContext
 from orion_tpu_torch.crypto import keyswitch as tks
 from orion_tpu_torch.crypto.context import CKKSContext as TContext
+from orion_tpu_torch.kernels import keyswitch as kks
 from orion_tpu_torch.kernels import rescale as krs
-from orion_tpu_torch.kernels.ntt import ntt_fwd_plain
+from orion_tpu_torch.kernels.ntt import ntt_fwd_plain, ntt_inv_plain
 from orion_tpu_torch.runtime.config import parse_config
 
 CONFIGS = Path(__file__).parent.parent / "configs"
@@ -165,3 +184,125 @@ def test_launch_b_grid_narrow(batch):
     """A LogN-10 chain at its top level: one ciphertext, a stack of 3
     polys (an odd count), a single poly."""
     _check("narrow", 2, batch)
+
+
+# ------------------------------------------------------------------ #
+#  mod_drop_rescale: each divisor coefficient converted once          #
+# ------------------------------------------------------------------ #
+
+_JFBC = jax.jit(jks.fbc)
+_JDROP = jax.jit(jks.mod_drop_rescale)
+
+
+def _u64(t):
+    return t.numpy().astype(np.uint64)
+
+
+def launch_a_drop_model(acc, tdl):
+    """drop_intt_rows over acc (groups, n_t, N) for the drop: each divisor
+    row's inverse transform without its n^-1 scale (the core's output,
+    z * n mod p), stored times the folded constant w = n^-1 * qhat_inv by
+    Shoup's product.  Returns zq (groups, L, N) and the n^-1-scaled z."""
+    rr = tdl.kernel_tables["drop_rows"]
+    w, w_sh = (_u64(t)[:, None] for t in tdl.kernel_tables["drop_zs"])
+    p = _u64(rr.p)[:, None]
+    rows = acc.index_select(-2, krs.divisor_row_map(tdl, True))
+    z = _u64(ntt_inv_plain(rows, rr))
+    core = z * np.uint64(acc.shape[-1]) % p
+    return shoup_mul(core, w, w_sh, p), z
+
+
+def pass_model(zq, tdl):
+    """hoist_digits over one digit of the L rows of each poly: v =
+    rint(sum_m f32(zq_m) / f32(q_m)) from 0.0f in source order, a byte."""
+    sq = tdl.dropdown.src_q_f32[:, 0].numpy()
+    frac = np.zeros((zq.shape[0], zq.shape[2]), np.float32)
+    for m in range(zq.shape[1]):
+        frac = frac + zq[:, m].astype(np.float32) / sq[m]
+    v = np.rint(frac)
+    assert v.max() <= zq.shape[1], "v must fit the pass's byte"
+    return v.astype(np.uint8)
+
+
+def target_model(zq, v, tdl):
+    """drop_lift_ntt's load functor (hoist.cuh fbc_target) onto every
+    target row j < l: sum_m zq_m conv_mj - v dmod_j mod q_j."""
+    lvl, dg = tdl.level, tdl.dropdown
+    conv = _u64(dg.conv[:, :, 0])
+    dmod = _u64(dg.d_mod_t[:, 0])[None, :, None]
+    qp = _u64(tdl.q.p[:lvl])[None, :, None]
+    acc = np.zeros((zq.shape[0], lvl, zq.shape[2]), np.uint64)
+    for m in range(zq.shape[1]):
+        acc = (acc + zq[:, m, None] * conv[m][None, :, None] % qp) % qp
+    return (acc + qp - v.astype(np.uint64)[:, None] * dmod % qp) % qp
+
+
+def launch_b_drop_model(acc, lift, tdl):
+    """drop_lift_ntt's transform of the lift and its store, (acc_j - y) *
+    (P q_l)^-1 mod q_j with Shoup's product."""
+    lvl = tdl.level
+    y = _u64(ntt_fwd_plain(torch.as_tensor(lift.astype(np.int64)),
+                           tdl.q.rows(0, lvl)))
+    qp = _u64(tdl.q.p[:lvl])[:, None]
+    a = _u64(acc[:, :lvl])
+    diff = (a + qp - y) % qp
+    return shoup_mul(diff, _u64(tdl.dqinv), _u64(tdl.dqinv_shoup), qp)
+
+
+def _drop_model(name, level, seed):
+    jctx, tctx = _contexts(name) if name != "resnet" else (None, TContext(
+        **_kwargs(name), device="cpu"))
+    tdl = tks.dev_level(tctx, level)
+    rng = np.random.default_rng(seed)
+    p = tdl.t.p.numpy()[:, None]
+    acc = rng.integers(0, 1 << 62, (2, p.shape[0], tctx.n),
+                       dtype=np.int64) % p
+    tacc = torch.as_tensor(acc)
+    # launch A's folded constant gives zq: w = n^-1 qhat_inv, w_sh its
+    # Shoup companion
+    rr = tdl.kernel_tables["drop_rows"]
+    w, w_sh = (t.numpy() for t in tdl.kernel_tables["drop_zs"])
+    qi = tdl.dropdown.qhat_inv[:, 0].numpy()
+    rp = rr.p.numpy()
+    assert np.array_equal(w, rr.ninv.numpy() * qi % rp)
+    assert np.array_equal(w_sh, (w << 32) // rp)
+    zq, z = launch_a_drop_model(tacc, tdl)
+    assert np.array_equal(
+        zq, z * qi.astype(np.uint64)[:, None] % rp.astype(np.uint64)[:, None])
+    assert np.array_equal(zq.astype(np.int64),
+                          krs.divisor_intt_plain(tacc, tdl, True).numpy())
+    v = pass_model(zq, tdl)
+    lift = target_model(zq, v, tdl)
+    for g in range(2):
+        plain = kks.fbc(torch.as_tensor(z[g].astype(np.int64)),
+                        tdl.dropdown, tdl.q.p[:level, None])
+        assert np.array_equal(plain.numpy(), lift[g].astype(np.int64))
+    out = launch_b_drop_model(tacc, lift, tdl).astype(np.int64)
+    b = krs.drop_lift_ntt_plain(
+        tacc, torch.as_tensor(zq.astype(np.int32)), tdl)
+    assert np.array_equal(b.numpy(), out)
+    return jctx, tdl, acc, z, lift, out
+
+
+@pytest.mark.parametrize("name,level",
+                         [("mlp", lv) for lv in (1, 2, 3, 4, 5)]
+                         + [("lenet", 7), ("narrow", 2)])
+def test_drop_hoisted_conversion(name, level):
+    """Launch A's zq, the pass's v and launch B's target half, walked over
+    one ciphertext, against orion_tpu's jitted fbc and mod_drop_rescale
+    and the port's plain launches."""
+    jctx, tdl, acc, z, lift, out = _drop_model(name, level, 60 + level)
+    jdl = jks.dev_level(jctx, level)
+    for g in range(2):
+        want = _JFBC(jnp.asarray(z[g].astype(np.uint32)), jdl.dropdown,
+                     jdl.q_p[:level, None])
+        assert np.array_equal(np.asarray(want).astype(np.uint64), lift[g])
+    jout = _JDROP(jnp.asarray(acc.astype(np.uint32)), jdl)
+    assert np.array_equal(np.asarray(jout).astype(np.int64), out)
+
+
+def test_drop_hoisted_conversion_resnet_top():
+    """configs/resnet.yml level 43: 7 divisor rows onto 43 targets, the
+    model against the port's fbc and plain launches only."""
+    tdl = _drop_model("resnet", 43, 143)[1]
+    assert tdl.kernel_tables["drop_rows"].p.shape[0] <= kks.MAX_ALPHA

@@ -1,57 +1,81 @@
 #!/usr/bin/env python3
-"""The rescale epilogue's kernels before and after their redesign, on one
-GPU.
+"""The rescale epilogues' kernels before and after a redesign, on one GPU.
 
     python3 tools/rescale_ab.py --unpack [--parent REV]     (needs git)
     python3 tools/rescale_ab.py [--order T,T,...] [--no-resnet]
                                                          (on the GPU)
 
-`rescale_poly`'s two launches (orion_tpu_torch/kernels/csrc/ntt.cu
-`drop_intt_rows`, then `rescale_lift_ntt`) were redesigned: launch B
-fetches the values of c its stores need into registers before anything
-that reads launch A's output; it reduces the centered lift with a Shoup
-product by one in place of `%`; it is launched as a programmatic
-dependent of launch A, which lets it start after its last store of z;
-its CI form enters the transform through `ntt_fwd_lift` (the kept half
-only, each value lifted once).  `--unpack` writes `git archive
-REV` (default 371c1e7, the tree before the redesign) to
-build/rescale_ab/parent/.  The run on the GPU measures each tree in its
-own process, in the order given (default: parent change change parent;
-each element on its own: parent,change,no_prefetch,mod,no_seam,change,
-parent):
+Unpack the parent where git is, then copy the checkout to the machine
+with the card and run the tool there from its root, keeping the output
+(the runs print long JSON lines; README.md gives the command).
 
-  parent       build/rescale_ab/parent/;
-  change       this checkout;
-  no_prefetch  a copy of this checkout whose launch B reads c in its
-               store, after the transform (as the parent did);
-  mod          a copy whose centered lift reduces with `%`;
-  no_seam      a copy whose launch B is an ordinary launch (it still
-               fetches c first; its wait then returns at once);
-  tw_prefetch  a copy whose launch B also asks for its twiddles in L1
-               before it waits (a design step that lost, PERF.md).
+Both epilogues run launch A (orion_tpu_torch/kernels/csrc/ntt.cu
+`drop_intt_rows`) then launch B: `rescale_lift_ntt` for `rescale_poly`,
+and for `mod_drop_rescale` the pass `hoist_digits` (csrc/hoist.cuh) and
+`drop_lift_ntt`.  The drop's design converts each divisor coefficient
+once: launch A stores each coefficient's zq = z * qhat_inv mod q (n^-1
+and qhat_inv folded into one Shoup constant per row), the pass sums
+each coefficient's float32 quotients into v (one byte), and launch B
+runs only the conversion's target half (L Shoup products and one for
+v * dmod) before its transform.  The pass and both launches B are
+programmatic dependents of the grid ahead of them; each launch B fetches
+what it reads of c or acc before it waits.  Launch A lets its dependent
+start as it starts, and each of its CTAs arrives on its cluster barrier
+as it starts and waits on it only before its first push into another CTA
+(its loads and first passes run while the cluster starts).  `--unpack`
+writes `git archive REV` (default 321124a, the tree before this
+redesign) to build/rescale_ab/parent/.  The run on the GPU measures each
+tree in its own process, in the order given (default: parent change
+change parent; each element on its own: parent,change,no_hoist,v_in_b,
+late_trigger,sync_first,change,parent):
+
+  parent              build/rescale_ab/parent/;
+  change              this checkout;
+  no_hoist            a copy whose drop converts as the parent did: launch
+                      A stores z, no pass, launch B runs the whole
+                      conversion per target row (fbc_one; it keeps the
+                      seam);
+  v_in_b              a copy with no pass: launch B sums each
+                      coefficient's v from the stored zq itself (L
+                      divisions per target coefficient, one grid fewer);
+  late_trigger        a copy whose launch A lets its dependent start only
+                      after its last store (as the parent did);
+  sync_first          a copy whose launch A syncs with its cluster before
+                      its loads (as the parent did);
+  plain_loads         a copy whose launch B reads zq and v with plain
+                      loads, not cached in L2 only (__ldcg).
+
+Each copy takes one element of the design out; the designs that lost
+(twiddles loaded before each barrier, other trigger placements of the
+pass) are written down with their numbers in PERF.md, Findings.
 
 Each run prints one line `AB {...}` beside the card's name and power
-limit: ptxas' registers and spills of both kernels at LogN 13 and 14 (and
-their CI forms); device ms per call (chip_smoke.py `device_ms`: calls
-queued behind a sleep kernel), each call held bit for bit against its
-plain version, of launch A, launch B alone (behind the call before it,
-which does not write c) and the pair (`rescale_poly`) over
-  - one ciphertext at configs/lenet.yml level 7 and configs/resnet.yml
-    levels 1, 7, 17 and 43, and a single poly at lenet 7 and resnet 43;
-  - stacks of 4, 8 and 16 polys at resnet levels 7, 17 and 43, and
-    (with the forward) the three largest stacks ResNet-20's forward
-    rescales and the three it rescales most often (its launch records);
-  - mod_drop_rescale at resnet level 43 (its launch B, row 1a, is not
-    changed) and LoLA-CI's pair at configs/lola.yml level 5;
-the device ms of A, of B and of the whole pair (the union of their
-intervals) from one profiled pair at lenet 7 and resnet 43; and (without
---no-resnet) ResNet-20 on configs/resnet.yml through the user entry
-points (chip_smoke.py `check_resnet`): MAE, first and two steady walls,
-the profiled forward's device time (union of intervals) by kernel and its
-busy share, the rescale launches by (level, polys), and a digest of the
-output ciphertexts, which must be equal in every run.  The last lines give
-each case's device ms per run and tree.  chip_smoke.py does not call this
-script.
+limit: ptxas' registers and spills of the epilogues' kernels at LogN 13
+and 14 (and the CI forms); device ms per call (chip_smoke.py
+`device_ms`: calls queued behind a sleep kernel), each call held bit for
+bit against its plain version, of launch A, launch B alone (the drop's
+with its pass; behind the call before it, which does not write c or acc)
+and the pair over
+  - rescale_poly: one ciphertext at configs/lenet.yml level 7 and
+    configs/resnet.yml levels 1, 7, 17 and 43, a single poly at lenet 7
+    and resnet 43, stacks of 4, 8 and 16 polys at resnet levels 7, 17 and
+    43, and (with the forward) the three largest stacks ResNet-20's
+    forward rescales and the three it rescales most often; LoLA-CI's pair
+    at configs/lola.yml level 5;
+  - mod_drop_rescale: one ciphertext at lenet 7 and resnet 1, 17 and 43,
+    and (with the forward) the largest deferred-ModDown stack ResNet-20's
+    forward divides and the most frequent one;
+the device ms of each kernel of the pair (launch A, the drop's pass,
+launch B) and of the whole pair (the union of their intervals) from one
+profiled pair of each epilogue at lenet 7 and resnet 43 and of the drop
+at resnet 1 and 17 and its stacks; and (without --no-resnet) ResNet-20
+on configs/resnet.yml through the user entry points (chip_smoke.py
+`check_resnet`): MAE, first and two steady walls, the profiled forward's
+device time (union of intervals) by kernel, the drop's pass apart from
+the key-switch's (`drop_pass`), its busy share, the rescale launches
+by (level, polys), and a digest of the output ciphertexts, which must be
+equal in every run.  The last lines give each case's device ms per run
+and tree.  chip_smoke.py does not call this script.
 """
 
 import argparse
@@ -65,28 +89,85 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 OUT = ROOT / "build" / "rescale_ab"
-PARENT = "371c1e7"
+PARENT = "321124a"
 ORDER = "parent,change,change,parent"
-KERNELS = ("drop_intt_rows", "rescale_lift_ntt", "drop_lift_ntt")
+KERNELS = ("drop_intt_rows", "rescale_lift_ntt", "drop_lift_ntt",
+           "hoist_digits")
 NTT_CU = "orion_tpu_torch/kernels/csrc/ntt.cu"
+HOIST = "orion_tpu_torch/kernels/csrc/hoist.cuh"
+RESCALE_PY = "orion_tpu_torch/kernels/rescale.py"
+# the drop's pass launch and its v argument, which no_hoist and v_in_b
+# take out
+_PASS = (
+    "        cudaError_t e = launch_hoist(\n"
+    "            z, vb, nullptr, 0, (int64_t)L * N, N, N, 1, groups, L, "
+    "nullptr,\n"
+    "            nullptr, qi, qi_sh, srcp, srcq, st, true);\n"
+    "        if (e != cudaSuccess) return e;\n")
+_B_LOAD = (
+    "            return fbc_target<false>(zg + i, N, __ldcg(vg + i), L, cw, "
+    "dm,\n"
+    "                                     dm_sh, pj);\n")
+_NO_PASS = (
+    (NTT_CU, _PASS, ""),
+    (NTT_CU, "    const uint8_t* vg = vb + g * N;\n", ""),
+    (RESCALE_PY, "items=groups * lvl, grids=2)", "items=groups * lvl)"))
 # (file, text, replacement) of each patched copy; each text occurs once
 PATCHES = {
-    "no_prefetch": (
-        (NTT_CU, "    if (cr < KEEP) {", "    if (false) {"),
-        (NTT_CU, "CI ? pos[slot] : o;", "CI ? (int)ci_pos[o] : o;"),
-        (NTT_CU, "sub_mod(pre[slot], v, pj)",
-         "sub_mod((uint32_t)a[k], v, pj)")),
-    "mod": ((NTT_CU, "shoup_mul(x, 1u, osh, pj)", "x % pj"),),
-    "no_seam": (
-        (NTT_CU, "launch_split_grid<LOGN, true>(",
-         "launch_split_grid<LOGN, false>("),),
-    "tw_prefetch": (
-        (NTT_CU, "    const int64_t* tw = twc + (int64_t)j * N;\n",
-         "    const int64_t* tw = twc + (int64_t)j * N;\n"
-         "    for (int i = (int)threadIdx.x * 16; i < SP::M;"
-         " i += SP::T * 16)\n"
-         "        asm volatile(\"prefetch.global.L1 [%0];\" ::\"l\"("
-         "tw + cr * SP::M + i));\n"),),
+    "no_hoist": _NO_PASS + (
+        (NTT_CU, "const uint32_t* z, const uint8_t* vb, int n_src,",
+         "const uint32_t* z, const int64_t* qi,\n"
+         "                            const int64_t* qi_sh, "
+         "const int64_t* srcp,\n"
+         "                            const float* srcq, int n_src,"),
+        (NTT_CU, _B_LOAD,
+         "            return fbc_one(zg + i, N, L, qi, qi_sh, srcp, srcq, "
+         "conv + j,\n"
+         "                           conv_sh + j, l, dm, dm_sh, pj);\n"),
+        (NTT_CU, "(const uint8_t*)vb, n_src,",
+         "qi, qi_sh, srcp, srcq, n_src,"),
+        (RESCALE_PY, 'ninv, ninv_sh = dl.kernel_tables["drop_zs"]',
+         "ninv, ninv_sh = rr.ninv, rr.ninv_shoup"),
+        (RESCALE_PY, "    if drop:\n        dg = dl.dropdown\n"
+         "        z = z * dg.qhat_inv % dg.src_p\n", ""),
+        (RESCALE_PY, "lift = torch.stack([fbc_from_zq(",
+         "lift = torch.stack([fbc(")),
+    "v_in_b": _NO_PASS + (
+        (NTT_CU, "const uint32_t* z, const uint8_t* vb, int n_src,",
+         "const uint32_t* z, const float* srcq, int n_src,"),
+        (NTT_CU, _B_LOAD,
+         "            uint32_t zz[MAX_ALPHA];\n"
+         "            float f = 0.0f;\n"
+         "#pragma unroll\n"
+         "            for (int m = 0; m < MAX_ALPHA; ++m)\n"
+         "                zz[m] = m < L ? zg[i + (int64_t)m * N] : 0u;\n"
+         "#pragma unroll\n"
+         "            for (int m = 0; m < MAX_ALPHA; ++m)\n"
+         "                if (m < L)\n"
+         "                    f = __fadd_rn(f, fbc_quot(zz[m], "
+         "__ldg(srcq + m)));\n"
+         "            uint32_t t = 0;\n"
+         "#pragma unroll\n"
+         "            for (int m = 0; m < MAX_ALPHA; ++m)\n"
+         "                if (m < L) t = add_mod(t, shoup_mul(zz[m], cw[m], "
+         "pj), pj);\n"
+         "            return sub_mod(t, shoup_mul(__float2uint_rn(f), dm, "
+         "dm_sh, pj),\n"
+         "                           pj);\n"),
+        (NTT_CU, "(const uint8_t*)vb, n_src,", "srcq, n_src,")),
+    "late_trigger": (
+        (NTT_CU, "    constexpr int W = row_width<LOGN, CI>();\n"
+         "    launch_dependents();\n",
+         "    constexpr int W = row_width<LOGN, CI>();\n"),
+        (NTT_CU, "            if (!CI || i < W) dst[i] = shoup_mul(v, nv, "
+         "nv_sh, pd);\n        });\n}\n",
+         "            if (!CI || i < W) dst[i] = shoup_mul(v, nv, nv_sh, "
+         "pd);\n        });\n    launch_dependents();\n}\n")),
+    "sync_first": (
+        (NTT_CU, "ntt_inv_split<LOGN, true>(", "ntt_inv_split<LOGN, false>("),),
+    "plain_loads": (
+        (NTT_CU, "__ldcg(vg + i)", "vg[i]"),
+        (HOIST, ": __ldcg(zq + m * zstride);", ": zq[m * zstride];")),
 }
 
 
@@ -134,7 +215,9 @@ def chip_smoke():
 
 
 def registers(libs):
-    """ptxas' registers and spills of the kernels at LogN 13 and 14."""
+    """ptxas' registers and spills of the epilogues' kernels in ntt.cu at
+    LogN 13 and 14 (the drop's pass, not templated on LogN, by its own
+    template argument)."""
     import re
 
     out = {}
@@ -143,11 +226,15 @@ def registers(libs):
         m = re.search(r"entry function '_Z(?:N5orion)?(\d+)", line)
         if m:
             base = line[m.end():m.end() + int(m.group(1))]
-            t = re.match(r"ILi(\d+)E(Lb([01])E)?",
-                         line[m.end() + int(m.group(1)):])
-            keep = base in KERNELS and t and t.group(1) in ("13", "14")
-            ci = ", CI" if keep and t.group(3) == "1" else ""
-            name = f"{base}<{t.group(1)}{ci}>" if keep else None
+            rest = line[m.end() + int(m.group(1)):]
+            t = re.match(r"ILi(\d+)E(Lb([01])E)?", rest)
+            if base == "hoist_digits":
+                name = base + ("<true>" if rest.startswith("ILb1E") else "")
+            elif base in KERNELS and t and t.group(1) in ("13", "14"):
+                ci = ", CI" if t.group(3) == "1" else ""
+                name = f"{base}<{t.group(1)}{ci}>"
+            else:
+                name = None
         elif name and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores",
                                   line).group(1))
@@ -158,9 +245,10 @@ def registers(libs):
     return out
 
 
-def rescale_cases(cs, cases, dl, x, label, what="rescale"):
-    """Launch A, launch B and the pair over x, each against its plain
-    version (chip_smoke.py `check_epilogues` for one shape)."""
+def epilogue_cases(cs, cases, dl, x, label, what="rescale"):
+    """Launch A, launch B (the drop's with its pass) and the pair over x,
+    each against its plain version (chip_smoke.py `check_epilogues` for
+    one shape)."""
     from orion_tpu_torch.kernels import rescale as krs
 
     n, level = dl.ring_n, dl.level
@@ -188,8 +276,10 @@ def rescale_cases(cs, cases, dl, x, label, what="rescale"):
     return lambda: pair(x, dl)
 
 
-def cases(cs, cfgs, stats, stacks):
-    """Every case; returns {label: pair call} for the profiled split."""
+def cases(cs, cfgs, stats, stacks, drops):
+    """Every case; returns {label: pair call} for the profiled split.
+    stacks: ResNet-20's (level, polys) of rescale_poly to add; drops: its
+    (level, polys) of mod_drop_rescale."""
     import torch
 
     from orion_tpu_torch.crypto.keyswitch import dev_level
@@ -201,13 +291,16 @@ def cases(cs, cfgs, stats, stacks):
         x = torch.randint(0, 1 << 62, shape, generator=gen, device="cuda")
         return x % p[:, None]
 
-    deep = sorted({1, 7, 17, 43} | {lv for lv, _ in stacks})
+    deep = sorted({1, 7, 17, 43} | {lv for lv, _ in stacks}
+                  | {lv for lv, _ in drops})
     for tag, levels in (("lenet", (7,)), ("resnet", deep)):
         ctx = cs.make_context(cfgs[tag])
         cases_ = cs.Cases(ctx, tag, stats, iters=50, plain_iters=0)
         for level in levels:
             dl = dev_level(ctx, level)
-            shapes = [(2,)] + ([()] if level in (7, 43) else [])
+            shapes = []
+            if tag == "lenet" or level in (1, 7, 17, 43):
+                shapes = [(2,)] + ([()] if level in (7, 43) else [])
             if tag == "resnet" and level in (7, 17, 43):
                 shapes += [(g,) for g in (4, 8, 16)]
             shapes += [(g,) for lv, g in stacks if lv == level
@@ -215,18 +308,25 @@ def cases(cs, cfgs, stats, stacks):
             for batch in shapes:
                 x = residues(batch + (level + 1, ctx.n), dl.q.p)
                 label = f"rescale {batch + (level + 1, ctx.n)}"
-                pair = rescale_cases(cs, cases_, dl, x, label)
+                pair = epilogue_cases(cs, cases_, dl, x, label)
                 if batch == (2,) and level in (7, 43):
                     calls[f"{tag} level {level} {label}"] = pair
-            if tag == "resnet" and level == 43:
-                x = residues((2, dl.t.p.shape[0], ctx.n), dl.t.p)
-                rescale_cases(cs, cases_, dl, x,
-                              f"drop {(2, dl.t.p.shape[0], ctx.n)}", "drop")
+            n_t = dl.t.p.shape[0]
+            dshapes = ([(2,)] if tag == "lenet" or level in (1, 17, 43)
+                       else [])
+            dshapes += [(g,) for lv, g in drops if lv == level
+                        and tag == "resnet" and (g,) not in dshapes]
+            for batch in dshapes:
+                x = residues(batch + (n_t, ctx.n), dl.t.p)
+                label = f"drop {batch + (n_t, ctx.n)}"
+                pair = epilogue_cases(cs, cases_, dl, x, label, "drop")
+                calls[f"{tag} level {level} {label}"] = pair
     ctx = cs.make_context(cfgs["lola"])
     dl = dev_level(ctx, 5)
     x = residues((2, 6, ctx.n), dl.q.p)
-    rescale_cases(cs, cs.Cases(ctx, "lola", stats, iters=50, plain_iters=0),
-                  dl, x, f"rescale CI {(2, 6, ctx.n)}")
+    epilogue_cases(cs, cs.Cases(ctx, "lola", stats, iters=50,
+                                plain_iters=0),
+                   dl, x, f"rescale CI {(2, 6, ctx.n)}")
     return calls
 
 
@@ -255,25 +355,36 @@ def pair_split(cs, calls):
     return out
 
 
+def _sizes(batches, kernel):
+    """{(level, polys): launches} of one kernel from a forward's batches
+    ({kernel: {level: {items: launches}}}, items = polys * level)."""
+    return {(lv, items // lv): n
+            for lv, by in batches.get(kernel, {}).items()
+            for items, n in by.items()}
+
+
 def resnet(cs, cfg):
     """ResNet-20 through the user entry points; its profile by kernel and
     the rescale launches by (level, polys)."""
     rec = cs.check_resnet(cfg, more_steady=1)
     pr = rec["profile"]
-    b = rec["batches"].get("rescale_ntt", {})
-    sizes = {f"{lv} x {items // lv}": n for lv, by in b.items()
-             for items, n in by.items()}
+    by = {k: v for k, v in pr["our_kernels_by_name"].items() if v}
+    by["drop_lift_ntt + its pass"] = (by.get("drop_lift_ntt", 0.0)
+                                      + by.get("drop_pass", 0.0))
     return {"mae": rec["mae"], "first_s": rec["first_s"],
             "steady_s": [rec["steady_s"]] + rec["more_steady_s"],
             "profiled_wall_ms": pr["wall_ms"], "device_ms": pr["device_ms"],
             "busy_share": pr["busy_share"], "device_ops": pr["device_ops"],
             "port_kernels_ms": pr["our_kernels_ms"],
-            "by_kernel": {k: v for k, v in pr["our_kernels_by_name"].items()
-                          if v}, "top": pr["top"],
+            "by_kernel": by, "top": pr["top"],
             "rescale_launches": {k: v for k, v in rec["launches"].items()
                                  if k in ("drop_intt", "rescale_ntt",
                                           "drop_ntt")},
-            "rescale_sizes": sizes, "out_sha256": rec["out_sha256"]}
+            "rescale_sizes": {f"{lv} x {g}": n for (lv, g), n in
+                              _sizes(rec["batches"], "rescale_ntt").items()},
+            "drop_sizes": {f"{lv} x {g}": n for (lv, g), n in
+                           _sizes(rec["batches"], "drop_ntt").items()},
+            "out_sha256": rec["out_sha256"]}
 
 
 def measure(label, with_resnet):
@@ -304,17 +415,26 @@ def measure(label, with_resnet):
     for tag in ("lenet", "resnet", "lola"):
         with open(cs.CONFIGS[tag]) as f:
             cfgs[tag] = yaml.safe_load(f)
-    stacks = []
+    stacks, drops = [], []
     if with_resnet:
         rec["resnet"] = resnet(cs, cfgs["resnet"])
-        sizes = {tuple(map(int, k.split(" x "))): n
-                 for k, n in rec["resnet"]["rescale_sizes"].items()}
-        largest = sorted(sizes, key=lambda s: (-s[1], -s[0]))[:3]
-        often = sorted(sizes, key=lambda s: -sizes[s])[:3]
+
+        def sizes(key):
+            return {tuple(map(int, k.split(" x "))): n
+                    for k, n in rec["resnet"][key].items()}
+
+        sz = sizes("rescale_sizes")
+        largest = sorted(sz, key=lambda s: (-s[1], -s[0]))[:3]
+        often = sorted(sz, key=lambda s: -sz[s])[:3]
         stacks = list(dict.fromkeys(largest + often))
+        # the deferred ModDown's stacks: the largest, the most frequent
+        dz = {k: n for k, n in sizes("drop_sizes").items() if k[1] > 2}
+        drops = list(dict.fromkeys(
+            sorted(dz, key=lambda s: (-s[1], -s[0]))[:1]
+            + sorted(dz, key=lambda s: -dz[s])[:1]))
         torch.cuda.empty_cache()
     stats = {}
-    calls = cases(cs, cfgs, stats, stacks)
+    calls = cases(cs, cfgs, stats, stacks, drops)
     rec["pair_split"] = pair_split(cs, calls)
     rec["cases"] = {f"{r['label']} [{name}]": {
         "device_ms": r["device_ms"], "ms": r["ms"],
